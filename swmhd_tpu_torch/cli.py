@@ -1,0 +1,166 @@
+"""Command-line runner for named scenarios, port of :mod:`swmhd_tpu.cli`:
+
+    python -m swmhd_tpu_torch.cli list
+    python -m swmhd_tpu_torch.cli run 128x128_two_Gaussians_high_B \
+        --outdir runs/high_B                  # on the GPU, CUDA kernel
+    python -m swmhd_tpu_torch.cli run 64x64_two_Gaussians_high_B \
+        --device cpu --dtype float64          # plain PyTorch on the CPU
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+import torch
+
+
+def _add_run_args(p):
+    p.add_argument("scenario")
+    p.add_argument("--formulation", default="vector_invariant",
+                   choices=["vector_invariant", "conservative"])
+    p.add_argument("--dt", type=float, default=None)
+    p.add_argument("--stop-time", type=float, default=None)
+    p.add_argument("--outdir", default=None)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    p.add_argument("--fields-interval", type=float, default=0.1,
+                   help="TimeInterval for field snapshots (reference: 0.1)")
+    p.add_argument("--energies-every", type=int, default=1,
+                   help="IterationInterval for energy series (reference: 1)")
+    p.add_argument("--progress-every", type=int, default=100)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="iterations between checkpoints (0 = off)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint file to resume from")
+    p.add_argument("--fused", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="on CUDA, step through the hand-written substage "
+                        "kernel (default); --no-fused runs the plain "
+                        "PyTorch step")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def cmd_list(_args):
+    from . import scenarios
+    for name in scenarios.names():
+        sc = scenarios.get(name)
+        print(f"{name:34s} N={sc.N:<5d} stop_time={sc.stop_time:<6g} "
+              f"{sc.description}")
+
+
+def select_stepper(model, fused: bool = True):
+    """``(stepper, label)``; ``stepper=None`` is the plain PyTorch step.
+
+    On CUDA with ``fused`` the run goes through the CUDA kernel, and a
+    configuration the kernel does not cover raises ``ValueError`` (no
+    silent plain run). On the CPU there is no kernel to select."""
+    if not fused:
+        return None, "plain"
+    if torch.device(model.grid.device).type != "cuda":
+        logging.info("no CUDA kernel on %s; plain PyTorch step",
+                     model.grid.device)
+        return None, "plain"
+    from .ops.substage import KernelStepper
+    return KernelStepper(model), "kernel"
+
+
+def cmd_run(args):
+    from . import scenarios, diagnostics, checkpoint
+    from . import operators as op
+    from .simulation import (
+        Simulation, IterationInterval, TimeInterval, Callback,
+        progress_callback)
+    from .io import FieldWriter, ScalarSeriesWriter
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(message)s")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but CUDA is not available "
+                           "(use --device cpu for the plain CPU path)")
+
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    model, state, sc = scenarios.build(args.scenario, args.formulation,
+                                       dtype=dtype, device=args.device)
+    dt = args.dt if args.dt is not None else sc.dt
+    stop_time = args.stop_time if args.stop_time is not None else sc.stop_time
+
+    # potential energy is measured against the scenario's t = 0 height,
+    # captured before a resume replaces the state
+    h0 = state.h
+    if args.resume:
+        state = checkpoint.restore(args.resume, model.grid)
+
+    outdir = args.outdir or os.path.join(
+        "runs", f"{args.scenario}_{args.formulation}")
+    os.makedirs(outdir, exist_ok=True)
+
+    stepper, path = select_stepper(model, args.fused)
+    logging.info("stepper: %s", path)
+    sim = Simulation(model, dt=dt, stop_time=stop_time, stepper=stepper)
+    sim.callbacks["progress"] = Callback(
+        progress_callback(), IterationInterval(args.progress_every))
+
+    def field_outputs():
+        # one evaluation per snapshot shared by all five outputs
+        cache = {}
+
+        def compute(st):
+            u, v = model.velocities(st)
+            g = model.grid
+            s = torch.sqrt(op.ix_c(u, g) ** 2 + op.iy_c(v, g) ** 2)
+            return {"A": st.A, "h": st.h, "u": u, "v": v, "s": s}
+
+        def getter(name):
+            def fn(sim):
+                if cache.get("key") is not sim.state:
+                    cache["key"] = sim.state
+                    cache["val"] = compute(sim.state)
+                return cache["val"][name]
+            return fn
+        return {name: getter(name) for name in ("A", "h", "u", "v", "s")}
+
+    sim.output_writers["fields"] = FieldWriter(
+        outputs=field_outputs(),
+        schedule=TimeInterval(args.fields_interval),
+        path=os.path.join(outdir, "fields"))
+
+    energy_names = ("kinetic_energy", "magnetic_energy",
+                    "potential_energy", "total_energy", "cross_helicity")
+
+    def energies(model, state):
+        rep = diagnostics.energy_report(model, state, h0)
+        return {name: rep[name] for name in energy_names}
+
+    sim.output_writers["energies"] = ScalarSeriesWriter(
+        fn=energies,
+        schedule=IterationInterval(args.energies_every),
+        path=os.path.join(outdir, "energies.csv"))
+
+    if args.checkpoint_every:
+        def ckpt(s):
+            checkpoint.save(os.path.join(outdir, "checkpoint.npz"),
+                            s.state, s.model.grid)
+        sim.callbacks["checkpoint"] = Callback(
+            ckpt, IterationInterval(args.checkpoint_every))
+
+    final = sim.run(state)
+    checkpoint.save(os.path.join(outdir, "final.npz"), final, model.grid)
+    print(f"done: {outdir} ({sim.run_wall_time:.1f}s wall, {path})")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="swmhd_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("list").set_defaults(func=cmd_list)
+    runp = sub.add_parser("run")
+    _add_run_args(runp)
+    runp.set_defaults(func=cmd_run)
+    args = ap.parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,254 @@
+"""Vector-invariant shallow-water MHD model, port of
+:mod:`swmhd_tpu.models.shallow_water` (``formulation="vector_invariant"``).
+
+    ∂t u = +⟨ζ v⟩ᵘᵖ + f v̄ − ∂x(K + g h) + F_u
+    ∂t v = −⟨ζ u⟩ᵘᵖ − f ū − ∂y(K + g h) + F_v
+    ∂t h = −∇·(u h̃)                       (h̃ WENO5-reconstructed)
+    ∂t A = ( A ∇·U − ∇·(U Ã) ) / h,   U = (u h̃, v h̃)
+
+The vorticity flux is the upwinded vector-invariant WENO with
+VelocityStencil weights: ζ at (f,f) is reconstructed transverse to each
+momentum component with WENO5 candidates, and the nonlinear weights come
+from the averaged smoothness of u and v interpolated to (f,f). Time
+stepping is the Le–Moin low-storage RK3.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional
+
+import torch
+
+from ..grid import Grid, BOUNDED
+from .. import operators as op
+from ..advection import (
+    AdvectionScheme, WENO5, get_scheme, upwind_biased_product,
+    weno_candidates_left, weno_candidates_right, weno_betas_left,
+    shift_betas_left_to_right, _weno_combine,
+)
+from ..physics.coriolis import FPlane
+from .state import Clock, State
+
+VECTOR_INVARIANT = "vector_invariant"
+CONSERVATIVE = "conservative"
+
+# Le & Moin (1991) low-storage RK3 (Oceananigans' :RungeKutta3).
+RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
+RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShallowWaterModel:
+    grid: Grid
+    formulation: str = VECTOR_INVARIANT
+    gravitational_acceleration: float = 9.81
+    coriolis: FPlane = FPlane(0.0)
+    momentum_advection: AdvectionScheme = WENO5
+    mass_advection: AdvectionScheme = WENO5
+    tracer_advection: AdvectionScheme = WENO5
+    closure: object = None
+    forcing: tuple = ()               # ((name, fn), ...) name in u,v,h,A
+    # Static linear background γ·y of A: state.A is the perturbation and
+    # the tracer tendency gains the discrete source −γ·ℑyᶜ(Vf)/h.
+    A_background_gradient_y: float = 0.0
+
+    def __post_init__(self):
+        if self.formulation == CONSERVATIVE:
+            raise NotImplementedError(
+                "the conservative formulation is not ported yet "
+                "(ROADMAP.md, queue 1 item 8)")
+        if self.formulation != VECTOR_INVARIANT:
+            raise ValueError(f"unknown formulation {self.formulation!r}")
+        if self.closure is not None:
+            raise NotImplementedError(
+                "closures are not ported yet (ROADMAP.md, queue 1 item 9)")
+        for name in ("momentum_advection", "mass_advection",
+                     "tracer_advection"):
+            object.__setattr__(self, name, get_scheme(getattr(self, name)))
+        if self.momentum_advection.name != "weno5":
+            raise NotImplementedError(
+                "only the WENO5 vorticity flux is ported "
+                "(ROADMAP.md, queue 1 item 9)")
+        if isinstance(self.forcing, Mapping):
+            object.__setattr__(self, "forcing", tuple(self.forcing.items()))
+
+    # -- construction ---------------------------------------------------------
+
+    def initial_state(self, u=None, v=None, h=None, A=None) -> State:
+        """Each entry is a callable ``fn(x, y)`` evaluated on its staggered
+        mesh, a tensor, or a scalar (the ``set!`` analog)."""
+        g = self.grid
+
+        def ev(val, loc, default=0.0):
+            if val is None:
+                val = default
+            if callable(val):
+                return g.evaluate(val, loc)
+            arr = torch.as_tensor(val, dtype=g.dtype, device=g.device)
+            if arr.ndim == 0:
+                return torch.full(g.shape, float(arr), dtype=g.dtype,
+                                  device=g.device)
+            return arr
+
+        u_arr, v_arr = self._mask_walls(ev(u, "fc"), ev(v, "cf"))
+        return State(h=ev(h, "cc", 1.0), u=u_arr, v=v_arr, A=ev(A, "cc"))
+
+    def velocities(self, state: State):
+        return state.u, state.v
+
+    # -- tendencies -------------------------------------------------------------
+
+    def tendencies(self, state: State) -> State:
+        """G = ∂t(state) as a State (clock untouched)."""
+        Gu, Gv, Gh, GA = self._tendencies_vector_invariant(state)
+        Gu, Gv, Gh, GA = self._apply_forcing(state, Gu, Gv, Gh, GA)
+        Gu, Gv = self._mask_walls(Gu, Gv)
+        return State(h=Gh, u=Gu, v=Gv, A=GA, clock=state.clock)
+
+    def _mask_walls(self, u_like, v_like):
+        """No penetration: the wall-normal velocity (or its tendency) is
+        zero on face 0 of a BOUNDED axis; the far wall face is not stored
+        and its zero flux is enforced by the flux differences."""
+        g = self.grid
+        if g.topology_x == BOUNDED:
+            u_like = torch.where(op.index_x(u_like) == 0, 0.0, u_like)
+        if g.topology_y == BOUNDED:
+            v_like = torch.where(op.index_y(v_like) == 0, 0.0, v_like)
+        return u_like, v_like
+
+    def _apply_forcing(self, state, Gu, Gv, Gh, GA):
+        fields = {"h": state.h, "A": state.A, "u": state.u, "v": state.v}
+        for name, fn in self.forcing:
+            names = name if isinstance(name, tuple) else (name,)
+            contribs = fn(self.grid, state.clock, fields)
+            if len(names) == 1:
+                contribs = (contribs,)
+            for nm, c in zip(names, contribs):
+                if nm == "u":
+                    Gu = Gu + c
+                elif nm == "v":
+                    Gv = Gv + c
+                elif nm == "h":
+                    Gh = Gh + c
+                elif nm == "A":
+                    GA = GA + c
+                else:
+                    raise ValueError(f"forcing on unknown prognostic {nm!r}")
+        return Gu, Gv, Gh, GA
+
+    def _tendencies_vector_invariant(self, state):
+        g = self.grid
+        u, v, h, A = state.u, state.v, state.h, state.A
+        gacc = self.gravitational_acceleration
+
+        # mass flux with WENO5-reconstructed h
+        ms = self.mass_advection
+        Uf = upwind_biased_product(u, *ms.both_x_f(h, g))
+        Vf = upwind_biased_product(v, *ms.both_y_f(h, g))
+        divU = op.ddx_c_flux(Uf, g) + op.ddy_c_flux(Vf, g)
+        Gh = -divU
+
+        # vorticity flux + Bernoulli gradient
+        zeta = op.vorticity_ff(u, v, g)
+        vort_u, vort_v = self._weno_vorticity_flux(u, v, zeta, g)
+        K = op.kinetic_energy_cc(u, v, g)
+        Gu = vort_u - op.ddx_f(K + gacc * h, g)
+        Gv = vort_v - op.ddy_f(K + gacc * h, g)
+
+        Gu = Gu + self.coriolis.tendency_u(v, g)
+        Gv = Gv + self.coriolis.tendency_v(u, g)
+
+        GA = self._tracer_tendency(A, h, Uf, Vf, divU)
+        return Gu, Gv, Gh, GA
+
+    def _weno_vorticity_flux(self, u, v, zeta, g):
+        """⟨ζ v⟩ᵘᵖ at (f,c) and −⟨ζ u⟩ᵘᵖ at (c,f), VelocityStencil."""
+        shx = lambda a, n: op.shift_x(a, n, g)
+        shy = lambda a, n: op.shift_y(a, n, g)
+        u_ff = op.iy_f(u, g)   # u interpolated to (f,f)
+        v_ff = op.ix_f(v, g)   # v interpolated to (f,f)
+
+        def avg_betas(a, b, sh):
+            ba = weno_betas_left(a, sh)
+            bb = weno_betas_left(b, sh)
+            return tuple(0.5 * (x + y) for x, y in zip(ba, bb))
+
+        # u-equation: reconstruct ζ along y onto (f,c); the center-from-
+        # faces reconstruction at j is the face form at j+1.
+        zeta_y = shy(zeta, 1)
+        bl = avg_betas(shy(u_ff, 1), shy(v_ff, 1), shy)
+        zl = _weno_combine(weno_candidates_left(zeta_y, shy), bl)
+        zr = _weno_combine(weno_candidates_right(zeta_y, shy),
+                           shift_betas_left_to_right(bl, shy))
+        vort_u = upwind_biased_product(op.ixy_fc(v, g), zl, zr)
+
+        # v-equation: reconstruct ζ along x onto (c,f).
+        zeta_x = shx(zeta, 1)
+        bl = avg_betas(shx(u_ff, 1), shx(v_ff, 1), shx)
+        zl = _weno_combine(weno_candidates_left(zeta_x, shx), bl)
+        zr = _weno_combine(weno_candidates_right(zeta_x, shx),
+                           shift_betas_left_to_right(bl, shx))
+        vort_v = -upwind_biased_product(op.ixy_cf(u, g), zl, zr)
+        return vort_u, vort_v
+
+    def _tracer_tendency(self, A, h, Uf, Vf, divU):
+        """∂t A = (A ∇·U − ∇·(U Ã))/h, minus γ·ℑyᶜ(Vf)/h for a linear
+        background γ·y."""
+        g = self.grid
+        ts = self.tracer_advection
+        fx = upwind_biased_product(Uf, *ts.both_x_f(A, g))
+        fy = upwind_biased_product(Vf, *ts.both_y_f(A, g))
+        div_flux = op.ddx_c_flux(fx, g) + op.ddy_c_flux(fy, g)
+        GA = (A * divU - div_flux) / h
+        gamma = self.A_background_gradient_y
+        if gamma:
+            GA = GA - gamma * op.iy_c(Vf, g) / h
+        return GA
+
+    # -- time stepping ---------------------------------------------------------------
+
+    def step(self, state: State, dt) -> State:
+        """One Le–Moin RK3 step (three tendency evaluations)."""
+        G_prev = None
+        s = state
+        for gamma, zeta_c in zip(RK3_GAMMA, RK3_ZETA):
+            G = self.tendencies(s)
+            if G_prev is None:
+                incr = [dt * gamma * gn for gn in G.fields()]
+            else:
+                incr = [dt * (gamma * gn + zeta_c * gp)
+                        for gn, gp in zip(G.fields(), G_prev.fields())]
+            s = s.replace(h=s.h + incr[0], u=s.u + incr[1],
+                          v=s.v + incr[2], A=s.A + incr[3])
+            G_prev = G
+        return s.replace(clock=state.clock.tick(dt))
+
+    def step_fn(self, dt, n_steps: int = 1,
+                diagnostics: Optional[Callable] = None):
+        """``state -> state`` advancing ``n_steps`` RK3 steps; with
+        ``diagnostics`` (``state -> {name: 0-d tensor}``) it returns
+        ``(state, {name: (n_steps,) tensor})`` with the series left on the
+        device. Time is reconstructed as ``t0 + (k+1)·dt``."""
+        return run_steps(lambda s: self.step(s, dt), dt, n_steps,
+                          diagnostics)
+
+
+def run_steps(one_step, dt, n_steps, diagnostics):
+    """The chunk loop shared by every stepper: ``one_step`` advances the
+    fields by one RK3 step; the clock is set from the step index."""
+    def fn(state: State):
+        t0, it0 = state.clock.time, state.clock.iteration
+        rows = []
+        s = state
+        for k in range(n_steps):
+            s = one_step(s)
+            s = s.replace(clock=Clock(t0 + (k + 1) * dt, it0 + k + 1))
+            if diagnostics is not None:
+                rows.append(diagnostics(s))
+        if diagnostics is None:
+            return s
+        series = {name: torch.stack([r[name] for r in rows])
+                  for name in rows[0]} if rows else {}
+        return s, series
+    return fn

@@ -1,0 +1,213 @@
+"""The RK3 substage on the card: wrappers of ``csrc/substage.cu``, their
+plain PyTorch versions, and the :class:`KernelStepper` that drives a
+:class:`~swmhd_tpu_torch.simulation.Simulation` through them.
+
+Counterparts of the Pallas kernels of ``swmhd_tpu/ops/fused_step.py``:
+:func:`substage` of the windowed substage (``fused_step_fn``) and
+:func:`multistep` of the resident multi-step kernel
+(``resident_step_fn``). The prognostics travel stacked as one
+``(4, Nx, Ny)`` tensor in the order h, u, v, A.
+
+Dispatch: on a CPU tensor a wrapper runs its plain version; on a CUDA
+tensor it launches the kernel or raises. A configuration the kernel does
+not cover raises ``ValueError`` on CUDA. Each wrapper counts its launches
+in ``<wrapper>.launches`` and each plain version its calls in
+``<function>.calls``, so a run can show which path it took.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..grid import PERIODIC
+from ..models.shallow_water import RK3_GAMMA, RK3_ZETA, run_steps
+from ..models.state import Clock, State
+
+N_TMP = 12          # intermediates between the two kernels of a substage
+MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
+
+
+# -- plain versions ------------------------------------------------------------
+
+def substage_reference(model, s, dt, stage, g_prev=None):
+    """Substage ``stage`` (0, 1, 2) of the Le–Moin step on stacked fields:
+    ``(s + dt (γ G + ζ G_prev), G)`` with G = ``model.tendencies(s)``."""
+    substage_reference.calls += 1
+    G = torch.stack(model.tendencies(State(*s)).fields())
+    inc = RK3_GAMMA[stage] * G
+    if g_prev is not None:
+        inc = inc + RK3_ZETA[stage] * g_prev
+    return s + dt * inc, G
+
+
+def multistep_reference(model, s, dt, n_steps):
+    """``n_steps`` RK3 steps on stacked fields through
+    :func:`substage_reference`."""
+    multistep_reference.calls += 1
+    for _ in range(n_steps):
+        g = None
+        for stage in range(3):
+            s, g = substage_reference(model, s, dt, stage, g)
+    return s
+
+
+# -- kernel wrappers -------------------------------------------------------------
+
+def kernel_params(model):
+    """``(dx, dy, g, f, A_bg_grad_y)`` of a model the kernel covers;
+    ``ValueError`` naming what it does not cover otherwise."""
+    g = model.grid
+    if model.formulation != "vector_invariant":
+        raise ValueError("the CUDA substage covers the vector-invariant "
+                         "formulation only")
+    if (g.topology_x, g.topology_y) != (PERIODIC, PERIODIC):
+        raise ValueError("the CUDA substage covers periodic x and y; "
+                         "bounded walls are the next slice (ROADMAP.md)")
+    if model.closure is not None:
+        raise ValueError("the CUDA substage has no closure")
+    if g.Nx < MIN_POINTS or g.Ny < MIN_POINTS:
+        raise ValueError(f"the CUDA substage needs Nx, Ny >= {MIN_POINTS}; "
+                         f"got {g.Nx}x{g.Ny}")
+    for name in ("momentum_advection", "mass_advection", "tracer_advection"):
+        if getattr(model, name).name != "weno5":
+            raise ValueError(f"the CUDA substage needs WENO5 {name}")
+    gamma = model.A_background_gradient_y
+    forcing = dict(model.forcing)
+    fn = forcing.get(("u", "v"))
+    if (len(forcing) != 1 or fn is None
+            or getattr(fn, "jacobian_lorentz_A_bg_grad_y", None) != gamma):
+        raise ValueError("the CUDA substage computes exactly the jacobian "
+                         "Lorentz forcing (jacobian_lorentz_forcing with the "
+                         "model's A_background_gradient_y)")
+    return (g.dx, g.dy, float(model.gravitational_acceleration),
+            float(model.coriolis.f), float(gamma))
+
+
+def _check_fields(model, s):
+    g = model.grid
+    if s.shape != (4, g.Nx, g.Ny):
+        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}); "
+                         f"got {tuple(s.shape)}")
+    if s.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CUDA substage takes float32 or float64, "
+                         f"not {s.dtype}")
+    if not s.is_contiguous():
+        raise ValueError("stacked fields must be contiguous")
+
+
+def _lib_fn(name, dtype):
+    from . import _build
+    return _build.load().fn(name, "f32" if dtype == torch.float32 else "f64")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def substage(model, s, dt, stage, g_prev=None, write_G=True):
+    """One Le–Moin substage on stacked fields ``s``; returns
+    ``(s_new, G)`` with ``G`` None unless ``write_G``."""
+    if s.device.type == "cpu":
+        s_new, G = substage_reference(model, s, dt, stage, g_prev)
+        return s_new, (G if write_G else None)
+    params = kernel_params(model)
+    _check_fields(model, s)
+    if (stage > 0) != (g_prev is not None):
+        raise ValueError("substages 1 and 2 take G_prev; substage 0 does not")
+    if g_prev is not None and (g_prev.shape != s.shape
+                               or g_prev.dtype != s.dtype
+                               or g_prev.device != s.device
+                               or not g_prev.is_contiguous()):
+        raise ValueError("G_prev must match the stacked fields")
+    s_out = torch.empty_like(s)
+    g_out = torch.empty_like(s) if write_G else None
+    tmp = torch.empty((N_TMP,) + tuple(s.shape[1:]), dtype=s.dtype,
+                      device=s.device)
+    fn = _lib_fn("swmhd_substage", s.dtype)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
+             model.grid.Nx, model.grid.Ny, *params, float(dt),
+             RK3_GAMMA[stage], RK3_ZETA[stage], stream)
+    substage.launches += 1
+    _raise_on(err, "swmhd_substage")
+    return s_out, g_out
+
+
+def multistep(model, s, dt, n_steps):
+    """``n_steps`` RK3 steps on stacked fields ``s`` (left unchanged)."""
+    if s.device.type == "cpu":
+        return multistep_reference(model, s, dt, n_steps)
+    params = kernel_params(model)
+    _check_fields(model, s)
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    out = torch.empty_like(s)
+    work = torch.empty_like(s)
+    gbuf = torch.empty((2,) + tuple(s.shape), dtype=s.dtype, device=s.device)
+    tmp = torch.empty((N_TMP,) + tuple(s.shape[1:]), dtype=s.dtype,
+                      device=s.device)
+    fn = _lib_fn("swmhd_multistep", s.dtype)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
+             model.grid.Nx, model.grid.Ny, *params, float(dt),
+             int(n_steps), stream)
+    multistep.launches += 1
+    _raise_on(err, "swmhd_multistep")
+    return out
+
+
+def reset_counters():
+    for f in (substage, multistep):
+        f.launches = 0
+    for f in (substage_reference, multistep_reference):
+        f.calls = 0
+
+
+reset_counters()
+
+
+# -- the stepper -------------------------------------------------------------------
+
+def stack(state: State) -> torch.Tensor:
+    return torch.stack(state.fields())
+
+
+def unstack(s: torch.Tensor, clock: Clock) -> State:
+    h, u, v, A = s.unbind(0)
+    return State(h=h, u=u, v=v, A=A, clock=clock)
+
+
+class KernelStepper:
+    """``Simulation(model, ..., stepper=KernelStepper(model))`` drives a
+    run through the CUDA substage (the ``step_fn(dt, n_steps,
+    diagnostics)`` contract of the model's own step).
+
+    A chunk without per-step diagnostics is one :func:`multistep` call.
+    With them the state has to surface after every step, so each step is
+    three :func:`substage` calls and the series stays on the device."""
+
+    def __init__(self, model):
+        kernel_params(model)
+        self.model = model
+
+    def step_fn(self, dt, n_steps: int = 1, diagnostics=None):
+        model = self.model
+        if diagnostics is None:
+            def fn(state: State) -> State:
+                c = state.clock
+                s = multistep(model, stack(state), dt, n_steps)
+                return unstack(s, Clock(c.time + n_steps * dt,
+                                        c.iteration + n_steps))
+            return fn
+
+        def one_step(state: State) -> State:
+            s, g = stack(state), None
+            for stage in range(3):
+                s, g = substage(model, s, dt, stage, g, write_G=stage < 2)
+            return unstack(s, state.clock)
+        return run_steps(one_step, dt, n_steps, diagnostics)

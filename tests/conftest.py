@@ -39,6 +39,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: designed to run on the real TPU backend "
         "(SWMHD_TEST_TPU=1); everything else assumes the f64 CPU mesh")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of swmhd_tpu_torch on a card; "
+        "skips where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,106 @@
+"""The port's main path end to end on the CPU: ``swmhd_tpu_torch.cli run``
+writes the energy series and a ``final.npz`` that the JAX package restores
+and evaluates to the same energies; the port never imports JAX; and the
+stepper selection never moves a CUDA run to the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swmhd_tpu import checkpoint as jckpt
+from swmhd_tpu import diagnostics as jdiag
+from swmhd_tpu import scenarios as jscen
+from swmhd_tpu.io.readers import FieldTimeSeries
+from swmhd_tpu_torch import cli
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENARIO = "64x64_two_Gaussians_high_B"
+ENERGIES = ("kinetic_energy", "magnetic_energy", "potential_energy",
+            "total_energy", "cross_helicity")
+
+
+def run(outdir, *extra):
+    cli.main(["run", SCENARIO, "--device", "cpu", "--dtype", "float64",
+              "--outdir", str(outdir), *extra])
+
+
+def read_csv(path):
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    return header, np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+
+
+def test_cli_run_energies_match_jax_on_restored_final(tmp_path):
+    run(tmp_path, "--stop-time", "0.2")
+    header, rows = read_csv(tmp_path / "energies.csv")
+    assert header == ["time", "iteration"] + sorted(ENERGIES)
+    assert rows.shape[0] == 21
+    np.testing.assert_allclose(rows[:, 1], np.arange(21))
+    np.testing.assert_allclose(rows[:, 0], 0.01 * np.arange(21), atol=1e-12)
+    assert np.isfinite(rows).all()
+
+    snaps = FieldTimeSeries(str(tmp_path / "fields"), "A")
+    np.testing.assert_allclose(snaps.times, [0.0, 0.1, 0.2], atol=1e-12)
+    assert snaps[-1].shape == (64, 64)
+
+    model, state0, _ = jscen.build(SCENARIO, dtype=jnp.float64)
+    final = jckpt.restore(str(tmp_path / "final.npz"), model.grid)
+    np.testing.assert_array_equal(snaps[-1], np.asarray(final.A))
+    assert int(final.clock.iteration) == 20
+    assert float(final.clock.time) == pytest.approx(0.2, abs=1e-12)
+    rep = jdiag.energy_report(model, final, state0.h)
+    for col, name in enumerate(sorted(ENERGIES), start=2):
+        want = float(rep[name])
+        assert rows[-1, col] == pytest.approx(want, rel=1e-10, abs=1e-14), \
+            name
+
+
+def test_cli_resume_continues_the_series(tmp_path):
+    run(tmp_path / "a", "--stop-time", "0.1", "--checkpoint-every", "5")
+    run(tmp_path / "b", "--stop-time", "0.15", "--resume",
+        str(tmp_path / "a" / "checkpoint.npz"))
+    _, rows = read_csv(tmp_path / "b" / "energies.csv")
+    np.testing.assert_allclose(rows[:, 1], np.arange(10, 16))
+
+
+def test_cli_list(capsys):
+    cli.main(["list"])
+    out = capsys.readouterr().out
+    assert len(out.strip().splitlines()) == 8
+    assert SCENARIO in out
+
+
+def test_cuda_device_without_cuda_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["run", SCENARIO, "--stop-time", "0.01",
+                  "--outdir", str(tmp_path)])
+
+
+def test_select_stepper_on_cpu_is_plain():
+    from swmhd_tpu_torch import scenarios
+    model, _, _ = scenarios.build(SCENARIO, device="cpu")
+    assert cli.select_stepper(model, fused=True) == (None, "plain")
+    assert cli.select_stepper(model, fused=False) == (None, "plain")
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, swmhd_tpu_torch, swmhd_tpu_torch.cli, "
+            "swmhd_tpu_torch.checkpoint, swmhd_tpu_torch.convert, "
+            "swmhd_tpu_torch.diagnostics, swmhd_tpu_torch.scenarios, "
+            "swmhd_tpu_torch.simulation, swmhd_tpu_torch.io, "
+            "swmhd_tpu_torch.ops.substage, swmhd_tpu_torch.ops._build; "
+            "bad = [m for m in sys.modules if m in ('jax', 'swmhd_tpu') "
+            "or m.startswith(('jax.', 'jaxlib', 'swmhd_tpu.'))]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1,0 +1,139 @@
+"""swmhd_tpu_torch's vector-invariant model == swmhd_tpu's at float64:
+tendencies, RK3 steps, the scenario initial conditions, and the frozen
+1000-step trajectory ``tests/fixtures/jacobian_64.npz``.
+
+Both packages get the same numpy state (the JAX initial condition, carried
+across with ``convert.state_from_numpy``). States agree to 1e-12 of each
+field's scale. Tendencies agree to 1e-12 of the largest tendency: the
+mass tendency −∇·(u h̃) of a nearly divergence-free vortex is a small
+difference of fluxes of order u·h/Δx, so its roundoff is set by those
+fluxes, not by its own size. Over 1000 steps roundoff grows by about 1e4
+(f32_tolerance.npz against float32 epsilon), so float64 differences stay
+near 1e-12 and the fixture bound is 1e-9.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swmhd_tpu import scenarios as jscen
+from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
+                       FPlane as JFPlane, VECTOR_INVARIANT,
+                       jacobian_lorentz_forcing as j_forcing)
+from swmhd_tpu_torch import scenarios as tscen
+from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
+                             FPlane as TFPlane,
+                             jacobian_lorentz_forcing as t_forcing)
+from swmhd_tpu_torch.convert import state_from_numpy
+
+torch.set_num_threads(1)
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "jacobian_64.npz")
+FIELDS = ("h", "u", "v", "A")
+
+
+def fused_test_pair(N=64):
+    """The initial condition of tests/test_fused.py::build in both
+    packages: vortex, height bump, Gaussian dipole."""
+    L = 10.0
+    jg = JGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
+                       dtype=jnp.float64)
+    jm = JModel(grid=jg, formulation=VECTOR_INVARIANT,
+                coriolis=JFPlane(1.0), forcing=j_forcing())
+    js = jm.initial_state(
+        u=lambda x, y: 5 * y * jnp.exp(-(x**2 + y**2)),
+        v=lambda x, y: -5 * x * jnp.exp(-(x**2 + y**2)),
+        h=lambda x, y: 1.0 + 0.05 * jnp.exp(-(x**2 + y**2)),
+        A=lambda x, y: 0.5 * jnp.exp(-((x - 0.5)**2 + y**2))
+        - 0.5 * jnp.exp(-((x + 0.5)**2 + y**2)))
+    tg = TGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
+                       dtype=torch.float64)
+    tm = TModel(grid=tg, coriolis=TFPlane(1.0), forcing=t_forcing())
+    return jm, js, tm, to_torch(js)
+
+
+def scenario_pair(name):
+    jm, js, _ = jscen.build(name, VECTOR_INVARIANT, dtype=jnp.float64)
+    tm, _, _ = tscen.build(name, dtype=torch.float64)
+    return jm, js, tm, to_torch(js)
+
+
+def to_torch(js):
+    return state_from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
+                            dtype=torch.float64)
+
+
+def assert_fields_close(got, want, tol=1e-12, what="", shared_scale=False):
+    shared = max(np.max(np.abs(np.asarray(getattr(want, k))))
+                 for k in FIELDS)
+    for k in FIELDS:
+        g = getattr(got, k).numpy()
+        w = np.asarray(getattr(want, k))
+        scale = shared if shared_scale else max(np.max(np.abs(w)), 1e-300)
+        err = np.max(np.abs(g - w)) / scale
+        assert err <= tol, f"{what} {k}: {err:.3e}"
+
+
+PAIRS = {"fused_test_ic": fused_test_pair,
+         "64x64_low_B_low_U": lambda: scenario_pair("64x64_low_B_low_U"),
+         "adjustment_jacobian": lambda: scenario_pair("adjustment_jacobian")}
+
+
+@pytest.mark.parametrize("case", sorted(PAIRS))
+def test_tendencies_match_jax(case):
+    jm, js, tm, ts = PAIRS[case]()
+    assert_fields_close(tm.tendencies(ts), jax.jit(jm.tendencies)(js),
+                        what=case, shared_scale=True)
+
+
+@pytest.mark.parametrize("case", sorted(PAIRS))
+def test_step_fn_matches_jax(case):
+    jm, js, tm, ts = PAIRS[case]()
+    got = tm.step_fn(0.01, 2)(ts)
+    want = jax.jit(jm.step_fn(0.01, 2))(js)
+    assert_fields_close(got, want, what=case)
+    assert got.clock.iteration == int(want.clock.iteration) == 2
+    assert got.clock.time == pytest.approx(float(want.clock.time), abs=1e-15)
+
+
+@pytest.mark.parametrize("name", sorted(jscen.names()))
+def test_scenario_initial_conditions_match_jax(name):
+    _, js, jsc = jscen.build(name, VECTOR_INVARIANT, dtype=jnp.float64)
+    _, ts, tsc = tscen.build(name, dtype=torch.float64)
+    assert_fields_close(ts, js, tol=1e-14, what=name)
+    for key in ("N", "L", "g", "f", "dt", "stop_time", "h0", "topology",
+                "A_bg_grad_y"):
+        assert getattr(tsc, key) == getattr(jsc, key), key
+
+
+def test_step_fn_diagnostics_series_on_device():
+    _, _, tm, ts = fused_test_pair(N=32)
+    fn = tm.step_fn(0.01, 3, diagnostics=lambda s: {"mass": s.h.sum()})
+    out, series = fn(ts)
+    assert series["mass"].shape == (3,)
+    assert float(series["mass"][-1]) == pytest.approx(float(out.h.sum()))
+    assert out.clock.iteration == 3
+
+
+def test_frozen_trajectory_1000_steps():
+    want = np.load(FIXTURE)
+    tm, ts, _ = tscen.build("64x64_two_Gaussians_high_B", dtype=torch.float64)
+    got = tm.step_fn(0.01, 1000)(ts)
+    for k in FIELDS:
+        err = np.max(np.abs(getattr(got, k).numpy() - want[k]))
+        assert err <= 1e-9, f"{k}: {err:.3e}"
+
+
+def test_unported_configurations_raise():
+    tg = TGrid.regular(16, 16, (-5, 5), (-5, 5), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        TModel(grid=tg, formulation="conservative")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        TModel(grid=tg, closure=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        TModel(grid=tg, momentum_advection="centered2")

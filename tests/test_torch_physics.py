@@ -1,0 +1,86 @@
+"""swmhd_tpu_torch Coriolis, jacobian Lorentz force and forcing hook ==
+swmhd_tpu's on the same random float64 fields at 32×48, both topologies.
+
+Tolerance max|Δ| <= 1e-13·max(1, max|ref|): same formulas, same order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swmhd_tpu import Grid as JGrid
+from swmhd_tpu import physics as jphys
+from swmhd_tpu import forcing as jforcing
+from swmhd_tpu_torch import Grid as TGrid
+from swmhd_tpu_torch import physics as tphys
+from swmhd_tpu_torch import forcing as tforcing
+
+torch.set_num_threads(1)
+
+NX, NY = 32, 48
+TOPOLOGIES = [("periodic", "periodic"), ("periodic", "bounded"),
+              ("bounded", "bounded")]
+
+
+def twin_grids(topology):
+    ext = ((-5.0, 5.0), (-4.0, 6.0))
+    return (JGrid.regular(NX, NY, *ext, topology=topology,
+                          dtype=jnp.float64),
+            TGrid.regular(NX, NY, *ext, topology=topology,
+                          dtype=torch.float64))
+
+
+def inputs(seed=0):
+    """A, u, v random; h = 1 + a positive perturbation."""
+    rng = np.random.default_rng(seed)
+    A, u, v = (rng.standard_normal((NX, NY)) for _ in range(3))
+    h = 1.0 + 0.3 * rng.uniform(size=(NX, NY))
+    return {"A": A, "u": u, "v": v, "h": h}
+
+
+def assert_close(got, want, tol=1e-13, what=""):
+    got = got.numpy()
+    want = np.asarray(want)
+    err = np.max(np.abs(got - want))
+    assert err <= tol * max(1.0, np.max(np.abs(want))), (what, err)
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+def test_coriolis_matches_jax(topology):
+    jg, tg = twin_grids(topology)
+    f = inputs(1)
+    jc, tc = jphys.FPlane(1.3), tphys.FPlane(1.3)
+    assert_close(tc.tendency_u(torch.from_numpy(f["v"]), tg),
+                 jc.tendency_u(jnp.asarray(f["v"]), jg), what="u")
+    assert_close(tc.tendency_v(torch.from_numpy(f["u"]), tg),
+                 jc.tendency_v(jnp.asarray(f["u"]), jg), what="v")
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("gamma", [0.0, -0.05])
+def test_lorentz_jacobian_matches_jax(topology, gamma):
+    jg, tg = twin_grids(topology)
+    f = inputs(2)
+    tA, th = torch.from_numpy(f["A"]), torch.from_numpy(f["h"])
+    jA, jh = jnp.asarray(f["A"]), jnp.asarray(f["h"])
+    for g_, w_ in zip(tphys.magnetic_field_cc(tA, th, tg, gamma),
+                      jphys.magnetic_field_cc(jA, jh, jg, gamma)):
+        assert_close(g_, w_, what="B")
+    for g_, w_ in zip(tphys.lorentz_force_jacobian(tA, th, tg, gamma),
+                      jphys.lorentz_force_jacobian(jA, jh, jg, gamma)):
+        assert_close(g_, w_, what="force")
+
+
+@pytest.mark.parametrize("gamma", [0.0, -0.05])
+def test_jacobian_forcing_hook_matches_jax(gamma):
+    jg, tg = twin_grids(("periodic", "periodic"))
+    f = inputs(3)
+    ((tkey, tfn),) = tforcing.jacobian_lorentz_forcing(gamma).items()
+    ((jkey, jfn),) = jforcing.jacobian_lorentz_forcing(gamma).items()
+    assert tkey == jkey == ("u", "v")
+    tf = {k: torch.from_numpy(v) for k, v in f.items()}
+    jf = {k: jnp.asarray(v) for k, v in f.items()}
+    for g_, w_ in zip(tfn(tg, None, tf), jfn(jg, None, jf)):
+        assert_close(g_, w_)
+    assert tfn.jacobian_lorentz_A_bg_grad_y == gamma
