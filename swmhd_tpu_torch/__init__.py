@@ -2,7 +2,8 @@
 
 A port of :mod:`swmhd_tpu` (which stays the reference) with the same
 module and function names: the C-grid operators, WENO5-Z advection, the
-vector-invariant model with jacobian-form Lorentz forcing, Le–Moin RK3,
+vector-invariant model with jacobian-form Lorentz forcing and the
+conservative model with divergence-form Lorentz forcing, Le–Moin RK3,
 the simulation driver, writers, checkpoints, scenarios and CLI. The RK3
 substage runs through a CUDA C++ kernel written for Hopper
 (:mod:`swmhd_tpu_torch.ops.substage`). This package never imports JAX.
@@ -12,13 +13,15 @@ from .grid import Grid, PERIODIC, BOUNDED
 from .models import (State, Clock, ShallowWaterModel, VECTOR_INVARIANT,
                      CONSERVATIVE)
 from .advection import Centered2, UpwindBiased3, WENO5, get_scheme
-from .physics import FPlane, magnetic_field_cc, lorentz_force_jacobian
-from .forcing import jacobian_lorentz_forcing
+from .physics import (FPlane, magnetic_field_cc, magnetic_field_faces,
+                      lorentz_force_jacobian, lorentz_force_divergence)
+from .forcing import jacobian_lorentz_forcing, divergence_lorentz_forcing
 
 __all__ = [
     "Grid", "PERIODIC", "BOUNDED",
     "State", "Clock", "ShallowWaterModel", "VECTOR_INVARIANT", "CONSERVATIVE",
     "Centered2", "UpwindBiased3", "WENO5", "get_scheme",
-    "FPlane", "magnetic_field_cc", "lorentz_force_jacobian",
-    "jacobian_lorentz_forcing",
+    "FPlane", "magnetic_field_cc", "magnetic_field_faces",
+    "lorentz_force_jacobian", "lorentz_force_divergence",
+    "jacobian_lorentz_forcing", "divergence_lorentz_forcing",
 ]

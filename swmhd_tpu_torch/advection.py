@@ -72,6 +72,25 @@ def right3_y_f(c, grid):
     return _degrade_y_f(_right3(c, _sh_y(grid)), c, grid, left=False)
 
 
+def left3_x_c(u, grid):
+    """At center i from faces: the face form at i+1, as a shift of the
+    reconstructed array (under a clamped wall this differs from a window
+    offset by one)."""
+    return op.shift_x(left3_x_f(u, grid), 1, grid)
+
+
+def right3_x_c(u, grid):
+    return op.shift_x(right3_x_f(u, grid), 1, grid)
+
+
+def left3_y_c(v, grid):
+    return op.shift_y(left3_y_f(v, grid), 1, grid)
+
+
+def right3_y_c(v, grid):
+    return op.shift_y(right3_y_f(v, grid), 1, grid)
+
+
 def _degrade(r3, i, N, first, left):
     if left:
         r = torch.where(i < 2, first, r3)
@@ -201,16 +220,29 @@ def weno5_pair_y_f(c, grid):
             _degrade_weno(r, j, grid.Ny, right3_y_f(c, grid), False))
 
 
+def weno5_pair_x_c(u, grid):
+    l, r = weno5_pair_x_f(u, grid)
+    return op.shift_x(l, 1, grid), op.shift_x(r, 1, grid)
+
+
+def weno5_pair_y_c(v, grid):
+    l, r = weno5_pair_y_f(v, grid)
+    return op.shift_y(l, 1, grid), op.shift_y(r, 1, grid)
+
+
 # -- scheme objects ------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class AdvectionScheme:
-    """(left, right) reconstructions of a center field at x- and y-faces.
+    """(left, right) reconstructions of a center field at x- and y-faces
+    (``both_*_f``) and of a face field at centers (``both_*_c``).
     ``halo`` is the stencil half-width."""
     name: str
     halo: int
     both_x_f: Callable
     both_y_f: Callable
+    both_x_c: Callable
+    both_y_c: Callable
 
 
 def _same(interp):
@@ -224,10 +256,14 @@ def _pair(left, right):
     return lambda c, grid: (left(c, grid), right(c, grid))
 
 
-Centered2 = AdvectionScheme("centered2", 1, _same(op.ix_f), _same(op.iy_f))
+Centered2 = AdvectionScheme("centered2", 1, _same(op.ix_f), _same(op.iy_f),
+                            _same(op.ix_c), _same(op.iy_c))
 UpwindBiased3 = AdvectionScheme("upwind3", 2, _pair(left3_x_f, right3_x_f),
-                                _pair(left3_y_f, right3_y_f))
-WENO5 = AdvectionScheme("weno5", 3, weno5_pair_x_f, weno5_pair_y_f)
+                                _pair(left3_y_f, right3_y_f),
+                                _pair(left3_x_c, right3_x_c),
+                                _pair(left3_y_c, right3_y_c))
+WENO5 = AdvectionScheme("weno5", 3, weno5_pair_x_f, weno5_pair_y_f,
+                        weno5_pair_x_c, weno5_pair_y_c)
 
 SCHEMES = {s.name: s for s in (Centered2, UpwindBiased3, WENO5)}
 

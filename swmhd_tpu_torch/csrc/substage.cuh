@@ -1,0 +1,232 @@
+// Shared pieces of the RK3 substage kernels (substage.cu,
+// vector_invariant.cu, conservative.cu): parameters, the index maps of
+// periodic and bounded axes, and the WENO5-Z / third-order biased
+// reconstructions with their near-wall degradation.
+//
+// Layout: every field is (Nx, Ny) row-major, index i*Ny + j, i along x.
+// Face i is the left edge of cell i.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <type_traits>
+
+namespace swmhd {
+
+constexpr int kBlockY = 32;
+constexpr int kBlockX = 8;
+
+template <typename T>
+struct Params {
+  int nx, ny;
+  bool wall_x, wall_y;   // bounded axes
+  T dx, dy, g, f, gam_bg;
+  T az;                  // cell area dx·dy (divergence-form Lorentz force)
+};
+
+// One substage: input state, G_prev (null in substage 0), outputs (g_out
+// may be null), the intermediates buffer, the step and the Le–Moin
+// coefficients (γ_k, ζ_k).
+template <typename T>
+struct Launch {
+  const T* s_in;
+  const T* g_prev;
+  T* s_out;
+  T* g_out;
+  T* tmp;
+  Params<T> p;
+  T dt, gk, zk;
+  cudaStream_t stream;
+};
+
+// Each formulation's translation unit defines its launcher for float and
+// double; both return cudaGetLastError() after their launches.
+template <typename T>
+cudaError_t launch_vector_invariant(const Launch<T>& a);
+template <typename T>
+cudaError_t launch_conservative(const Launch<T>& a);
+
+inline dim3 block_dims() { return dim3(kBlockY, kBlockX); }
+
+inline dim3 grid_dims(int nx, int ny) {
+  return dim3((ny + kBlockY - 1) / kBlockY, (nx + kBlockX - 1) / kBlockX);
+}
+
+// -- index maps ---------------------------------------------------------------
+//
+// A shift by m of a field: wrapped on a periodic axis (|m| < n), clamped
+// to the edge on a bounded axis (edge replication). A shift of a derived
+// array is the derived array evaluated at the shifted index, so where the
+// reference shifts a shifted array the index is clamped at each step
+// (sh2); on a periodic axis that is one wrap.
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+__device__ __forceinline__ int clampi(int i, int n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+template <bool Wall>
+__device__ __forceinline__ int sh(int i, int m, int n) {
+  if constexpr (Wall) {
+    return clampi(i + m, n);
+  } else {
+    return wrap(i + m, n);
+  }
+}
+
+// shift by m, then by s
+template <bool Wall>
+__device__ __forceinline__ int sh2(int i, int m, int s, int n) {
+  if constexpr (Wall) {
+    return clampi(clampi(i + m, n) + s, n);
+  } else {
+    return wrap(i + m + s, n);
+  }
+}
+
+// -- arithmetic -----------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ T sq(T x) { return x * x; }
+
+// 0.5·((ũ+|ũ|)ψᴸ + (ũ−|ũ|)ψᴿ): the upwind select as arithmetic, so its
+// roundoff is that of the PyTorch version.
+template <typename T>
+__device__ __forceinline__ T upwind(T ut, T l, T r) {
+  return T(0.5) * ((ut + fabs(ut)) * l + (ut - fabs(ut)) * r);
+}
+
+// Smoothness indicators of the left stencil at face i from c[i-3..i+1].
+template <typename T>
+__device__ __forceinline__ void betas_left(T cm3, T cm2, T cm1, T c0, T cp1,
+                                           T& b0, T& b1, T& b2) {
+  b0 = T(13.0 / 12.0) * sq(cm3 - T(2) * cm2 + cm1)
+       + T(0.25) * sq(cm3 - T(4) * cm2 + T(3) * cm1);
+  b1 = T(13.0 / 12.0) * sq(cm2 - T(2) * cm1 + c0) + T(0.25) * sq(cm2 - c0);
+  b2 = T(13.0 / 12.0) * sq(cm1 - T(2) * c0 + cp1)
+       + T(0.25) * sq(T(3) * cm1 - T(4) * c0 + cp1);
+}
+
+template <typename T>
+__device__ __forceinline__ void cands_left(T cm3, T cm2, T cm1, T c0, T cp1,
+                                           T& p0, T& p1, T& p2) {
+  p0 = (T(2) * cm3 - T(7) * cm2 + T(11) * cm1) / T(6);
+  p1 = (-cm2 + T(5) * cm1 + T(2) * c0) / T(6);
+  p2 = (T(2) * cm1 + T(5) * c0 - cp1) / T(6);
+}
+
+template <typename T>
+__device__ __forceinline__ void cands_right(T cm2, T cm1, T c0, T cp1, T cp2,
+                                            T& p0, T& p1, T& p2) {
+  p0 = (T(2) * cp2 - T(7) * cp1 + T(11) * c0) / T(6);
+  p1 = (-cp1 + T(5) * c0 + T(2) * cm1) / T(6);
+  p2 = (T(2) * c0 + T(5) * cm1 - cm2) / T(6);
+}
+
+// WENO-Z weights in the divide-free rational form, eps = 1e-8, linear
+// weights (0.1, 0.6, 0.3). fp32 first rescales the betas and eps by a
+// power of two read off the exponent bits of their sum (clamped at
+// 2^-126), so a constant field (betas 0, as at a rest start) gives finite
+// weights; fp64 skips that step, as the reference does.
+template <typename T>
+__device__ __forceinline__ T weno_combine(T p0, T p1, T p2,
+                                          T b0, T b1, T b2) {
+  T eps = T(1e-8);
+  if constexpr (std::is_same<T, float>::value) {
+    const float s = b0 + b1 + b2 + eps;
+    const int bits = __float_as_int(s);
+    const float inv =
+        __int_as_float(max(0x7F000000 - (bits & 0x7F800000), 0x00800000));
+    b0 *= inv;
+    b1 *= inv;
+    b2 *= inv;
+    eps *= inv;
+  }
+  const T tau2 = sq(b0 - b2);
+  const T q0 = sq(b0 + eps);
+  const T q1 = sq(b1 + eps);
+  const T q2 = sq(b2 + eps);
+  const T a0 = T(0.1) * (q0 + tau2) * (q1 * q2);
+  const T a1 = T(0.6) * (q1 + tau2) * (q0 * q2);
+  const T a2 = T(0.3) * (q2 + tau2) * (q0 * q1);
+  return (a0 * p0 + a1 * p1 + a2 * p2) / (a0 + a1 + a2);
+}
+
+// (left, right) WENO5 values at face i from c[k] = c(i + k - 3), k = 0..5;
+// the right betas are the left betas of face i+1, mirrored.
+template <typename T>
+__device__ __forceinline__ void weno_pair(const T* c, T& left, T& right) {
+  T b0, b1, b2, r0, r1, r2, p0, p1, p2;
+  betas_left(c[0], c[1], c[2], c[3], c[4], b0, b1, b2);
+  cands_left(c[0], c[1], c[2], c[3], c[4], p0, p1, p2);
+  left = weno_combine(p0, p1, p2, b0, b1, b2);
+  betas_left(c[1], c[2], c[3], c[4], c[5], r0, r1, r2);
+  cands_right(c[1], c[2], c[3], c[4], c[5], p0, p1, p2);
+  right = weno_combine(p0, p1, p2, r2, r1, r0);
+}
+
+// -- reconstructions at faces, wall-aware ------------------------------------------
+//
+// Window c[k] = c(q + k - 3), k = 0..5, read through sh<Wall>; q is the
+// face index on an axis of n points. On a bounded axis the reference
+// replaces the values near a wall by lower-order ones: third order within
+// two cells (first order at the outermost faces), and WENO5 by that
+// degraded third order within three. Where a value survives, its
+// stencil needs no clamped read, so the window is exact there.
+
+// UpwindBiased3 (left, right) at face q.
+template <bool Wall, typename T>
+__device__ __forceinline__ void upwind3_pair(const T* c, int q, int n,
+                                             T& left, T& right) {
+  left = (T(2) * c[3] + T(5) * c[2] - c[1]) / T(6);
+  right = (-c[4] + T(5) * c[3] + T(2) * c[2]) / T(6);
+  if constexpr (Wall) {
+    if (q < 2) left = c[2];
+    if (q < 1 || q > n - 2) right = c[3];
+  }
+}
+
+// WENO5 (left, right) at face q.
+template <bool Wall, typename T>
+__device__ __forceinline__ void weno5_pair(const T* c, int q, int n,
+                                           T& left, T& right) {
+  weno_pair(c, left, right);
+  if constexpr (Wall) {
+    const bool deg_left = q < 3 || q > n - 2;
+    const bool deg_right = q < 2 || q > n - 3;
+    if (deg_left || deg_right) {
+      T l3, r3;
+      upwind3_pair<Wall>(c, q, n, l3, r3);
+      if (deg_left) left = l3;
+      if (deg_right) right = r3;
+    }
+  }
+}
+
+// -- the end of a substage ------------------------------------------------------
+//
+// No penetration (the wall-normal tendency is zero on face 0 of a bounded
+// axis; the far wall face is not stored), then the Le–Moin update
+// s' = s + dt (γ G + ζ G_prev) at point c, G stored where g_out is given.
+template <bool WX, bool WY, typename T>
+__device__ __forceinline__ void mask_and_update(
+    T Gh, T Gu, T Gv, T GA, int i, int j, size_t c, size_t n, const T* s,
+    const T* g_prev, T* s_out, T* g_out, T dt, T gk, T zk) {
+  if (WX && i == 0) Gu = T(0);
+  if (WY && j == 0) Gv = T(0);
+  const T G[4] = {Gh, Gu, Gv, GA};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const size_t o = k * n + c;
+    const T inc = g_prev ? gk * G[k] + zk * g_prev[o] : gk * G[k];
+    s_out[o] = s[o] + dt * inc;
+    if (g_out) g_out[o] = G[k];
+  }
+}
+
+}  // namespace swmhd

@@ -1,0 +1,269 @@
+// The vector-invariant substage: WENO5-Z mass/tracer reconstruction,
+// VelocityStencil vorticity flux, Bernoulli gradient, f-plane Coriolis,
+// hA-conservative tracer with a linear background gradient, jacobian-form
+// Lorentz force (swmhd_tpu/models/shallow_water.py
+// _tendencies_vector_invariant, physics/lorentz.py lorentz_force_jacobian),
+// for each periodic/bounded pair of axes.
+//
+// Two kernels: face_fluxes writes the 12 intermediates below, and
+// tendency_update reads them at radius <= 3 and applies the Le–Moin update.
+// Each intermediate is the reference's derived array, so a shift of it is a
+// read at the shifted (wrapped or clamped) index. Where the reference
+// shifts a derived array that this code recomputes from raw reads instead
+// (∂A at i+1 for B, ∂B at i+1 for the jacobian, ζ and ℑu, ℑv on the
+// center-from-face window, the right betas), a bounded axis takes the
+// derived array's value at the clamped index: at the last point a shift by
+// +1 repeats that point's own value.
+
+#include "substage.cuh"
+
+namespace swmhd {
+namespace {
+
+// Intermediates written by face_fluxes, in this order, each (Nx, Ny).
+enum Tmp {
+  kUf, kVf,        // mass fluxes u·h̃ at (f,c), v·h̃ at (c,f)
+  kFx, kFy,        // tracer fluxes Uf·Ã, Vf·Ã
+  kZeta,           // ζ = ∂x v − ∂y u at (f,f)
+  kUff, kVff,      // ℑyᶠu, ℑxᶠv at (f,f)
+  kKB,             // K + g h at (c,c)
+  kDAdx, kDAdy,    // ∂xᶠA at (f,c), ∂yᶠA + γ at (c,f)
+  kBx, kBy,        // B at (c,c)
+  kNumTmp
+};
+static_assert(kNumTmp == 12, "N_TMP of ops/substage.py");
+
+// VelocityStencil reconstruction of ζ onto the flux point from windows
+// z[k], uf[k], vf[k] = value at offset k - 2 (k = 0..5) along the
+// reconstruction axis: candidates from ζ, weights from the averaged betas
+// of ℑu and ℑv at (f,f). At a bounded axis' last point (last) the right
+// betas are the left ones: the reference's shift of the betas is clamped.
+template <typename T>
+__device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
+                                               const T* vf, bool last,
+                                               T& zl, T& zr) {
+  T ua0, ua1, ua2, va0, va1, va2, ub0, ub1, ub2, vb0, vb1, vb2;
+  betas_left(uf[0], uf[1], uf[2], uf[3], uf[4], ua0, ua1, ua2);
+  betas_left(vf[0], vf[1], vf[2], vf[3], vf[4], va0, va1, va2);
+  if (last) {
+    ub0 = ua0; ub1 = ua1; ub2 = ua2;
+    vb0 = va0; vb1 = va1; vb2 = va2;
+  } else {
+    betas_left(uf[1], uf[2], uf[3], uf[4], uf[5], ub0, ub1, ub2);
+    betas_left(vf[1], vf[2], vf[3], vf[4], vf[5], vb0, vb1, vb2);
+  }
+  T p0, p1, p2;
+  cands_left(z[0], z[1], z[2], z[3], z[4], p0, p1, p2);
+  zl = weno_combine(p0, p1, p2, T(0.5) * (ua0 + va0), T(0.5) * (ua1 + va1),
+                    T(0.5) * (ua2 + va2));
+  cands_right(z[1], z[2], z[3], z[4], z[5], p0, p1, p2);
+  zr = weno_combine(p0, p1, p2, T(0.5) * (ub2 + vb2), T(0.5) * (ub1 + vb1),
+                    T(0.5) * (ub0 + vb0));
+}
+
+template <typename T, bool WX, bool WY>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
+  const int j = blockIdx.x * kBlockY + threadIdx.x;
+  const int i = blockIdx.y * kBlockX + threadIdx.y;
+  if (i >= p.nx || j >= p.ny) return;
+  const size_t n = static_cast<size_t>(p.nx) * p.ny;
+  const T* h = s;
+  const T* u = s + n;
+  const T* v = s + 2 * n;
+  const T* A = s + 3 * n;
+  auto at = [&](const T* a, int di, int dj) {
+    return a[static_cast<size_t>(sh<WX>(i, di, p.nx)) * p.ny
+             + sh<WY>(j, dj, p.ny)];
+  };
+  const size_t c = static_cast<size_t>(i) * p.ny + j;
+  const bool last_x = WX && i == p.nx - 1;
+  const bool last_y = WY && j == p.ny - 1;
+
+  T hx[6], hy[6], ax[6], ay[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    hx[k] = at(h, k - 3, 0);
+    hy[k] = at(h, 0, k - 3);
+    ax[k] = at(A, k - 3, 0);
+    ay[k] = at(A, 0, k - 3);
+  }
+  T l, r;
+  const T u0 = u[c], v0 = v[c];
+  weno5_pair<WX>(hx, i, p.nx, l, r);
+  const T Uf = upwind(u0, l, r);
+  weno5_pair<WY>(hy, j, p.ny, l, r);
+  const T Vf = upwind(v0, l, r);
+  weno5_pair<WX>(ax, i, p.nx, l, r);
+  const T fx = upwind(Uf, l, r);
+  weno5_pair<WY>(ay, j, p.ny, l, r);
+  const T fy = upwind(Vf, l, r);
+
+  const T u_jm = at(u, 0, -1), u_ip = at(u, 1, 0);
+  const T v_im = at(v, -1, 0), v_jp = at(v, 0, 1);
+  const T zeta = (v0 - v_im) / p.dx - (u0 - u_jm) / p.dy;
+  const T u_ff = T(0.5) * (u0 + u_jm);
+  const T v_ff = T(0.5) * (v0 + v_im);
+  const T K = T(0.5) * (T(0.5) * (u_ip * u_ip + u0 * u0)
+                        + T(0.5) * (v_jp * v_jp + v0 * v0));
+  const T h0 = hx[3];
+  const T KB = K + p.g * h0;
+
+  // B = (−ℑyᶜ(∂yᶠA + γ), ℑxᶜ(∂xᶠA))/h: ∂A at i+1, j+1 clamped
+  const T dAdx = (ax[3] - ax[2]) / p.dx;
+  const T dAdx_ip = last_x ? dAdx : (ax[4] - ax[3]) / p.dx;
+  const T dAdy = (ay[3] - ay[2]) / p.dy + p.gam_bg;
+  const T dAdy_jp = last_y ? dAdy : (ay[4] - ay[3]) / p.dy + p.gam_bg;
+  const T Bx = -(T(0.5) * (dAdy_jp + dAdy)) / h0;
+  const T By = T(0.5) * (dAdx_ip + dAdx) / h0;
+
+  const T out[kNumTmp] = {Uf, Vf, fx, fy, zeta, u_ff, v_ff, KB,
+                          dAdx, dAdy, Bx, By};
+#pragma unroll
+  for (int k = 0; k < kNumTmp; ++k) tmp[k * n + c] = out[k];
+}
+
+template <typename T, bool WX, bool WY>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
+                const T* __restrict__ g_prev, T* __restrict__ s_out,
+                T* __restrict__ g_out, Params<T> p, T dt, T gk, T zk) {
+  const int j = blockIdx.x * kBlockY + threadIdx.x;
+  const int i = blockIdx.y * kBlockX + threadIdx.y;
+  if (i >= p.nx || j >= p.ny) return;
+  const size_t n = static_cast<size_t>(p.nx) * p.ny;
+  auto ld = [&](const T* a, int ii, int jj) {
+    return a[static_cast<size_t>(ii) * p.ny + jj];
+  };
+  auto at = [&](const T* a, int di, int dj) {
+    return ld(a, sh<WX>(i, di, p.nx), sh<WY>(j, dj, p.ny));
+  };
+  const size_t c = static_cast<size_t>(i) * p.ny + j;
+  const bool last_x = WX && i == p.nx - 1;
+  const bool last_y = WY && j == p.ny - 1;
+  const T* h = s;
+  const T* u = s + n;
+  const T* v = s + 2 * n;
+  const T* A = s + 3 * n;
+  const T* Uf = tmp + kUf * n;
+  const T* Vf = tmp + kVf * n;
+  const T* fx = tmp + kFx * n;
+  const T* fy = tmp + kFy * n;
+  const T* zeta = tmp + kZeta * n;
+  const T* uff = tmp + kUff * n;
+  const T* vff = tmp + kVff * n;
+  const T* KB = tmp + kKB * n;
+  const T* dAdx = tmp + kDAdx * n;
+  const T* dAdy = tmp + kDAdy * n;
+  const T* Bx = tmp + kBx * n;
+  const T* By = tmp + kBy * n;
+  const T h0 = h[c];
+
+  // mass; a bounded axis has no flux through its far wall
+  const T Vf0 = Vf[c], Vf_jp = at(Vf, 0, 1);
+  const T Uf_up = last_x ? T(0) : at(Uf, 1, 0);
+  const T Vf_up = last_y ? T(0) : Vf_jp;
+  const T divU = (Uf_up - Uf[c]) / p.dx + (Vf_up - Vf0) / p.dy;
+  const T Gh = -divU;
+
+  // vorticity flux: u-equation along y, onto (f,c) — the window of the
+  // reconstruction at j is the face form of the arrays shifted by one,
+  // ζ(j-2 .. j+3) on a periodic axis
+  T z[6], uw[6], vw[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int jj = sh2<WY>(j, k - 3, 1, p.ny);
+    z[k] = ld(zeta, i, jj);
+    uw[k] = ld(uff, i, jj);
+    vw[k] = ld(vff, i, jj);
+  }
+  T zl, zr;
+  vorticity_pair(z, uw, vw, last_y, zl, zr);
+  const T v_hat = T(0.5) * (T(0.5) * (at(v, 0, 1) + v[c])
+                            + T(0.5) * (at(v, -1, 1) + at(v, -1, 0)));
+  const T vort_u = upwind(v_hat, zl, zr);
+
+  // v-equation along x, onto (c,f)
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int ii = sh2<WX>(i, k - 3, 1, p.nx);
+    z[k] = ld(zeta, ii, j);
+    uw[k] = ld(uff, ii, j);
+    vw[k] = ld(vff, ii, j);
+  }
+  vorticity_pair(z, uw, vw, last_x, zl, zr);
+  const T u_hat = T(0.5) * (uw[3] + uff[c]);
+  const T vort_v = -upwind(u_hat, zl, zr);
+
+  // Bernoulli gradient and Coriolis
+  const T KB0 = KB[c];
+  T Gu = vort_u - (KB0 - at(KB, -1, 0)) / p.dx;
+  T Gv = vort_v - (KB0 - at(KB, 0, -1)) / p.dy;
+  Gu = Gu + p.f * v_hat;
+  Gv = Gv + (-p.f) * u_hat;
+
+  // tracer, hA-flux form, with the background-gradient source
+  const T fx_up = last_x ? T(0) : at(fx, 1, 0);
+  const T fy_up = last_y ? T(0) : at(fy, 0, 1);
+  const T div_flux = (fx_up - fx[c]) / p.dx + (fy_up - fy[c]) / p.dy;
+  T GA = (A[c] * divU - div_flux) / h0;
+  if (p.gam_bg != T(0)) GA = GA - p.gam_bg * (T(0.5) * (Vf_jp + Vf0)) / h0;
+
+  // jacobian Lorentz force; ∂yᶠBx at j+1 and ∂xᶠBy at i+1 are clamped
+  const T Bx0 = Bx[c], Bx_im = at(Bx, -1, 0);
+  const T dyBx = (Bx0 - at(Bx, 0, -1)) / p.dy;
+  const T dyBx_jp = last_y ? dyBx : (at(Bx, 0, 1) - Bx0) / p.dy;
+  const T dyBx_c = T(0.5) * (dyBx_jp + dyBx);
+  const T dyBx_im = (Bx_im - at(Bx, -1, -1)) / p.dy;
+  const T dyBx_imjp = last_y ? dyBx_im : (at(Bx, -1, 1) - Bx_im) / p.dy;
+  const T dyBx_m = T(0.5) * (dyBx_imjp + dyBx_im);
+  const T dAdy0 = dAdy[c];
+  const T iDAdy = T(0.5) * (T(0.5) * (at(dAdy, 0, 1) + dAdy0)
+                            + T(0.5) * (at(dAdy, -1, 1) + at(dAdy, -1, 0)));
+  const T jac_x = dAdx[c] * (T(0.5) * (dyBx_c + dyBx_m))
+                  - iDAdy * ((Bx0 - Bx_im) / p.dx);
+
+  const T By0 = By[c], By_jm = at(By, 0, -1);
+  const T dxBy_c = T(0.5) * ((By0 - at(By, -1, 0)) / p.dx
+                             + (By_jm - at(By, -1, -1)) / p.dx);
+  const T dxBy_p = last_x ? dxBy_c
+                          : T(0.5) * ((at(By, 1, 0) - By0) / p.dx
+                                      + (at(By, 1, -1) - By_jm) / p.dx);
+  const T iDAdx = T(0.5) * (T(0.5) * (at(dAdx, 1, 0) + at(dAdx, 1, -1))
+                            + T(0.5) * (dAdx[c] + at(dAdx, 0, -1)));
+  const T jac_y = iDAdx * ((By0 - By_jm) / p.dy)
+                  - dAdy0 * (T(0.5) * (dxBy_p + dxBy_c));
+
+  Gu = Gu + jac_x / (T(0.5) * (h0 + at(h, -1, 0)));
+  Gv = Gv + jac_y / (T(0.5) * (h0 + at(h, 0, -1)));
+
+  mask_and_update<WX, WY>(Gh, Gu, Gv, GA, i, j, c, n, s, g_prev, s_out,
+                          g_out, dt, gk, zk);
+}
+
+template <typename T, bool WX, bool WY>
+cudaError_t run(const Launch<T>& a) {
+  const dim3 block = block_dims();
+  const dim3 grid = grid_dims(a.p.nx, a.p.ny);
+  face_fluxes<T, WX, WY><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tendency_update<T, WX, WY><<<grid, block, 0, a.stream>>>(
+      a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+template <typename T>
+cudaError_t launch_vector_invariant(const Launch<T>& a) {
+  if (a.p.wall_x) {
+    return a.p.wall_y ? run<T, true, true>(a) : run<T, true, false>(a);
+  }
+  return a.p.wall_y ? run<T, false, true>(a) : run<T, false, false>(a);
+}
+
+template cudaError_t launch_vector_invariant<float>(const Launch<float>&);
+template cudaError_t launch_vector_invariant<double>(const Launch<double>&);
+
+}  // namespace swmhd

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import operators as op
+from .models.shallow_water import CONSERVATIVE
 from .physics.lorentz import magnetic_field_cc
 
 
@@ -77,8 +78,13 @@ def reference_energy_report(model, state, h0):
     """Energies in the reference's index-aligned convention."""
     g = model.grid
     gamma = model.A_background_gradient_y
-    u, v = model.velocities(state)
-    ke = reference_kinetic_energy(u, v, state.h, g)
+    if model.formulation == CONSERVATIVE:
+        # ½ (uh² + vh²)/h, index-aligned: the functional of divergence_sw_mhd.jl
+        uh, vh = state.u, state.v
+        ke = _integral(0.5 * (uh * uh + vh * vh) / state.h, g)
+    else:
+        u, v = model.velocities(state)
+        ke = reference_kinetic_energy(u, v, state.h, g)
     me = reference_magnetic_energy(state.A, state.h, g, gamma)
     pe = potential_energy(state.h, h0, model.gravitational_acceleration, g)
     return {

@@ -77,6 +77,20 @@ class Grid:
     def shape(self) -> Tuple[int, int]:
         return (self.Nx, self.Ny)
 
+    # Face and cell areas of the uniform grid with Flat z (dz = 1), the
+    # factors of the divergence-form Lorentz flux.
+    @property
+    def Ax(self) -> float:  # x-normal face: dy·dz
+        return self.dy
+
+    @property
+    def Ay(self) -> float:  # y-normal face: dx·dz
+        return self.dx
+
+    @property
+    def Az(self) -> float:  # horizontal cell: dx·dy
+        return self.dx * self.dy
+
     def _arange(self, n):
         return torch.arange(n, dtype=self.dtype, device=self.device)
 

@@ -1,16 +1,29 @@
-"""Vector-invariant shallow-water MHD model, port of
-:mod:`swmhd_tpu.models.shallow_water` (``formulation="vector_invariant"``).
+"""Shallow-water MHD model in both formulations, port of
+:mod:`swmhd_tpu.models.shallow_water`.
+
+vector-invariant (prognostics u, v, h):
 
     ∂t u = +⟨ζ v⟩ᵘᵖ + f v̄ − ∂x(K + g h) + F_u
     ∂t v = −⟨ζ u⟩ᵘᵖ − f ū − ∂y(K + g h) + F_v
     ∂t h = −∇·(u h̃)                       (h̃ WENO5-reconstructed)
-    ∂t A = ( A ∇·U − ∇·(U Ã) ) / h,   U = (u h̃, v h̃)
 
-The vorticity flux is the upwinded vector-invariant WENO with
+conservative (prognostics uh, vh, h, stored in ``state.u``/``state.v``):
+
+    ∂t uh = −∇·(uh ⊗ ũ) + f v̄h − g h̄ ∂x h + F_uh
+    ∂t vh = −∇·(vh ⊗ ṽ) − f ūh − g h̄ ∂y h + F_vh
+    ∂t h  = −∇·(uh, vh)
+
+tracer (both), with U the mass transport:
+
+    ∂t A = ( A ∇·U − ∇·(U Ã) ) / h
+
+The vector-invariant vorticity flux is the upwinded WENO with
 VelocityStencil weights: ζ at (f,f) is reconstructed transverse to each
 momentum component with WENO5 candidates, and the nonlinear weights come
-from the averaged smoothness of u and v interpolated to (f,f). Time
-stepping is the Le–Moin low-storage RK3.
+from the averaged smoothness of u and v interpolated to (f,f). The
+conservative momentum flux upwinds WENO5 reconstructions of u = uh/ℑh
+and v = vh/ℑh on symmetric transports. Time stepping is the Le–Moin
+low-storage RK3.
 """
 
 from __future__ import annotations
@@ -48,36 +61,36 @@ class ShallowWaterModel:
     mass_advection: AdvectionScheme = WENO5
     tracer_advection: AdvectionScheme = WENO5
     closure: object = None
-    forcing: tuple = ()               # ((name, fn), ...) name in u,v,h,A
+    forcing: tuple = ()               # ((name, fn), ...) name in u,v,uh,vh,h,A
     # Static linear background γ·y of A: state.A is the perturbation and
     # the tracer tendency gains the discrete source −γ·ℑyᶜ(Vf)/h.
     A_background_gradient_y: float = 0.0
 
     def __post_init__(self):
-        if self.formulation == CONSERVATIVE:
-            raise NotImplementedError(
-                "the conservative formulation is not ported yet "
-                "(ROADMAP.md, queue 1 item 8)")
-        if self.formulation != VECTOR_INVARIANT:
+        if self.formulation not in (VECTOR_INVARIANT, CONSERVATIVE):
             raise ValueError(f"unknown formulation {self.formulation!r}")
         if self.closure is not None:
             raise NotImplementedError(
-                "closures are not ported yet (ROADMAP.md, queue 1 item 9)")
+                "closures are not ported yet (ROADMAP.md, queue 1 item 3)")
         for name in ("momentum_advection", "mass_advection",
                      "tracer_advection"):
             object.__setattr__(self, name, get_scheme(getattr(self, name)))
         if self.momentum_advection.name != "weno5":
             raise NotImplementedError(
-                "only the WENO5 vorticity flux is ported "
-                "(ROADMAP.md, queue 1 item 9)")
+                "only WENO5 momentum advection is ported "
+                "(ROADMAP.md, queue 1 item 3)")
         if isinstance(self.forcing, Mapping):
             object.__setattr__(self, "forcing", tuple(self.forcing.items()))
 
     # -- construction ---------------------------------------------------------
 
-    def initial_state(self, u=None, v=None, h=None, A=None) -> State:
+    def initial_state(self, u=None, v=None, h=None, A=None,
+                      uh=None, vh=None) -> State:
         """Each entry is a callable ``fn(x, y)`` evaluated on its staggered
-        mesh, a tensor, or a scalar (the ``set!`` analog)."""
+        mesh, a tensor, or a scalar (the ``set!`` analog). The
+        conservative formulation takes its transports as ``uh``/``vh``
+        (or, failing those, ``u``/``v``) and stores them in ``state.u``,
+        ``state.v``."""
         g = self.grid
 
         def ev(val, loc, default=0.0):
@@ -91,17 +104,34 @@ class ShallowWaterModel:
                                   device=g.device)
             return arr
 
+        if self.formulation == CONSERVATIVE:
+            u = uh if uh is not None else u
+            v = vh if vh is not None else v
         u_arr, v_arr = self._mask_walls(ev(u, "fc"), ev(v, "cf"))
         return State(h=ev(h, "cc", 1.0), u=u_arr, v=v_arr, A=ev(A, "cc"))
 
     def velocities(self, state: State):
-        return state.u, state.v
+        """(u, v) physical velocities in either formulation."""
+        if self.formulation == VECTOR_INVARIANT:
+            return state.u, state.v
+        g = self.grid
+        return state.u / op.ix_f(state.h, g), state.v / op.iy_f(state.h, g)
+
+    def transports(self, state: State):
+        """(uh, vh) mass transports at faces in either formulation."""
+        if self.formulation == CONSERVATIVE:
+            return state.u, state.v
+        g = self.grid
+        return state.u * op.ix_f(state.h, g), state.v * op.iy_f(state.h, g)
 
     # -- tendencies -------------------------------------------------------------
 
     def tendencies(self, state: State) -> State:
         """G = ∂t(state) as a State (clock untouched)."""
-        Gu, Gv, Gh, GA = self._tendencies_vector_invariant(state)
+        if self.formulation == VECTOR_INVARIANT:
+            Gu, Gv, Gh, GA = self._tendencies_vector_invariant(state)
+        else:
+            Gu, Gv, Gh, GA = self._tendencies_conservative(state)
         Gu, Gv, Gh, GA = self._apply_forcing(state, Gu, Gv, Gh, GA)
         Gu, Gv = self._mask_walls(Gu, Gv)
         return State(h=Gh, u=Gu, v=Gv, A=GA, clock=state.clock)
@@ -118,16 +148,20 @@ class ShallowWaterModel:
         return u_like, v_like
 
     def _apply_forcing(self, state, Gu, Gv, Gh, GA):
-        fields = {"h": state.h, "A": state.A, "u": state.u, "v": state.v}
+        """Forcing keys name the prognostics: u, v (vector-invariant) or
+        uh, vh (conservative), h and A."""
+        umom, vmom = (("u", "v") if self.formulation == VECTOR_INVARIANT
+                      else ("uh", "vh"))
+        fields = {"h": state.h, "A": state.A, umom: state.u, vmom: state.v}
         for name, fn in self.forcing:
             names = name if isinstance(name, tuple) else (name,)
             contribs = fn(self.grid, state.clock, fields)
             if len(names) == 1:
                 contribs = (contribs,)
             for nm, c in zip(names, contribs):
-                if nm == "u":
+                if nm == umom:
                     Gu = Gu + c
-                elif nm == "v":
+                elif nm == vmom:
                     Gv = Gv + c
                 elif nm == "h":
                     Gh = Gh + c
@@ -191,6 +225,43 @@ class ShallowWaterModel:
                            shift_betas_left_to_right(bl, shx))
         vort_v = -upwind_biased_product(op.ixy_cf(u, g), zl, zr)
         return vort_u, vort_v
+
+    def _tendencies_conservative(self, state):
+        g = self.grid
+        uh, vh, h, A = state.u, state.v, state.h, state.A
+        gacc = self.gravitational_acceleration
+        scheme = self.momentum_advection
+
+        h_fx = op.ix_f(h, g)   # h̄ at (f,c)
+        h_fy = op.iy_f(h, g)   # h̄ at (c,f)
+        u = uh / h_fx
+        v = vh / h_fy
+
+        # ∇·(U ⊗ ũ): symmetric transport, upwind-reconstructed velocity
+        flux_xx = upwind_biased_product(op.ix_c(uh, g),
+                                        *scheme.both_x_c(u, g))   # (c,c)
+        flux_yx = upwind_biased_product(op.ix_f(vh, g),
+                                        *scheme.both_y_f(u, g))   # (f,f)
+        Gu = -(op.ddx_f(flux_xx, g) + op.ddy_c_flux(flux_yx, g))
+
+        flux_xy = upwind_biased_product(op.iy_f(uh, g),
+                                        *scheme.both_x_f(v, g))   # (f,f)
+        flux_yy = upwind_biased_product(op.iy_c(vh, g),
+                                        *scheme.both_y_c(v, g))   # (c,c)
+        Gv = -(op.ddx_c_flux(flux_xy, g) + op.ddy_f(flux_yy, g))
+
+        # gravity −g h̄ ∂h, Coriolis on the transports
+        Gu = Gu - gacc * h_fx * op.ddx_f(h, g)
+        Gv = Gv - gacc * h_fy * op.ddy_f(h, g)
+        Gu = Gu + self.coriolis.tendency_u(vh, g)
+        Gv = Gv + self.coriolis.tendency_v(uh, g)
+
+        # mass: the transports are prognostic, no reconstruction
+        divU = op.ddx_c_flux(uh, g) + op.ddy_c_flux(vh, g)
+        Gh = -divU
+
+        GA = self._tracer_tendency(A, h, uh, vh, divU)
+        return Gu, Gv, Gh, GA
 
     def _tracer_tendency(self, A, h, Uf, Vf, divU):
         """∂t A = (A ∇·U − ∇·(U Ã))/h, minus γ·ℑyᶜ(Vf)/h for a linear

@@ -1,9 +1,12 @@
 """Build ``csrc/*.cu`` with nvcc at first use and bind it through ctypes.
 
-The shared library is named by a hash of the sources and the flags and
-lives in ``swmhd_tpu_torch/_build/`` (not committed), so a fresh checkout
-builds it on the first kernel call and later processes reuse it. A
-missing nvcc or a failed build raises with the compiler's output.
+Each source is compiled to an object by its own nvcc process, all started
+together, and the objects are linked into one shared library. The library
+is named by a hash of the sources, the headers (``csrc/*.cuh``) and the
+flags and lives in ``swmhd_tpu_torch/_build/`` (not committed), so a
+fresh checkout builds it on the first kernel call and later processes
+reuse it. A missing nvcc or a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -21,16 +24,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    # s_in, g_prev, s_out, g_out, tmp, nx, ny,
-    # dx, dy, g, f, A_bg_grad_y, dt, gamma_k, zeta_k, stream
-    "swmhd_substage": [_P] * 5 + [_I] * 2 + [_D] * 8 + [_P],
-    # s_in, s_out, work, gbuf, tmp, nx, ny,
+    # s_in, g_prev, s_out, g_out, tmp, nx, ny, conservative, wall_x,
+    # wall_y, dx, dy, g, f, A_bg_grad_y, dt, gamma_k, zeta_k, stream
+    "swmhd_substage": [_P] * 5 + [_I] * 5 + [_D] * 8 + [_P],
+    # s_in, s_out, work, gbuf, tmp, nx, ny, conservative, wall_x, wall_y,
     # dx, dy, g, f, A_bg_grad_y, dt, n_steps, stream
-    "swmhd_multistep": [_P] * 5 + [_I] * 2 + [_D] * 6 + [_I, _P],
+    "swmhd_multistep": [_P] * 5 + [_I] * 5 + [_D] * 6 + [_I, _P],
 }
 
 
@@ -68,12 +71,23 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; ``[(returncode, output), ...]``."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def load() -> Library:
     """Build (if needed) and load the kernel library."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
+    for path in sources + headers:
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
             digest.update(f.read())
     key = digest.hexdigest()[:16]
     if key in _LOADED:
@@ -83,17 +97,27 @@ def load() -> Library:
     seconds, log = 0.0, ""
     if not os.path.exists(target):
         nvcc = _nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, target)
+        work = tempfile.mkdtemp(dir=BUILD_DIR)
+        try:
+            objs = [os.path.join(work, os.path.basename(src) + ".o")
+                    for src in sources]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(sources, objs)]
+            tmp = os.path.join(work, "lib.so")
+            link = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs]
+            t0 = time.perf_counter()
+            results = _run_all(cmds)
+            if all(rc == 0 for rc, _ in results):
+                results += _run_all([link])
+                cmds.append(link)
+            seconds = time.perf_counter() - t0
+            log = "".join(out for _, out in results)
+            for cmd, (rc, out) in zip(cmds, results):
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): "
+                                       f"{' '.join(cmd)}\n{out}")
+            os.replace(tmp, target)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     lib = _LOADED[key] = Library(target, seconds, log)
     return lib

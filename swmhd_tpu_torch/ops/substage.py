@@ -8,23 +8,42 @@ Counterparts of the Pallas kernels of ``swmhd_tpu/ops/fused_step.py``:
 (``resident_step_fn``). The prognostics travel stacked as one
 ``(4, Nx, Ny)`` tensor in the order h, u, v, A.
 
-Dispatch: on a CPU tensor a wrapper runs its plain version; on a CUDA
-tensor it launches the kernel or raises. A configuration the kernel does
-not cover raises ``ValueError`` on CUDA. Each wrapper counts its launches
-in ``<wrapper>.launches`` and each plain version its calls in
-``<function>.calls``, so a run can show which path it took.
+The kernel covers both formulations (vector-invariant with the jacobian
+Lorentz forcing, conservative with the divergence-form one) on any pair of
+periodic and bounded axes. Dispatch: on a CPU tensor a wrapper runs its
+plain version; on a CUDA tensor it launches the kernel or raises. A
+configuration the kernel does not cover raises ``ValueError`` on CUDA.
+Each wrapper counts its launches in ``<wrapper>.launches`` and, by
+templated branch (the ``(conservative, wall_x, wall_y)`` head of
+:func:`kernel_params`; :func:`branch_label` names it), in
+``<wrapper>.launches_by_branch``;
+each plain version counts its calls in ``<function>.calls``, so a run can
+show which path it took.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
-from ..grid import PERIODIC
-from ..models.shallow_water import RK3_GAMMA, RK3_ZETA, run_steps
+from ..grid import BOUNDED
+from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
+                                    VECTOR_INVARIANT, run_steps)
 from ..models.state import Clock, State
 
-N_TMP = 12          # intermediates between the two kernels of a substage
+# intermediates between the kernels of one substage, by formulation
+N_TMP = {VECTOR_INVARIANT: 12, CONSERVATIVE: 16}
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
+# the Lorentz forcing each formulation's kernel computes in-kernel:
+# (forcing key, tag set by the forcing factory, factory name)
+LORENTZ = {
+    VECTOR_INVARIANT: (("u", "v"), "jacobian_lorentz_A_bg_grad_y",
+                       "jacobian_lorentz_forcing"),
+    CONSERVATIVE: (("uh", "vh"), "divergence_lorentz_A_bg_grad_y",
+                   "divergence_lorentz_forcing"),
+}
 
 
 # -- plain versions ------------------------------------------------------------
@@ -54,33 +73,43 @@ def multistep_reference(model, s, dt, n_steps):
 # -- kernel wrappers -------------------------------------------------------------
 
 def kernel_params(model):
-    """``(dx, dy, g, f, A_bg_grad_y)`` of a model the kernel covers;
-    ``ValueError`` naming what it does not cover otherwise."""
+    """``(conservative, wall_x, wall_y, dx, dy, g, f, A_bg_grad_y)`` of a
+    model the kernel covers; ``ValueError`` naming what it does not cover
+    otherwise."""
     g = model.grid
-    if model.formulation != "vector_invariant":
-        raise ValueError("the CUDA substage covers the vector-invariant "
-                         "formulation only")
-    if (g.topology_x, g.topology_y) != (PERIODIC, PERIODIC):
-        raise ValueError("the CUDA substage covers periodic x and y; "
-                         "bounded walls are the next slice (ROADMAP.md)")
     if model.closure is not None:
-        raise ValueError("the CUDA substage has no closure")
+        raise ValueError("the CUDA substage has no closure "
+                         "(ROADMAP.md, queue 1 item 3)")
     if g.Nx < MIN_POINTS or g.Ny < MIN_POINTS:
         raise ValueError(f"the CUDA substage needs Nx, Ny >= {MIN_POINTS}; "
                          f"got {g.Nx}x{g.Ny}")
     for name in ("momentum_advection", "mass_advection", "tracer_advection"):
         if getattr(model, name).name != "weno5":
-            raise ValueError(f"the CUDA substage needs WENO5 {name}")
+            raise ValueError(f"the CUDA substage needs WENO5 {name} "
+                             f"(ROADMAP.md, queue 1 item 3)")
     gamma = model.A_background_gradient_y
+    key, tag, factory = LORENTZ[model.formulation]
     forcing = dict(model.forcing)
-    fn = forcing.get(("u", "v"))
+    fn = forcing.get(key)
     if (len(forcing) != 1 or fn is None
-            or getattr(fn, "jacobian_lorentz_A_bg_grad_y", None) != gamma):
-        raise ValueError("the CUDA substage computes exactly the jacobian "
-                         "Lorentz forcing (jacobian_lorentz_forcing with the "
-                         "model's A_background_gradient_y)")
-    return (g.dx, g.dy, float(model.gravitational_acceleration),
+            or getattr(fn, tag, None) != gamma):
+        raise ValueError(f"the CUDA substage of the {model.formulation} "
+                         f"formulation computes exactly its Lorentz forcing "
+                         f"({factory} with the model's "
+                         f"A_background_gradient_y)")
+    return (int(model.formulation == CONSERVATIVE),
+            int(g.topology_x == BOUNDED), int(g.topology_y == BOUNDED),
+            g.dx, g.dy, float(model.gravitational_acceleration),
             float(model.coriolis.f), float(gamma))
+
+
+def branch_label(branch) -> str:
+    """``(conservative, wall_x, wall_y)`` as ``"<formulation>, <periodic |
+    bounded x | bounded y | bounded xy>"``."""
+    conservative, wall_x, wall_y = branch
+    walls = "x" * wall_x + "y" * wall_y
+    return (f"{CONSERVATIVE if conservative else VECTOR_INVARIANT}, "
+            f"{'bounded ' + walls if walls else 'periodic'}")
 
 
 def _check_fields(model, s):
@@ -95,7 +124,14 @@ def _check_fields(model, s):
         raise ValueError("stacked fields must be contiguous")
 
 
+def _intermediates(model, s):
+    return torch.empty((N_TMP[model.formulation],) + tuple(s.shape[1:]),
+                       dtype=s.dtype, device=s.device)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib_fn(name, dtype):
+    # once per process: _build.load() hashes the sources on every call
     from . import _build
     return _build.load().fn(name, "f32" if dtype == torch.float32 else "f64")
 
@@ -126,14 +162,14 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True):
         raise ValueError("G_prev must match the stacked fields")
     s_out = torch.empty_like(s)
     g_out = torch.empty_like(s) if write_G else None
-    tmp = torch.empty((N_TMP,) + tuple(s.shape[1:]), dtype=s.dtype,
-                      device=s.device)
+    tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
              model.grid.Nx, model.grid.Ny, *params, float(dt),
              RK3_GAMMA[stage], RK3_ZETA[stage], stream)
     substage.launches += 1
+    substage.launches_by_branch[params[:3]] += 1
     _raise_on(err, "swmhd_substage")
     return s_out, g_out
 
@@ -149,14 +185,14 @@ def multistep(model, s, dt, n_steps):
     out = torch.empty_like(s)
     work = torch.empty_like(s)
     gbuf = torch.empty((2,) + tuple(s.shape), dtype=s.dtype, device=s.device)
-    tmp = torch.empty((N_TMP,) + tuple(s.shape[1:]), dtype=s.dtype,
-                      device=s.device)
+    tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_multistep", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
              model.grid.Nx, model.grid.Ny, *params, float(dt),
              int(n_steps), stream)
     multistep.launches += 1
+    multistep.launches_by_branch[params[:3]] += 1
     _raise_on(err, "swmhd_multistep")
     return out
 
@@ -164,6 +200,7 @@ def multistep(model, s, dt, n_steps):
 def reset_counters():
     for f in (substage, multistep):
         f.launches = 0
+        f.launches_by_branch = collections.Counter()
     for f in (substage_reference, multistep_reference):
         f.calls = 0
 

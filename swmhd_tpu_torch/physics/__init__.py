@@ -1,4 +1,6 @@
 from .coriolis import FPlane
-from .lorentz import magnetic_field_cc, lorentz_force_jacobian
+from .lorentz import (magnetic_field_cc, magnetic_field_faces,
+                      lorentz_force_jacobian, lorentz_force_divergence)
 
-__all__ = ["FPlane", "magnetic_field_cc", "lorentz_force_jacobian"]
+__all__ = ["FPlane", "magnetic_field_cc", "magnetic_field_faces",
+           "lorentz_force_jacobian", "lorentz_force_divergence"]

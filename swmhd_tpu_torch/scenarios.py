@@ -15,9 +15,10 @@ from typing import Callable, Dict, Optional
 import torch
 
 from .grid import Grid
-from .models.shallow_water import ShallowWaterModel, VECTOR_INVARIANT
+from .models.shallow_water import (ShallowWaterModel, VECTOR_INVARIANT,
+                                   CONSERVATIVE)
 from .physics.coriolis import FPlane
-from .forcing import jacobian_lorentz_forcing
+from .forcing import jacobian_lorentz_forcing, divergence_lorentz_forcing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +113,19 @@ def build(name: str, formulation: str = VECTOR_INVARIANT,
     grid = Grid.regular(sc.N, sc.N, (-sc.L / 2, sc.L / 2),
                         (-sc.L / 2, sc.L / 2), topology=sc.topology,
                         dtype=dtype, device=device)
+    if formulation == CONSERVATIVE:
+        forcing = divergence_lorentz_forcing(sc.A_bg_grad_y)
+    else:
+        forcing = jacobian_lorentz_forcing(sc.A_bg_grad_y)
     model = ShallowWaterModel(
         grid=grid, formulation=formulation,
         gravitational_acceleration=sc.g, coriolis=FPlane(f=sc.f),
-        forcing=jacobian_lorentz_forcing(sc.A_bg_grad_y),
-        A_background_gradient_y=sc.A_bg_grad_y, **model_kwargs)
-    state = model.initial_state(u=sc.u0, v=sc.v0, h=sc.h0, A=sc.A0)
+        forcing=forcing, A_background_gradient_y=sc.A_bg_grad_y,
+        **model_kwargs)
+    u0, v0 = sc.u0, sc.v0
+    if formulation == CONSERVATIVE and u0 is not None:
+        # transports uh = u·h0 over the uniform initial height
+        u0 = lambda x, y: sc.u0(x, y) * sc.h0
+        v0 = lambda x, y: sc.v0(x, y) * sc.h0
+    state = model.initial_state(u=u0, v=v0, h=sc.h0, A=sc.A0)
     return model, state, sc

@@ -27,8 +27,8 @@ ENERGIES = ("kinetic_energy", "magnetic_energy", "potential_energy",
             "total_energy", "cross_helicity")
 
 
-def run(outdir, *extra):
-    cli.main(["run", SCENARIO, "--device", "cpu", "--dtype", "float64",
+def run(outdir, *extra, scenario=SCENARIO):
+    cli.main(["run", scenario, "--device", "cpu", "--dtype", "float64",
               "--outdir", str(outdir), *extra])
 
 
@@ -61,6 +61,30 @@ def test_cli_run_energies_match_jax_on_restored_final(tmp_path):
         want = float(rep[name])
         assert rows[-1, col] == pytest.approx(want, rel=1e-10, abs=1e-14), \
             name
+
+
+@pytest.mark.parametrize("scenario", ["64x64_low_B_low_U",
+                                      "64x64_two_Gaussians_high_B"])
+def test_cli_conservative_run_energies_match_jax(tmp_path, scenario):
+    """The conservative formulation end to end: the series is in physical
+    velocities, and the JAX package's conservative model evaluates the
+    restored final state (transports in u, v) to the same energies."""
+    run(tmp_path, "--stop-time", "0.1", "--formulation", "conservative",
+        scenario=scenario)
+    _, rows = read_csv(tmp_path / "energies.csv")
+    assert rows.shape[0] == 11 and np.isfinite(rows).all()
+    model, state0, _ = jscen.build(scenario, "conservative",
+                                   dtype=jnp.float64)
+    final = jckpt.restore(str(tmp_path / "final.npz"), model.grid)
+    assert int(final.clock.iteration) == 10
+    rep = jdiag.energy_report(model, final, state0.h)
+    for col, name in enumerate(sorted(ENERGIES), start=2):
+        assert rows[-1, col] == pytest.approx(float(rep[name]), rel=1e-10,
+                                              abs=1e-14), name
+    u, _ = model.velocities(final)
+    snaps = FieldTimeSeries(str(tmp_path / "fields"), "u")
+    np.testing.assert_allclose(snaps[-1], np.asarray(u), rtol=1e-12,
+                               atol=1e-15)
 
 
 def test_cli_resume_continues_the_series(tmp_path):

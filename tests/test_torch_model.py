@@ -1,6 +1,7 @@
-"""swmhd_tpu_torch's vector-invariant model == swmhd_tpu's at float64:
-tendencies, RK3 steps, the scenario initial conditions, and the frozen
-1000-step trajectory ``tests/fixtures/jacobian_64.npz``.
+"""swmhd_tpu_torch's model == swmhd_tpu's at float64, in both
+formulations: tendencies, RK3 steps, the scenario initial conditions, and
+the frozen 1000-step trajectories ``tests/fixtures/jacobian_64.npz``
+(vector-invariant) and ``divergence_64.npz`` (conservative).
 
 Both packages get the same numpy state (the JAX initial condition, carried
 across with ``convert.state_from_numpy``). States agree to 1e-12 of each
@@ -22,29 +23,35 @@ import torch
 
 from swmhd_tpu import scenarios as jscen
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
-                       FPlane as JFPlane, VECTOR_INVARIANT,
-                       jacobian_lorentz_forcing as j_forcing)
+                       FPlane as JFPlane, VECTOR_INVARIANT, CONSERVATIVE,
+                       jacobian_lorentz_forcing as j_forcing,
+                       divergence_lorentz_forcing as j_div_forcing)
+from swmhd_tpu import diagnostics as jdiag
 from swmhd_tpu_torch import scenarios as tscen
+from swmhd_tpu_torch import diagnostics as tdiag
 from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
                              FPlane as TFPlane,
-                             jacobian_lorentz_forcing as t_forcing)
+                             jacobian_lorentz_forcing as t_forcing,
+                             divergence_lorentz_forcing as t_div_forcing)
 from swmhd_tpu_torch.convert import state_from_numpy
 
 torch.set_num_threads(1)
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
-                       "jacobian_64.npz")
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+FIXTURE = os.path.join(FIXTURES, "jacobian_64.npz")
 FIELDS = ("h", "u", "v", "A")
 
 
-def fused_test_pair(N=64):
+def fused_test_pair(N=64, formulation=VECTOR_INVARIANT):
     """The initial condition of tests/test_fused.py::build in both
-    packages: vortex, height bump, Gaussian dipole."""
+    packages: vortex, height bump, Gaussian dipole (the vortex is the
+    transport in the conservative formulation, as there)."""
     L = 10.0
+    conservative = formulation == CONSERVATIVE
     jg = JGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
                        dtype=jnp.float64)
-    jm = JModel(grid=jg, formulation=VECTOR_INVARIANT,
-                coriolis=JFPlane(1.0), forcing=j_forcing())
+    jm = JModel(grid=jg, formulation=formulation, coriolis=JFPlane(1.0),
+                forcing=j_div_forcing() if conservative else j_forcing())
     js = jm.initial_state(
         u=lambda x, y: 5 * y * jnp.exp(-(x**2 + y**2)),
         v=lambda x, y: -5 * x * jnp.exp(-(x**2 + y**2)),
@@ -53,13 +60,14 @@ def fused_test_pair(N=64):
         - 0.5 * jnp.exp(-((x + 0.5)**2 + y**2)))
     tg = TGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
                        dtype=torch.float64)
-    tm = TModel(grid=tg, coriolis=TFPlane(1.0), forcing=t_forcing())
+    tm = TModel(grid=tg, formulation=formulation, coriolis=TFPlane(1.0),
+                forcing=t_div_forcing() if conservative else t_forcing())
     return jm, js, tm, to_torch(js)
 
 
-def scenario_pair(name):
-    jm, js, _ = jscen.build(name, VECTOR_INVARIANT, dtype=jnp.float64)
-    tm, _, _ = tscen.build(name, dtype=torch.float64)
+def scenario_pair(name, formulation=VECTOR_INVARIANT):
+    jm, js, _ = jscen.build(name, formulation, dtype=jnp.float64)
+    tm, _, _ = tscen.build(name, formulation, dtype=torch.float64)
     return jm, js, tm, to_torch(js)
 
 
@@ -84,6 +92,14 @@ PAIRS = {"fused_test_ic": fused_test_pair,
          "adjustment_jacobian": lambda: scenario_pair("adjustment_jacobian")}
 
 
+CONSERVATIVE_PAIRS = {
+    "fused_test_ic": lambda: fused_test_pair(formulation=CONSERVATIVE),
+    "64x64_low_B_low_U": lambda: scenario_pair("64x64_low_B_low_U",
+                                               CONSERVATIVE),
+    "adjustment_divergence": lambda: scenario_pair("adjustment_divergence",
+                                                   CONSERVATIVE)}
+
+
 @pytest.mark.parametrize("case", sorted(PAIRS))
 def test_tendencies_match_jax(case):
     jm, js, tm, ts = PAIRS[case]()
@@ -101,6 +117,22 @@ def test_step_fn_matches_jax(case):
     assert got.clock.time == pytest.approx(float(want.clock.time), abs=1e-15)
 
 
+@pytest.mark.parametrize("case", sorted(CONSERVATIVE_PAIRS))
+def test_conservative_tendencies_match_jax(case):
+    jm, js, tm, ts = CONSERVATIVE_PAIRS[case]()
+    assert_fields_close(tm.tendencies(ts), jax.jit(jm.tendencies)(js),
+                        what=case, shared_scale=True)
+
+
+@pytest.mark.parametrize("case", sorted(CONSERVATIVE_PAIRS))
+def test_conservative_step_fn_matches_jax(case):
+    jm, js, tm, ts = CONSERVATIVE_PAIRS[case]()
+    got = tm.step_fn(0.01, 2)(ts)
+    want = jax.jit(jm.step_fn(0.01, 2))(js)
+    assert_fields_close(got, want, what=case)
+    assert got.clock.iteration == int(want.clock.iteration) == 2
+
+
 @pytest.mark.parametrize("name", sorted(jscen.names()))
 def test_scenario_initial_conditions_match_jax(name):
     _, js, jsc = jscen.build(name, VECTOR_INVARIANT, dtype=jnp.float64)
@@ -109,6 +141,36 @@ def test_scenario_initial_conditions_match_jax(name):
     for key in ("N", "L", "g", "f", "dt", "stop_time", "h0", "topology",
                 "A_bg_grad_y"):
         assert getattr(tsc, key) == getattr(jsc, key), key
+
+
+@pytest.mark.parametrize("name", sorted(jscen.names()))
+def test_conservative_scenario_initial_conditions_match_jax(name):
+    """Transports uh = u0·h0 where the scenario has a velocity; the
+    forcing is the divergence form."""
+    jm, js, _ = jscen.build(name, CONSERVATIVE, dtype=jnp.float64)
+    tm, ts, _ = tscen.build(name, CONSERVATIVE, dtype=torch.float64)
+    assert_fields_close(ts, js, tol=1e-14, what=name)
+    ((key, fn),) = tm.forcing
+    assert key == ("uh", "vh") == tuple(dict(jm.forcing))[0]
+    assert fn.divergence_lorentz_A_bg_grad_y == tm.A_background_gradient_y
+
+
+@pytest.mark.parametrize("case", ["fused_test_ic", "64x64_low_B_low_U"])
+def test_conservative_velocities_and_energies_match_jax(case):
+    """Physical velocities, transports and both energy reports (the
+    reference's index-aligned kinetic energy is ½(uh²+vh²)/h here)."""
+    jm, js, tm, ts = CONSERVATIVE_PAIRS[case]()
+    for got, want in zip(tm.velocities(ts) + tm.transports(ts),
+                         jm.velocities(js) + jm.transports(js)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-13, atol=1e-15)
+    for t_fn, j_fn in ((tdiag.reference_energy_report,
+                        jdiag.reference_energy_report),
+                       (tdiag.energy_report, jdiag.energy_report)):
+        got, want = t_fn(tm, ts, ts.h), j_fn(jm, js, js.h)
+        for name, value in got.items():
+            assert float(value) == pytest.approx(float(want[name]),
+                                                 rel=1e-12, abs=1e-15), name
 
 
 def test_step_fn_diagnostics_series_on_device():
@@ -129,11 +191,21 @@ def test_frozen_trajectory_1000_steps():
         assert err <= 1e-9, f"{k}: {err:.3e}"
 
 
+def test_frozen_divergence_trajectory_1000_steps():
+    want = np.load(os.path.join(FIXTURES, "divergence_64.npz"))
+    tm, ts, _ = tscen.build("64x64_two_Gaussians_high_B", CONSERVATIVE,
+                            dtype=torch.float64)
+    got = tm.step_fn(0.01, 1000)(ts)
+    for k in FIELDS:
+        err = np.max(np.abs(getattr(got, k).numpy() - want[k]))
+        assert err <= 1e-9, f"{k}: {err:.3e}"
+
+
 def test_unported_configurations_raise():
     tg = TGrid.regular(16, 16, (-5, 5), (-5, 5), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TModel(grid=tg, formulation="conservative")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        TModel(grid=tg, closure=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="unknown formulation"):
+        TModel(grid=tg, formulation="divergence")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        TModel(grid=tg, formulation=CONSERVATIVE, closure=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         TModel(grid=tg, momentum_advection="centered2")

@@ -77,7 +77,8 @@ def test_shifts_match_jax(topology, n):
                  jop.shift_y(jnp.asarray(a), n, jg), tol=0.0)
 
 
-RECON = ["left3_x_f", "right3_x_f", "left3_y_f", "right3_y_f"]
+RECON = ["left3_x_f", "right3_x_f", "left3_y_f", "right3_y_f",
+         "left3_x_c", "right3_x_c", "left3_y_c", "right3_y_c"]
 
 
 @pytest.mark.parametrize("topology", TOPOLOGIES)
@@ -87,7 +88,7 @@ def test_reconstructions_match_jax(topology):
     for name in RECON:
         assert_close(getattr(tadv, name)(torch.from_numpy(a), tg),
                      getattr(jadv, name)(jnp.asarray(a), jg), what=name)
-    for name in ("pair_x_f", "pair_y_f"):
+    for name in ("pair_x_f", "pair_y_f", "pair_x_c", "pair_y_c"):
         got = getattr(tadv, "weno5_" + name)(torch.from_numpy(a), tg)
         want = getattr(jadv, "weno5_" + name)(jnp.asarray(a), jg)
         for side, g_, w_ in zip("lr", got, want):
@@ -103,6 +104,25 @@ def test_scheme_face_pairs_match_jax(topology, scheme):
     for axis in ("x", "y"):
         got = getattr(ts, f"both_{axis}_f")(torch.from_numpy(a), tg)
         want = getattr(js, f"both_{axis}_f")(jnp.asarray(a), jg)
+        for g_, w_ in zip(got, want):
+            assert_close(g_, w_, what=f"{scheme} {axis}")
+        assert_close(tadv.upwind_biased_product(torch.from_numpy(u), *got),
+                     jadv.upwind_biased_product(jnp.asarray(u), *want),
+                     what=f"{scheme} {axis} upwind")
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("scheme", ["centered2", "upwind3", "weno5"])
+def test_scheme_center_pairs_match_jax(topology, scheme):
+    """Center-from-face reconstructions: the face form shifted by one as
+    an array, which near a clamped wall differs from a window offset by
+    one."""
+    jg, tg = twin_grids(topology)
+    a, u = fields(2, seed=7)
+    ts, js = tadv.get_scheme(scheme), jadv.get_scheme(scheme)
+    for axis in ("x", "y"):
+        got = getattr(ts, f"both_{axis}_c")(torch.from_numpy(a), tg)
+        want = getattr(js, f"both_{axis}_c")(jnp.asarray(a), jg)
         for g_, w_ in zip(got, want):
             assert_close(g_, w_, what=f"{scheme} {axis}")
         assert_close(tadv.upwind_biased_product(torch.from_numpy(u), *got),
@@ -163,7 +183,8 @@ def test_weno_f32_constant_field_exact(value):
     """betas are 0: without the f32 normalisation the weights are 0/0."""
     _, tg = twin_grids(("periodic", "periodic"), tdtype=torch.float32)
     c = torch.full((NX, NY), value, dtype=torch.float32)
-    for recon in tadv.weno5_pair_x_f(c, tg) + tadv.weno5_pair_y_f(c, tg):
+    for recon in (tadv.weno5_pair_x_f(c, tg) + tadv.weno5_pair_y_f(c, tg)
+                  + tadv.weno5_pair_x_c(c, tg) + tadv.weno5_pair_y_c(c, tg)):
         assert torch.isfinite(recon).all()
         ulp = np.spacing(np.float32(abs(value)))
         assert np.max(np.abs(recon.numpy() - np.float32(value))) <= ulp
@@ -193,3 +214,4 @@ def test_grid_coordinates_match_jax(jdtype, tdtype):
         for t, j in zip(tg.nodes(loc), jg.nodes(loc)):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     assert (tg.dx, tg.dy, tg.shape) == (jg.dx, jg.dy, jg.shape)
+    assert (tg.Ax, tg.Ay, tg.Az) == (jg.Ax, jg.Ay, jg.Az)

@@ -1,5 +1,6 @@
-"""swmhd_tpu_torch Coriolis, jacobian Lorentz force and forcing hook ==
-swmhd_tpu's on the same random float64 fields at 32×48, both topologies.
+"""swmhd_tpu_torch Coriolis, both Lorentz forces and their forcing hooks
+== swmhd_tpu's on the same random float64 fields at 32×48, for periodic
+and bounded axes.
 
 Tolerance max|Δ| <= 1e-13·max(1, max|ref|): same formulas, same order.
 """
@@ -84,3 +85,35 @@ def test_jacobian_forcing_hook_matches_jax(gamma):
     for g_, w_ in zip(tfn(tg, None, tf), jfn(jg, None, jf)):
         assert_close(g_, w_)
     assert tfn.jacobian_lorentz_A_bg_grad_y == gamma
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("gamma", [0.0, -0.05])
+def test_lorentz_divergence_matches_jax(topology, gamma):
+    """Face B, its numerators and ∇·(hB⊗B): UpwindBiased3 reconstructions
+    (degraded at walls), face areas, plain clamped differences."""
+    jg, tg = twin_grids(topology)
+    f = inputs(4)
+    tA, th = torch.from_numpy(f["A"]), torch.from_numpy(f["h"])
+    jA, jh = jnp.asarray(f["A"]), jnp.asarray(f["h"])
+    for g_, w_ in zip(tphys.magnetic_field_faces(tA, th, tg, gamma),
+                      jphys.magnetic_field_faces(jA, jh, jg, gamma)):
+        assert_close(g_, w_, what="B faces")
+    for g_, w_ in zip(tphys.lorentz_force_divergence(tA, th, tg, gamma),
+                      jphys.lorentz_force_divergence(jA, jh, jg, gamma)):
+        assert_close(g_, w_, what="force")
+
+
+@pytest.mark.parametrize("gamma", [0.0, -0.05])
+def test_divergence_forcing_hook_matches_jax(gamma):
+    jg, tg = twin_grids(("periodic", "bounded"))
+    f = inputs(5)
+    ((tkey, tfn),) = tforcing.divergence_lorentz_forcing(gamma).items()
+    ((jkey, jfn),) = jforcing.divergence_lorentz_forcing(gamma).items()
+    assert tkey == jkey == ("uh", "vh")
+    tf = {k: torch.from_numpy(v) for k, v in f.items()}
+    jf = {k: jnp.asarray(v) for k, v in f.items()}
+    for g_, w_ in zip(tfn(tg, None, tf), jfn(jg, None, jf)):
+        assert_close(g_, w_)
+    assert tfn.divergence_lorentz_A_bg_grad_y == gamma
+    assert not hasattr(tfn, "jacobian_lorentz_A_bg_grad_y")

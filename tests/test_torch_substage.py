@@ -4,8 +4,9 @@ On the CPU: the plain versions against the JAX Pallas kernels they port,
 run as tests/test_fused.py runs them (interpret mode), at 32² float64 to
 1e-12 of each field's scale — ``multistep_reference`` against
 ``resident_step_fn`` and chained ``substage_reference`` calls against
-``fused_step_fn``; the wrappers' CPU dispatch (plain version, no launch);
-and the configurations the kernel rejects.
+``fused_step_fn``, in both formulations, periodic and wall-bounded; the
+wrappers' CPU dispatch (plain version, no launch); and the
+configurations the kernel rejects.
 
 Tests marked ``cuda`` run the kernel itself and skip without a card:
 ``python -m pytest tests/test_torch_substage.py -m cuda`` on the GPU.
@@ -17,13 +18,16 @@ import pytest
 import torch
 
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
-                       FPlane as JFPlane, jacobian_lorentz_forcing as jforce)
+                       FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
+                       divergence_lorentz_forcing as jdivforce)
 from swmhd_tpu.ops.fused_step import fused_step_fn, resident_step_fn
 from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
                              FPlane as TFPlane,
-                             jacobian_lorentz_forcing as tforce)
+                             jacobian_lorentz_forcing as tforce,
+                             divergence_lorentz_forcing as tdivforce)
 from swmhd_tpu_torch.convert import state_from_numpy
 from swmhd_tpu_torch.ops import substage as K
+from chip_smoke import wall_terms
 
 torch.set_num_threads(1)
 
@@ -31,13 +35,22 @@ L = 10.0
 FIELDS = ("h", "u", "v", "A")
 
 
-def ic(xp):
+def ic(xp, walls=False):
+    """Vortex, height bump, Gaussian dipole; with ``walls``, plus
+    chip_smoke's smooth wall-reaching terms, so a wall-bounded run has
+    structure next to its walls."""
     e = lambda x, y: xp.exp(-(x ** 2 + y ** 2))
-    return dict(
-        u=lambda x, y: 5 * y * e(x, y), v=lambda x, y: -5 * x * e(x, y),
+    base = dict(
+        u=lambda x, y: 5 * y * e(x, y),
+        v=lambda x, y: -5 * x * e(x, y),
         h=lambda x, y: 1.0 + 0.05 * e(x, y),
         A=lambda x, y: 0.5 * xp.exp(-((x - 0.5) ** 2 + y ** 2))
         - 0.5 * xp.exp(-((x + 0.5) ** 2 + y ** 2)))
+    if not walls:
+        return base
+    add = wall_terms(xp)
+    return {k: (lambda f, g: lambda x, y: f(x, y) + g(x, y))(f, add[k])
+            for k, f in base.items()}
 
 
 def torch_model(N=32, dtype=torch.float64, device="cpu", topology=None,
@@ -49,14 +62,24 @@ def torch_model(N=32, dtype=torch.float64, device="cpu", topology=None,
     return TModel(grid=g, coriolis=TFPlane(1.0), **kw)
 
 
-def jax_pair(N=32):
+def jax_pair(N=32, formulation="vector_invariant",
+             topology=("periodic", "periodic"), gamma=0.0):
+    """The same model and initial state in both packages (the vortex is
+    the transport in the conservative formulation)."""
+    conservative = formulation == "conservative"
     g = JGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
-                      dtype=jnp.float64)
-    jm = JModel(grid=g, coriolis=JFPlane(1.0), forcing=jforce())
-    js = jm.initial_state(**ic(jnp))
+                      topology=topology, dtype=jnp.float64)
+    jm = JModel(grid=g, formulation=formulation, coriolis=JFPlane(1.0),
+                forcing=jdivforce(gamma) if conservative else jforce(gamma),
+                A_background_gradient_y=gamma)
+    js = jm.initial_state(**ic(jnp, walls="bounded" in topology))
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
                           dtype=torch.float64)
-    return jm, js, torch_model(N), ts
+    tm = torch_model(N, topology=topology, formulation=formulation,
+                     forcing=tdivforce(gamma) if conservative
+                     else tforce(gamma),
+                     A_background_gradient_y=gamma)
+    return jm, js, tm, ts
 
 
 def assert_close(got, want, tol):
@@ -86,6 +109,44 @@ def test_substage_reference_matches_windowed_kernel():
     assert_close(s, want, 1e-12)
 
 
+# (formulation, topology, A_background_gradient_y): the kernel's branches
+# beyond the periodic vector-invariant one
+BRANCHES = {
+    "conservative periodic": ("conservative", ("periodic", "periodic"), 0.0),
+    "vector_invariant bounded y": ("vector_invariant",
+                                   ("periodic", "bounded"), -0.05),
+    "conservative bounded y": ("conservative", ("periodic", "bounded"),
+                               -0.05),
+}
+RESIDENT_BRANCHES = dict(BRANCHES, **{
+    "vector_invariant bounded xy": ("vector_invariant",
+                                    ("bounded", "bounded"), -0.05),
+    "conservative bounded xy": ("conservative", ("bounded", "bounded"),
+                                -0.05),
+})
+
+
+@pytest.mark.parametrize("case", sorted(RESIDENT_BRANCHES))
+def test_multistep_reference_matches_resident_kernel_branches(case):
+    jm, js, tm, ts = jax_pair(32, *RESIDENT_BRANCHES[case])
+    want = resident_step_fn(jm, 0.01, n_steps=3, interpret=True)(js)
+    assert_close(K.multistep_reference(tm, K.stack(ts), 0.01, 3), want,
+                 1e-12)
+
+
+@pytest.mark.parametrize("case", sorted(BRANCHES))
+def test_substage_reference_matches_windowed_kernel_branches(case):
+    jm, js, tm, ts = jax_pair(32, *BRANCHES[case])
+    want = fused_step_fn(jm, 0.01, n_steps=2, tile_x=16, halo=8,
+                         interpret=True)(js)
+    s = K.stack(ts)
+    for _ in range(2):
+        g = None
+        for stage in range(3):
+            s, g = K.substage_reference(tm, s, 0.01, stage, g)
+    assert_close(s, want, 1e-12)
+
+
 def test_cpu_tensors_take_the_plain_version():
     K.reset_counters()
     tm = torch_model(16)
@@ -100,12 +161,27 @@ def test_cpu_tensors_take_the_plain_version():
     assert K.substage_reference.calls > 0
 
 
-@pytest.mark.parametrize("diagnostics", [False, True])
-def test_kernel_stepper_matches_model_step(diagnostics):
+# (branch of BRANCHES/RESIDENT_BRANCHES or None for the periodic
+# vector-invariant model, per-step diagnostics)
+STEPPER_CASES = [
+    pytest.param(None, False, id="False"),
+    pytest.param(None, True, id="True"),
+    pytest.param("conservative bounded y", True,
+                 id="conservative bounded y"),
+    pytest.param("vector_invariant bounded xy", True,
+                 id="vector_invariant bounded xy"),
+]
+
+
+@pytest.mark.parametrize("case,diagnostics", STEPPER_CASES)
+def test_kernel_stepper_matches_model_step(case, diagnostics):
     """The stepper's two chunk paths (multistep; substages per step with
     a series) give the model's own RK3 step on the CPU."""
-    tm = torch_model(16)
-    st = tm.initial_state(**ic(torch))
+    if case is None:
+        tm, walls = torch_model(16), False
+    else:
+        tm, walls = jax_pair(16, *RESIDENT_BRANCHES[case])[2], True
+    st = tm.initial_state(**ic(torch, walls=walls))
     diag = (lambda s: {"mass": s.h.sum()}) if diagnostics else None
     got = K.KernelStepper(tm).step_fn(0.01, 3, diag)(st)
     want = tm.step_fn(0.01, 3, diag)(st)
@@ -117,8 +193,27 @@ def test_kernel_stepper_matches_model_step(diagnostics):
     assert got.clock == want.clock
 
 
+@pytest.mark.parametrize("case", sorted(RESIDENT_BRANCHES))
+def test_kernel_params_cover_the_branches(case):
+    formulation, topology, gamma = RESIDENT_BRANCHES[case]
+    _, _, tm, _ = jax_pair(16, formulation, topology, gamma)
+    params = K.kernel_params(tm)
+    assert params[:3] == (int(formulation == "conservative"),
+                          int(topology[0] == "bounded"),
+                          int(topology[1] == "bounded"))
+    assert params[3:] == (tm.grid.dx, tm.grid.dy, 9.81, 1.0, gamma)
+    walls = "x" * (topology[0] == "bounded") + "y" * (topology[1] == "bounded")
+    label = f"bounded {walls}" if walls else "periodic"
+    assert K.branch_label(params[:3]) == f"{formulation}, {label}"
+
+
 UNSUPPORTED = {
-    "bounded walls": dict(topology=("periodic", "bounded")),
+    # walls are covered; the jacobian forcing on the conservative
+    # formulation (whose kernel computes the divergence form) is not
+    "bounded walls": dict(topology=("periodic", "bounded"),
+                          formulation="conservative"),
+    "jacobian forcing on conservative": dict(formulation="conservative"),
+    "divergence forcing on vector_invariant": dict(forcing=tdivforce()),
     "no Lorentz forcing": dict(forcing=()),
     "background gradient mismatch": dict(A_background_gradient_y=-0.05),
     "upwind3 mass advection": dict(mass_advection="upwind3"),
@@ -147,27 +242,46 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vector_invariant periodic"]
+                         + sorted(RESIDENT_BRANCHES))
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
                                        (torch.float32, 2e-5)])
-def test_kernel_matches_plain_on_card(cuda, dtype, tol):
+def test_kernel_matches_plain_on_card(cuda, case, dtype, tol):
     """G of one substage (relative to the largest G) and 10 RK3 steps
-    (relative to the largest field) at 64² on the card."""
-    tm = torch_model(64, dtype, cuda)
-    s = K.stack(tm.initial_state(**ic(torch)))
+    (relative to the largest field) at 64² on the card, in every branch,
+    and the rows next to each wall on their own."""
+    formulation, topology, gamma = RESIDENT_BRANCHES.get(
+        case, ("vector_invariant", ("periodic", "periodic"), 0.0))
+    conservative = formulation == "conservative"
+    tm = torch_model(64, dtype, cuda, topology=topology,
+                     formulation=formulation,
+                     forcing=tdivforce(gamma) if conservative
+                     else tforce(gamma),
+                     A_background_gradient_y=gamma)
+    s = K.stack(tm.initial_state(**ic(torch, walls="bounded" in topology)))
     K.reset_counters()
     _, G = K.substage(tm, s, 0.005, 0)
     _, G_ref = K.substage_reference(tm, s, 0.005, 0)
-    assert float((G - G_ref).abs().max()) <= tol * float(G_ref.abs().max())
     x = K.multistep(tm, s, 0.005, 10)
     y = K.multistep_reference(tm, s, 0.005, 10)
     torch.cuda.synchronize()
-    assert float((x - y).abs().max()) <= tol * float(y.abs().max())
+    rows = [(slice(None),) * 3]
+    for axis, topo in ((1, topology[0]), (2, topology[1])):
+        if topo == "bounded":
+            for edge in (slice(0, 4), slice(60, 64)):
+                sl = [slice(None)] * 3
+                sl[axis] = edge
+                rows.append(tuple(sl))
+    for sl in rows:
+        assert float((G[sl] - G_ref[sl]).abs().max()) \
+            <= tol * float(G_ref.abs().max())
+        assert float((x[sl] - y[sl]).abs().max()) <= tol * float(y.abs().max())
     assert K.substage.launches == 1 and K.multistep.launches == 1
 
 
 @pytest.mark.cuda
 def test_unsupported_configuration_raises_on_card(cuda):
-    tm = torch_model(16, device=cuda, topology=("periodic", "bounded"))
+    tm = torch_model(16, device=cuda, **UNSUPPORTED["bounded walls"])
     s = K.stack(tm.initial_state(**ic(torch)))
     with pytest.raises(ValueError):
         K.substage(tm, s, 0.01, 0)
