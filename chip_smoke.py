@@ -36,17 +36,54 @@ each printing lines of findings; any failure exits non-zero:
    CLI runs of phase 5 timed with the kernel and with ``--no-fused`` in
    turns.
 
-Phases 5 and 6's kernel runs are the main path: the launch counters are
-zeroed just before phase 5 and read just after the kernel runs of phase
-6; comparisons with the plain versions happen outside that window. The
+7. the tile substage (``swmhd_substage`` with a halo, the kernel of the
+   domain decomposition) against the whole-domain substage in one
+   process: the 2048² configuration cut into 2×2, 4×1 and 1×4 layouts of
+   tiles (halo 6 on each cut axis, sliced from the global state with
+   wrap) and ``128x128_low_B_low_U`` into 4×1 (halo 6 in x, whole walled
+   rows), in both formulations, float32 (<= 2e-5) and float64 (<=
+   1e-12), G and the state of substages 0 and 1 relative to the field
+   scale, printing whether the two agree bit for bit; the tile kernel
+   against its plain version on one tile at 256² with wall-reaching
+   fields for each of the four tile branches, and on one tile of each
+   main-path layout (2048² in 2×2, 128² in 4×1; G and the state of
+   substages 0 and 1: float64 <= 1e-11; float32 states <= 2e-5 and G
+   within 2e-5 or no farther from the float64 plain G than twice the
+   float32 plain G), where it is timed against the plain version and the
+   whole-domain substage on a grid of the tile's size;
+8. the decomposed main path, four ranks sharing the one card over gloo
+   (``torch.distributed.run``, halo slabs staged through host memory):
+   the 2048² configuration in both formulations, 20 steps through
+   ``DomainDecomposition.fused_stepper`` against 20 single-device
+   multistep steps (<= 2e-5), with the per-step time, the time of one
+   substage's halo exchange (CUDA events) and the tile launches by
+   branch; then ``swmhd_tpu_torch.cli run 128x128_low_B_low_U
+   --stop-time 1.0`` in both formulations on a 4×1 mesh (101 finite
+   energy rows, ``final.npz`` against the single-rank CLI run within the
+   float32 bound, 300 tile launches a rank). With two cards or more the
+   2048² run repeats with one rank per card over NCCL.
+
+Phases 5 and 6's kernel runs are the main path of one process: the launch
+counters are zeroed just before phase 5 and read just after the kernel
+runs of phase 6. Phase 8's runs are the decomposed main path: each rank
+zeroes its counters just before its run and reports them just after.
+Comparisons with the plain versions happen outside those windows. The
 last two lines are a JSON object of per-kernel findings (one entry per
-entry point and branch) and the result line ``{"ok": true, "device":
+entry point and branch, each with its bound: the larger of the bytes it
+must move over 3.35 TB/s and the plain version's arithmetic, counted on
+the CPU, over 67 TFLOP/s) and the result line ``{"ok": true, "device":
 {...}}``.
+
+    python3 chip_smoke.py --worker dd <dir>               (under torchrun)
+    python3 chip_smoke.py --worker cli <dir> <formulation>
+
+run one rank of phase 8's runs and write its report to ``<dir>``.
 """
 
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -57,7 +94,17 @@ BENCH_N = 2048
 SMOKE_N = 256
 F64_BOUND = 1e-11
 F32_BOUND = 2e-5          # tests/test_fused.py's f32 kernel-vs-XLA bound
+TILE_F64_BOUND = 1e-12
 WALL_ROWS = 4
+BENCH_DT, DD_STEPS = 0.001, 20
+TILE_HALO = 6             # model.exchange_halo
+WORLD = 4
+# H100 SXM: device memory rate and fp32 rate outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# elementwise arithmetic counted towards a kernel's operations (shifts,
+# selects and copies count none)
+ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "pow",
+             "clamp", "bitwise_and", "maximum", "minimum"}
 
 VI, CONS = "vector_invariant", "conservative"
 PERIODIC = ("periodic", "periodic")
@@ -76,6 +123,8 @@ SOURCES = {VI: "swmhd_tpu_torch/csrc/vector_invariant.cu",
            CONS: "swmhd_tpu_torch/csrc/conservative.cu"}
 REPLACES = {"swmhd_substage": "swmhd_tpu/ops/fused_step.py:176",
             "swmhd_multistep": "swmhd_tpu/ops/fused_step.py:458"}
+# swmhd_substage's branches with an exchanged axis: the tile substage
+TILE_REPLACES = "swmhd_tpu/parallel/decomposition.py:299"
 
 
 def fail(msg):
@@ -105,11 +154,36 @@ def rel_err(a, b, scale=None):
     return float((a - b).abs().max()) / max(s, 1e-300)
 
 
+def initial_fields(xp, h_bump=0.0, walls=False):
+    """The bench.py initial condition as ``initial_state`` keyword
+    functions of the array module ``xp``: vortex, Gaussian dipole A and
+    h = 1 + h_bump·e^{-r²} (the vortex is the transport in the
+    conservative formulation; h = 1 makes it the same velocity). With
+    ``walls``, plus smooth terms (periodic in x over the [-5, 5]² domain)
+    that stay O(0.1) at the domain edges, so the rows next to a wall have
+    structure where the rest is ≈e^-25."""
+    e = lambda x, y: xp.exp(-(x ** 2 + y ** 2))
+    f = dict(
+        u=lambda x, y: 5 * y * e(x, y),
+        v=lambda x, y: -5 * x * e(x, y),
+        h=lambda x, y: 1.0 + h_bump * e(x, y),
+        A=lambda x, y: 0.5 * xp.exp(-((x - 0.5) ** 2 + y ** 2))
+        - 0.5 * xp.exp(-((x + 0.5) ** 2 + y ** 2)))
+    if not walls:
+        return f
+    k = xp.pi / 5
+    add = dict(
+        u=lambda x, y: 0.3 * xp.cos(0.6 * y) + 0.1 * xp.sin(k * x),
+        v=lambda x, y: 0.2 * xp.cos(k * x) * (1 + 0.3 * y),
+        h=lambda x, y: 0.05 * xp.cos(k * x) * xp.sin(0.3 * y + 0.5),
+        A=lambda x, y: 0.1 * xp.sin(k * x) * xp.cos(0.5 * y))
+    return {n: (lambda a, b: lambda x, y: a(x, y) + b(x, y))(f[n], add[n])
+            for n in f}
+
+
 def bench_model(N, dtype, device, formulation=VI, topology=PERIODIC,
-                gamma=0.0):
-    """The bench.py configuration: vortex + dipole A, h = 1 (the vortex
-    is the transport in the conservative formulation; h = 1 makes it the
-    same velocity)."""
+                gamma=0.0, walls=False):
+    """The bench.py configuration, with :func:`initial_fields`."""
     import torch
     from swmhd_tpu_torch import (Grid, ShallowWaterModel, FPlane,
                                  jacobian_lorentz_forcing,
@@ -122,36 +196,14 @@ def bench_model(N, dtype, device, formulation=VI, topology=PERIODIC,
                               gravitational_acceleration=9.81,
                               coriolis=FPlane(1.0), forcing=forcing,
                               A_background_gradient_y=gamma)
-    e = lambda x, y: torch.exp(-(x ** 2 + y ** 2))
-    state = model.initial_state(
-        u=lambda x, y: 5 * y * e(x, y), v=lambda x, y: -5 * x * e(x, y),
-        h=1.0,
-        A=lambda x, y: 0.5 * torch.exp(-((x - 0.5) ** 2 + y ** 2))
-        - 0.5 * torch.exp(-((x + 0.5) ** 2 + y ** 2)))
-    return model, state
-
-
-def wall_terms(xp):
-    """Smooth terms (periodic in x over the [-5, 5]² domain) that stay
-    O(0.1) at the domain edges, as ``initial_state`` keyword functions of
-    the array module ``xp``: added to fields that are ≈e^-25 at the edges,
-    they give the rows next to a wall structure (h varies too)."""
-    k = xp.pi / 5
-    return dict(
-        u=lambda x, y: 0.3 * xp.cos(0.6 * y) + 0.1 * xp.sin(k * x),
-        v=lambda x, y: 0.2 * xp.cos(k * x) * (1 + 0.3 * y),
-        h=lambda x, y: 0.05 * xp.cos(k * x) * xp.sin(0.3 * y + 0.5),
-        A=lambda x, y: 0.1 * xp.sin(k * x) * xp.cos(0.5 * y))
+    return model, model.initial_state(**initial_fields(torch, walls=walls))
 
 
 def wall_model(N, dtype, device, formulation, topology, gamma):
-    """The bench configuration plus :func:`wall_terms`."""
-    import torch
-    model, state = bench_model(N, dtype, device, formulation, topology,
-                               gamma)
-    add = model.initial_state(**wall_terms(torch))
-    return model, state.replace(
-        **{f: getattr(state, f) + getattr(add, f) for f in "huvA"})
+    """The bench configuration with the wall terms of
+    :func:`initial_fields`."""
+    return bench_model(N, dtype, device, formulation, topology, gamma,
+                       walls=True)
 
 
 def timed(fn, reps):
@@ -241,6 +293,324 @@ def compare_main_size(K, label, model, s, dt, y10, G_k, G_p):
     if not (torch.isfinite(x10).all() and max(g_err, err) <= F32_BOUND):
         fail(f"kernel disagrees with the plain version, {label}: "
              f"{max(g_err, err):.3e} > {F32_BOUND:g}")
+
+
+# -- bounds ----------------------------------------------------------------------
+
+def count_ops(fn):
+    """Elementwise arithmetic operations that ``fn()`` runs through PyTorch:
+    one per output element of each operation in ARITH_OPS."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket.__name__.rstrip("_") in ARITH_OPS
+                    and isinstance(out, torch.Tensor)):
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def ops_per_point(K, branch, per):
+    """Arithmetic per grid point of the plain version of one substage 0
+    (``per="substage"``) or one RK3 step (``per="step"``) of ``branch``
+    ((conservative, mode_x, mode_y); an exchanged axis counts as
+    periodic), float32, counted on the CPU at 64²."""
+    import torch
+    conservative, mode_x, mode_y = branch
+    topology = tuple("bounded" if m == K.BOUNDED_AXIS else "periodic"
+                     for m in (mode_x, mode_y))
+    gamma = -0.05 if "bounded" in topology else 0.0
+    model, state = bench_model(64, torch.float32, "cpu",
+                               CONS if conservative else VI, topology, gamma)
+    s = K.stack(state)
+    if per == "step":
+        n = count_ops(lambda: K.multistep_reference(model, s, BENCH_DT, 1))
+    else:
+        n = count_ops(lambda: K.substage_reference(model, s, BENCH_DT, 0))
+    return n / 64 ** 2
+
+
+def least_time(nbytes, ops):
+    """(ms, "bytes" | "operations"): the least time of the card for work
+    that moves ``nbytes`` and does ``ops`` float32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- tiles ---------------------------------------------------------------------------
+
+def cut_tile(s, b, hx, hy):
+    """Tile ``b = (x0, x1, y0, y1)`` of stacked fields ``s`` padded by
+    ``(hx, hy)`` cells, wrapping at the domain's ends: what a halo
+    exchange over periodic axes gives."""
+    import torch
+    x0, x1, y0, y1 = b
+    ix = torch.arange(x0 - hx, x1 + hx, device=s.device) % s.shape[1]
+    iy = torch.arange(y0 - hy, y1 + hy, device=s.device) % s.shape[2]
+    return s[:, ix][:, :, iy].contiguous()
+
+
+def tile_layout(N, M, mesh):
+    """``(bounds of each tile, (hx, hy))`` of a ``mesh`` of an N×M grid:
+    a halo of TILE_HALO on each axis that is cut."""
+    px, py = mesh
+    nx, ny = N // px, M // py
+    tiles = [(ix * nx, (ix + 1) * nx, iy * ny, (iy + 1) * ny)
+             for ix in range(px) for iy in range(py)]
+    return tiles, (TILE_HALO if px > 1 else 0, TILE_HALO if py > 1 else 0)
+
+
+def tile_branch(K, model, mesh):
+    """The kernel branch ``(conservative, mode_x, mode_y)`` of ``model``'s
+    tiles in ``mesh``: exchanged along each axis that is cut."""
+    conservative, wall_x, wall_y = K.kernel_params(model)[:3]
+    return (conservative, K.EXCHANGED_AXIS if mesh[0] > 1 else wall_x,
+            K.EXCHANGED_AXIS if mesh[1] > 1 else wall_y)
+
+
+def tile_against_substage(K, model, s, dt, mesh):
+    """The tile substage on every tile of ``mesh`` against the substage on
+    the whole grid, substages 0 and 1 (taking G_prev): the worst error
+    relative to each compared array's scale, and whether every value
+    agreed bit for bit."""
+    import torch
+    s1, g1 = K.substage(model, s, dt, 0)
+    s2, g2 = K.substage(model, s1, dt, 1, g1)
+    tiles, halo = tile_layout(model.grid.Nx, model.grid.Ny, mesh)
+    worst, bitwise = 0.0, True
+    for x0, x1, y0, y1 in tiles:
+        b = (x0, x1, y0, y1)
+        t1, h1 = K.substage(model, cut_tile(s, b, *halo), dt, 0,
+                            halo=halo)
+        t2, h2 = K.substage(model, cut_tile(s1, b, *halo), dt, 1,
+                            g1[:, x0:x1, y0:y1].contiguous(), halo=halo)
+        for got, want in ((t1, s1), (h1, g1), (t2, s2), (h2, g2)):
+            w = want[:, x0:x1, y0:y1]
+            worst = max(worst, rel_err(got, w, float(want.abs().max())))
+            bitwise &= bool(torch.equal(got, w))
+    return worst, bitwise
+
+
+def tile_pair(K, model, p, dt, halo, plain0=None):
+    """The tile substage on the padded tile ``p`` and its plain version,
+    substage 0 (whose plain result ``plain0 = (s_new, G)`` the caller may
+    have) and substage 1 taking each side's own G: ``((G, s1, s2) of the
+    kernel, (G, s1, s2) of the plain version)``."""
+    r1, g_p = plain0 or K.substage_reference(model, p, dt, 0, None, halo)
+    s1, g_k = K.substage(model, p, dt, 0, halo=halo)
+    s2, _ = K.substage(model, p, dt, 1, g_k, halo=halo)
+    r2, _ = K.substage_reference(model, p, dt, 1, g_p, halo)
+    return (g_k, s1, s2), (g_p, r1, r2)
+
+
+def finite(arrays):
+    import torch
+    return all(bool(torch.isfinite(a).all()) for a in arrays)
+
+
+# -- several ranks -------------------------------------------------------------------
+
+def torchrun(nproc, args, timeout=600):
+    """``python -m torch.distributed.run --standalone`` of this script's
+    worker mode on ``nproc`` ranks; its output. Kills the whole process
+    group on a timeout; fails on a nonzero exit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__),
+           "--worker", *args]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                         env=env, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+        fail(f"{' '.join(cmd)} did not end within {timeout} s")
+    if p.returncode != 0:
+        fail(f"{' '.join(cmd)} exited {p.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def tile_launches(K):
+    """``swmhd_substage``'s launches on tiles (a branch with an exchanged
+    axis), by branch as JSON keys."""
+    return {json.dumps(b): n for b, n in K.substage.launches_by_branch.items()
+            if K.EXCHANGED_AXIS in b[1:]}
+
+
+def other_calls(K):
+    """Substage launches and plain calls that are not tile launches."""
+    return (K.substage.launches - sum(tile_launches(K).values())
+            + K.multistep.launches + K.substage_reference.calls
+            + K.multistep_reference.calls)
+
+
+def worker(args):
+    """One rank of phase 8 (see the module's docstring)."""
+    import torch
+    import numpy as np
+    sys.path.insert(0, HERE)
+    from swmhd_tpu_torch.ops import substage as K
+    task, outdir = args[0], args[1]
+    rank = int(os.environ["RANK"])
+    report = {}
+    if task == "cli":
+        from swmhd_tpu_torch import cli
+        formulation = args[2]
+        K.reset_counters()
+        t0 = time.perf_counter()
+        cli.main(["run", "128x128_low_B_low_U", "--formulation",
+                  formulation, "--stop-time", "1.0", "--outdir",
+                  os.path.join(outdir, f"cli_{formulation}")])
+        report = {"wall_s": time.perf_counter() - t0,
+                  "launches": tile_launches(K),
+                  "other_calls": other_calls(K)}
+    else:
+        import torch.distributed as dist
+        from swmhd_tpu_torch.parallel import multihost
+        from swmhd_tpu_torch.parallel.decomposition import (
+            DomainDecomposition)
+        dev = multihost.initialize("cuda")
+        report["backend"] = dist.get_backend()
+        for formulation in (VI, CONS):
+            model, state = bench_model(BENCH_N, torch.float32, dev,
+                                       formulation)
+            dd = DomainDecomposition(model)
+            tile = dd.shard_state(state)
+            dd.fused_step_fn(BENCH_DT, 1)(tile)                # warm-up
+            run = dd.fused_step_fn(BENCH_DT, DD_STEPS)
+            torch.cuda.synchronize()
+            multihost.sync()
+            K.reset_counters()
+            t0 = time.perf_counter()
+            out = run(tile)
+            torch.cuda.synchronize()
+            multihost.sync()
+            wall = time.perf_counter() - t0
+            launches, other = tile_launches(K), other_calls(K)
+            # outside the counted window: one substage's exchange
+            s = K.stack(tile)
+            ex_ms, _ = timed(lambda: dd.pad_for_kernel(s), 20)
+            glob = K.stack(dd.gather_state(out)).cpu().numpy()
+            if rank == 0:
+                np.save(os.path.join(outdir, f"dd_{formulation}.npy"), glob)
+            report[formulation] = {
+                "ms_step": wall * 1e3 / DD_STEPS, "exchange_ms": ex_ms,
+                "launches": launches, "other_calls": other,
+                "mesh": [dd.px, dd.py]}
+        multihost.shutdown()
+    label = "_".join([task] + args[2:])
+    with open(os.path.join(outdir, f"{label}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def decomposed_bench(K, nproc, tmp, smi, tile_launches, backend="gloo"):
+    """Phase 8's 2048² runs on ``nproc`` ranks, each formulation held
+    against DD_STEPS single-device multistep steps."""
+    import torch
+    import numpy as np
+    os.makedirs(tmp, exist_ok=True)
+    torchrun(nproc, ["dd", tmp])
+    reps = []
+    for r in range(nproc):
+        with open(os.path.join(tmp, f"dd_rank{r}.json")) as f:
+            reps.append(json.load(f))
+    if reps[0]["backend"] != backend:
+        fail(f"{nproc} ranks chose backend {reps[0]['backend']}, expected "
+             f"{backend}")
+    for formulation in (VI, CONS):
+        got = torch.from_numpy(np.load(os.path.join(tmp,
+                                                    f"dd_{formulation}.npy")))
+        model, state = bench_model(BENCH_N, torch.float32, "cuda",
+                                   formulation)
+        want = K.multistep(model, K.stack(state), BENCH_DT, DD_STEPS).cpu()
+        err = rel_err(got, want)
+        per = [r[formulation] for r in reps]
+        counts = {}
+        for r in per:
+            if r["other_calls"]:
+                fail(f"a rank ran {r['other_calls']} other substage calls "
+                     f"on the decomposed path")
+            for k, n in r["launches"].items():
+                b = tuple(json.loads(k))
+                counts[b] = counts.get(b, 0) + n
+                tile_launches[b] = tile_launches.get(b, 0) + n
+        ms_step = max(r["ms_step"] for r in per)
+        steps_ms = ", ".join(f"{r['ms_step']:.4f}" for r in per)
+        exchange_ms = ", ".join(f"{r['exchange_ms']:.4f}" for r in per)
+        labels = {K.branch_label(b): n for b, n in counts.items()}
+        px, py = per[0]["mesh"]
+        say(8, f"{nproc} ranks over {backend}, {px}x{py} mesh, bench "
+               f"{BENCH_N}^2 f32 {formulation}, {DD_STEPS} steps through "
+               f"dd.fused_stepper on {smi}: {ms_step:.4f} ms/step (slowest "
+               f"rank; ranks {steps_ms}) = "
+               f"{BENCH_N ** 2 / (ms_step * 1e-3):.4e} points/s; halo "
+               f"exchange of one substage (ranks) {exchange_ms} ms; tile "
+               f"launches {json.dumps(labels)}; vs {DD_STEPS} single-device "
+               f"multistep steps: rel err {err:.2e}, bitwise equal "
+               f"{bool(torch.equal(got, want))}; bound {F32_BOUND:g}")
+        if not (torch.isfinite(got).all() and err <= F32_BOUND):
+            fail(f"decomposed 2048^2 run disagrees ({formulation}, "
+                 f"{backend}): {err:.3e}")
+
+
+def decomposed_cli(K, cli, formulation, tmp, tile_launches):
+    """Phase 8's decomposed CLI run of 128x128_low_B_low_U on WORLD ranks,
+    held against the single-rank run."""
+    import numpy as np
+    torchrun(WORLD, ["cli", tmp, formulation])
+    reps = []
+    for r in range(WORLD):
+        with open(os.path.join(tmp, f"cli_{formulation}_rank{r}.json")) as f:
+            reps.append(json.load(f))
+    per_rank = []
+    for r in reps:
+        if r["other_calls"]:
+            fail(f"a rank ran {r['other_calls']} other substage calls in "
+                 f"the decomposed CLI run")
+        per_rank.append(sum(r["launches"].values()))
+        for k, n in r["launches"].items():
+            b = tuple(json.loads(k))
+            tile_launches[b] = tile_launches.get(b, 0) + n
+    one = os.path.join(tmp, f"one_{formulation}")
+    cli.main(["run", "128x128_low_B_low_U", "--formulation", formulation,
+              "--stop-time", "1.0", "--outdir", one])
+    run = os.path.join(tmp, f"cli_{formulation}")
+    rows = np.loadtxt(os.path.join(run, "energies.csv"), delimiter=",",
+                      skiprows=1, ndmin=2)
+    rows1 = np.loadtxt(os.path.join(one, "energies.csv"), delimiter=",",
+                       skiprows=1, ndmin=2)
+    with np.load(os.path.join(run, "final.npz")) as x, \
+            np.load(os.path.join(one, "final.npz")) as y:
+        scale = max(float(np.abs(y[k]).max()) for k in "huvA")
+        err = max(float(np.abs(x[k] - y[k]).max()) for k in "huvA") / scale
+    e_err = (float(np.abs(rows[:, 2:] - rows1[:, 2:]).max())
+             / float(np.abs(rows1[:, 2:]).max())) if rows.shape == \
+        rows1.shape else math.inf
+    wall = max(r["wall_s"] for r in reps)
+    say(8, f"{WORLD} ranks: cli run 128x128_low_B_low_U {formulation} "
+           f"t=1.0 on a 4x1 mesh: {wall:.2f} s wall (slowest rank, process "
+           f"group set-up included), {len(rows)} energy rows, finite "
+           f"{bool(np.isfinite(rows).all())}; final.npz vs the single-rank "
+           f"run: rel err {err:.2e}; energies rel err {e_err:.2e}; tile "
+           f"launches per rank {per_rank}")
+    if not (len(rows) == 101 and np.isfinite(rows).all()):
+        fail(f"the decomposed CLI run ({formulation}) did not write 101 "
+             f"finite energy rows")
+    if not (err <= F32_BOUND and e_err <= F32_BOUND):
+        fail(f"the decomposed CLI run ({formulation}) disagrees with the "
+             f"single-rank run: {max(err, e_err):.3e}")
+    if per_rank != [300] * WORLD:
+        fail(f"expected 300 tile launches a rank, got {per_rank}")
 
 
 def main():
@@ -346,7 +716,7 @@ def main():
             fail(f"expected 300 substage launches, got {launches}")
 
     # 6 -------------------------------------------------------------------
-    bench_dt, steps = 0.001, 20
+    bench_dt, steps = BENCH_DT, DD_STEPS
     bench = {}            # formulation -> (model, state, ms per step)
     for formulation in (VI, CONS):
         model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
@@ -381,7 +751,10 @@ def main():
          for name, counts in launches.items()}))
 
     # outside the counted window: plain timings and comparisons
-    timings = {}          # branch -> {entry point: (ms, plain ms)}
+    # branch -> {entry point: {ms, plain_ms, nbytes, points, per}}: the
+    # time of one call and, for its bound, the bytes it must move and the
+    # points whose arithmetic it does (per substage 0 or per RK3 step)
+    timings = {}
     pts = BENCH_N * BENCH_N
     for formulation in (VI, CONS):
         model, state, ms_step = bench[formulation]
@@ -405,8 +778,12 @@ def main():
             fail(f"bench state after 3 steps disagrees ({formulation}): "
                  f"{err3:.3e}")
         timings[K.kernel_params(model)[:3]] = {
-            "swmhd_substage": (sub_ms, sub_plain_ms),
-            "swmhd_multistep": (ms_step, plain_ms_step)}
+            "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
+                                   nbytes=48 * pts, points=pts,
+                                   per="substage"),
+            "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
+                                    nbytes=32 * pts / steps, points=pts,
+                                    per="step")}
     for formulation in (VI, CONS):
         model, state, dt, ms_step = walled[formulation]
         s = K.stack(state)
@@ -428,8 +805,11 @@ def main():
                f"{n / (plain_ms_step * 1e-3):.4e} points/s; substage kernel "
                f"{sub_ms:.4f} ms, plain {sub_plain_ms:.4f} ms")
         timings[K.kernel_params(model)[:3]] = {
-            "swmhd_substage": (sub_ms, sub_plain_ms),
-            "swmhd_multistep": (ms_step, plain_ms_step)}
+            "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
+                                   nbytes=48 * n, points=n, per="substage"),
+            "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
+                                    nbytes=32 * n / 100, points=n,
+                                    per="step")}
 
     # the 128² periodic CLI configuration per step, checked against the
     # plain version; then the CLI runs end to end with the kernel and
@@ -464,18 +844,175 @@ def main():
                f"--no-fused "
                f"{', '.join(f'{w:.3f}' for w in walls['--no-fused'])}")
 
+    # 7 -------------------------------------------------------------------
+    E, B = K.EXCHANGED_AXIS, K.BOUNDED_AXIS
+    for formulation in (VI, CONS):
+        for dtype, bnd in ((torch.float32, F32_BOUND),
+                           (torch.float64, TILE_F64_BOUND)):
+            model, state = bench_model(BENCH_N, dtype, dev, formulation)
+            cases = [(f"bench {BENCH_N}^2", model, K.stack(state), BENCH_DT,
+                      mesh) for mesh in ((2, 2), (4, 1), (1, 4))]
+            model, state, sc = scenarios.build("128x128_low_B_low_U",
+                                               formulation, dtype=dtype,
+                                               device=dev)
+            cases.append(("128x128_low_B_low_U", model, K.stack(state),
+                          sc.dt, (4, 1)))
+            for label, model, s, dt, mesh in cases:
+                worst, bitwise = tile_against_substage(K, model, s, dt, mesh)
+                b = K.branch_label(tile_branch(K, model, mesh))
+                say(7, f"{label} {dtype} in {mesh[0]}x{mesh[1]} tiles "
+                       f"[{b}]: tile kernel vs single-device kernel, G and "
+                       f"state of substages 0 and 1: rel err {worst:.2e} "
+                       f"(bound {bnd:g}); bitwise equal {bitwise}")
+                if not worst <= bnd:
+                    fail(f"tile kernel disagrees with the single-device "
+                         f"kernel ({label}, {formulation}, {dtype}): "
+                         f"{worst:.3e}")
+            del cases, s
+    # the tile kernel against its plain version: wall-reaching fields at
+    # 256², then one tile of each main-path layout (timed there too)
+    for formulation in (VI, CONS):
+        for topology, mesh in ((PERIODIC, (2, 2)), (BOUNDED_Y, (4, 1)),
+                               (PERIODIC, (4, 1)), (PERIODIC, (1, 4))):
+            gamma = -0.05 if "bounded" in topology else 0.0
+            for dtype, bnd in ((torch.float64, TILE_F64_BOUND),
+                               (torch.float32, F32_BOUND)):
+                model, state = wall_model(SMOKE_N, dtype, dev, formulation,
+                                          topology, gamma)
+                tiles, halo = tile_layout(SMOKE_N, SMOKE_N, mesh)
+                p = cut_tile(K.stack(state), tiles[-1], *halo)
+                got, want = tile_pair(K, model, p, 0.005, halo)
+                rel = max(rel_err(x, y) for x, y in zip(got, want))
+                b = tile_branch(K, model, mesh)
+                say(7, f"{SMOKE_N}^2 {dtype} [{K.branch_label(b)}] walls "
+                       f"reached: tile kernel vs plain tile version, G and "
+                       f"state of substages 0 and 1: rel err {rel:.2e}; "
+                       f"bound {bnd:g}")
+                if not (finite(got) and rel <= bnd):
+                    fail(f"tile kernel disagrees with its plain version "
+                         f"[{K.branch_label(b)}], {dtype}: {rel:.3e}")
+    # At the main path's tiles G is held two ways. In float64 the kernel
+    # must match the plain version (<= F64_BOUND): the arithmetic is the
+    # same. In float32 it must match within F32_BOUND or be no farther
+    # from the float64 plain G than twice the float32 plain G is: at 2048²
+    # the differences that make G lose digits to float32 rounding ~8x as
+    # fast as at 256², so two float32 evaluations in another order differ
+    # by more than F32_BOUND of G's scale. The states hold F32_BOUND.
+    tile_errors = {}      # branch -> f32 max abs err at the main path's tile
+    for formulation in (VI, CONS):
+        c = int(formulation == CONS)
+        cases = []
+        for dtype in (torch.float32, torch.float64):
+            model, state = bench_model(BENCH_N, dtype, dev, formulation)
+            tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
+            cases.append((model, cut_tile(K.stack(state), tiles[0], *halo)))
+        del state
+        bench_tile = (f"{BENCH_N}^2 in 2x2 tiles", *cases[0], cases[1][0],
+                      halo, BENCH_DT, (c, E, E), 20)
+        cases = []
+        for dtype in (torch.float32, torch.float64):
+            model, state, sc = scenarios.build("128x128_low_B_low_U",
+                                               formulation, dtype=dtype,
+                                               device=dev)
+            tiles, halo = tile_layout(128, 128, (4, 1))
+            cases.append((model, cut_tile(K.stack(state), tiles[0], *halo)))
+        walled_tile = ("128x128_low_B_low_U in 4x1 tiles", *cases[0],
+                       cases[1][0], halo, sc.dt, (c, E, B), 100)
+        del cases
+        for label, model, p, model64, halo, dt, b, reps in (bench_tile,
+                                                            walled_tile):
+            K.substage(model, p, dt, 0, halo=halo)
+            ms, _ = timed(lambda: K.substage(model, p, dt, 0, halo=halo),
+                          reps)
+            plain_ms, plain0 = timed(lambda: K.substage_reference(
+                model, p, dt, 0, None, halo), max(reps // 10, 3))
+            got, want = tile_pair(K, model, p, dt, halo, plain0)
+            got64, want64 = tile_pair(K, model64, p.double(), dt, halo)
+            g_err = rel_err(got[0], want[0])
+            g_kernel, g_plain = (rel_err(got[0], want64[0]),
+                                 rel_err(want[0], want64[0]))
+            s_err = max(rel_err(x, y) for x, y in zip(got[1:], want[1:]))
+            f64_err = max(rel_err(x, y) for x, y in zip(got64, want64))
+            tile_errors[b] = max(float((x - y).abs().max())
+                                 for x, y in zip(got, want))
+            nx, ny = p.shape[1] - 2 * halo[0], p.shape[2] - 2 * halo[1]
+            line = (f"tile substage f32 {formulation}, {label} "
+                    f"({tuple(p.shape[1:])} read, ({nx}, {ny}) written) on "
+                    f"{smi}: {ms:.4f} ms; plain tile version {plain_ms:.4f} "
+                    f"ms; kernel vs plain (substages 0 and 1): f32 G rel "
+                    f"err {g_err:.2e}, against the f64 plain G kernel "
+                    f"{g_kernel:.2e} / plain {g_plain:.2e}; f32 state "
+                    f"{s_err:.2e} (bound {F32_BOUND:g}); f64 G and state "
+                    f"{f64_err:.2e} (bound {F64_BOUND:g}); f32 max abs err "
+                    f"{tile_errors[b]:.3e}")
+            if b[2] == E:
+                # the whole-domain substage on a grid of the tile's size
+                half, hstate = bench_model(nx, torch.float32, dev,
+                                           formulation)
+                hs = K.stack(hstate)
+                K.substage(half, hs, dt, 0)
+                single_ms, _ = timed(lambda: K.substage(half, hs, dt, 0),
+                                     reps)
+                line += (f"; single-device substage on a {nx}^2 grid "
+                         f"{single_ms:.4f} ms (ratio {ms / single_ms:.3f})")
+            say(7, line)
+            if not (finite(got) and s_err <= F32_BOUND
+                    and f64_err <= F64_BOUND
+                    and (g_err <= F32_BOUND or g_kernel <= 2 * g_plain)):
+                fail(f"tile kernel disagrees with its plain version at the "
+                     f"main path's shape ({label}, {formulation})")
+            timings[b] = {"swmhd_substage": dict(
+                ms=ms, plain_ms=plain_ms,
+                nbytes=4 * (4 * p.shape[1] * p.shape[2] + 8 * nx * ny),
+                points=nx * ny, per="substage")}
+        del bench_tile, walled_tile, p, got, want, got64, want64
+
+    # 8 -------------------------------------------------------------------
+    tile_launches = {}    # branch -> launches over all ranks of phase 8
+    with tempfile.TemporaryDirectory() as tmp:
+        decomposed_bench(K, WORLD, tmp, smi, tile_launches)
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            decomposed_bench(K, n_cards, os.path.join(tmp, "nccl"), smi,
+                             tile_launches, backend="nccl")
+        else:
+            say(8, f"NCCL not exercised: this machine has {n_cards} card; "
+                   f"the {WORLD} ranks above shared it over gloo")
+        for formulation in (VI, CONS):
+            decomposed_cli(K, cli, formulation, tmp, tile_launches)
+    dd_branches = [(c, E, y) for c in (0, 1) for y in (E, B)]
+    for b in dd_branches:
+        if not tile_launches.get(b):
+            fail(f"swmhd_substage [{K.branch_label(b)}] was not "
+                 f"launched on the decomposed main path")
+    say(8, "decomposed main-path launches by branch: " + json.dumps(
+        {K.branch_label(b): n for b, n in tile_launches.items()}))
+
     if "jax" in sys.modules:
         fail("jax was imported")
+    ops = {}              # (branch, per) -> operations per point
     kernels = []
-    for b in main_branches:
-        for k, name in enumerate(("swmhd_substage", "swmhd_multistep")):
-            ms, plain_ms = timings[b][name]
+    for b, entries in sorted(timings.items()):
+        for name, t in sorted(entries.items()):
+            if (b, t["per"]) not in ops:
+                ops[(b, t["per"])] = ops_per_point(K, b, t["per"])
+            bound_ms, bound_by = least_time(t["nbytes"],
+                                       ops[(b, t["per"])] * t["points"])
+            tile = E in b[1:]
             kernels.append({
                 "name": f"{name} [{K.branch_label(b)}]", "route": "cuda",
                 "source": SOURCES[CONS if b[0] else VI],
-                "replaces": REPLACES[name],
-                "launches": launches[name][b],
-                "max_abs_err": errors[b][k], "ms": ms, "plain_ms": plain_ms})
+                "replaces": TILE_REPLACES if tile else REPLACES[name],
+                "launches": (tile_launches if tile else launches[name])[b],
+                "max_abs_err": (tile_errors[b] if tile else
+                                errors[b][name == "swmhd_multistep"]),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None})
+    say("bounds", "float32 operations per point of the plain versions "
+        "(substage 0 / RK3 step): " + "; ".join(
+            f"[{K.branch_label(b)}] {per} {n:.1f}"
+            for (b, per), n in sorted(ops.items())))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -484,4 +1021,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2:])
+    else:
+        main()

@@ -104,14 +104,14 @@ def _degrade_x_f(r3, c, grid, left):
     if grid.topology_x != BOUNDED:
         return r3
     first = op.shift_x(c, -1, grid) if left else c
-    return _degrade(r3, op.index_x(c), grid.Nx, first, left)
+    return _degrade(r3, op.global_index_x(c), op.global_nx(grid), first, left)
 
 
 def _degrade_y_f(r3, c, grid, left):
     if grid.topology_y != BOUNDED:
         return r3
     first = op.shift_y(c, -1, grid) if left else c
-    return _degrade(r3, op.index_y(c), grid.Ny, first, left)
+    return _degrade(r3, op.global_index_y(c), op.global_ny(grid), first, left)
 
 
 # -- WENO5 ------------------------------------------------------------------------
@@ -206,18 +206,18 @@ def weno5_pair_x_f(c, grid):
     l, r = _weno5_pair(c, _sh_x(grid))
     if grid.topology_x != BOUNDED:
         return l, r
-    i = op.index_x(c)
-    return (_degrade_weno(l, i, grid.Nx, left3_x_f(c, grid), True),
-            _degrade_weno(r, i, grid.Nx, right3_x_f(c, grid), False))
+    i, N = op.global_index_x(c), op.global_nx(grid)
+    return (_degrade_weno(l, i, N, left3_x_f(c, grid), True),
+            _degrade_weno(r, i, N, right3_x_f(c, grid), False))
 
 
 def weno5_pair_y_f(c, grid):
     l, r = _weno5_pair(c, _sh_y(grid))
     if grid.topology_y != BOUNDED:
         return l, r
-    j = op.index_y(c)
-    return (_degrade_weno(l, j, grid.Ny, left3_y_f(c, grid), True),
-            _degrade_weno(r, j, grid.Ny, right3_y_f(c, grid), False))
+    j, N = op.global_index_y(c), op.global_ny(grid)
+    return (_degrade_weno(l, j, N, left3_y_f(c, grid), True),
+            _degrade_weno(r, j, N, right3_y_f(c, grid), False))
 
 
 def weno5_pair_x_c(u, grid):

@@ -5,6 +5,18 @@
         --outdir runs/high_B                  # on the GPU, CUDA kernel
     python -m swmhd_tpu_torch.cli run 64x64_two_Gaussians_high_B \
         --device cpu --dtype float64          # plain PyTorch on the CPU
+    torchrun --nproc-per-node 4 -m swmhd_tpu_torch.cli run \
+        128x128_low_B_low_U                   # decomposed, one tile a rank
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the run is decomposed over the
+ranks: the process group's backend follows the device layout
+(``parallel.multihost.initialize``), the mesh is the squarest
+factorisation of the world, or ``(world, 1)`` when y is bounded (as in
+the JAX package's CLI), and each substage runs the CUDA tile substage on
+the exchanged tile (the plain step on tiles with ``--no-fused`` or on the
+CPU). Fields are written as per-rank slabs and checkpoints as sharded
+directories; rank 0 writes ``energies.csv`` and the gathered
+``final.npz``.
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ def _add_run_args(p):
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="iterations between checkpoints (0 = off)")
     p.add_argument("--resume", default=None,
-                   help="checkpoint file to resume from")
+                   help="checkpoint to resume from: a file, or the "
+                        "directory of a sharded checkpoint")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="on CUDA, step through the hand-written substage "
@@ -51,20 +64,38 @@ def cmd_list(_args):
               f"{sc.description}")
 
 
-def select_stepper(model, fused: bool = True):
+def select_stepper(model, fused: bool = True, dd=None):
     """``(stepper, label)``; ``stepper=None`` is the plain PyTorch step.
+    With a domain decomposition ``dd`` the plain step is ``dd`` and the
+    kernel its ``fused_stepper()``.
 
     On CUDA with ``fused`` the run goes through the CUDA kernel, and a
     configuration the kernel does not cover raises ``ValueError`` (no
     silent plain run). On the CPU there is no kernel to select."""
     if not fused:
-        return None, "plain"
+        return dd, "plain"
     if torch.device(model.grid.device).type != "cuda":
         logging.info("no CUDA kernel on %s; plain PyTorch step",
                      model.grid.device)
-        return None, "plain"
+        return dd, "plain"
+    if dd is not None:
+        return dd.fused_stepper(), "kernel"
     from .ops.substage import KernelStepper
     return KernelStepper(model), "kernel"
+
+
+def _decomposition(model):
+    """The domain decomposition of a run under ``torchrun``: one tile per
+    rank, y unsharded when it is bounded."""
+    from .grid import PERIODIC
+    from .parallel import multihost
+    from .parallel.decomposition import DomainDecomposition, make_mesh
+    world = multihost.world_size()
+    shape = (world, 1) if model.grid.topology_y != PERIODIC else None
+    dd = DomainDecomposition(model, make_mesh(shape=shape))
+    logging.info("decomposed over a %dx%d mesh of ranks, halo %d", dd.px,
+                 dd.py, dd.halo)
+    return dd
 
 
 def cmd_run(args):
@@ -75,29 +106,48 @@ def cmd_run(args):
         progress_callback)
     from .io import FieldWriter, ScalarSeriesWriter
 
+    from .parallel import multihost
+    from .parallel.decomposition import make_mesh
+
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(message)s")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available "
                            "(use --device cpu for the plain CPU path)")
+    device = args.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = multihost.initialize(args.device)
+        if multihost.rank() != 0:
+            logging.getLogger().setLevel(logging.WARNING)
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     model, state, sc = scenarios.build(args.scenario, args.formulation,
-                                       dtype=dtype, device=args.device)
+                                       dtype=dtype, device=device)
     dt = args.dt if args.dt is not None else sc.dt
     stop_time = args.stop_time if args.stop_time is not None else sc.stop_time
+    dd = _decomposition(model) if multihost.world_size() > 1 else None
+    mesh = dd.mesh if dd is not None else make_mesh(shape=(1, 1))
 
     # potential energy is measured against the scenario's t = 0 height,
-    # captured before a resume replaces the state
-    h0 = state.h
-    if args.resume:
+    # captured before a resume replaces the state; a decomposed run holds
+    # it as the tile its diagnostics see
+    if dd is not None:
+        state = dd.shard_state(state)
+        h0 = dd.diagnostic_view(state).h
+    else:
+        h0 = state.h
+    if args.resume and os.path.isdir(args.resume):
+        state = checkpoint.restore_sharded(args.resume, model.grid, mesh)
+    elif args.resume:
         state = checkpoint.restore(args.resume, model.grid)
+        if dd is not None:
+            state = dd.shard_state(state)
 
     outdir = args.outdir or os.path.join(
         "runs", f"{args.scenario}_{args.formulation}")
     os.makedirs(outdir, exist_ok=True)
 
-    stepper, path = select_stepper(model, args.fused)
+    stepper, path = select_stepper(model, args.fused, dd)
     logging.info("stepper: %s", path)
     sim = Simulation(model, dt=dt, stop_time=stop_time, stepper=stepper)
     sim.callbacks["progress"] = Callback(
@@ -113,6 +163,9 @@ def cmd_run(args):
             s = torch.sqrt(op.ix_c(u, g) ** 2 + op.iy_c(v, g) ** 2)
             return {"A": st.A, "h": st.h, "u": u, "v": v, "s": s}
 
+        if dd is not None:
+            compute = dd.tile_fields(compute)
+
         def getter(name):
             def fn(sim):
                 if cache.get("key") is not sim.state:
@@ -125,7 +178,7 @@ def cmd_run(args):
     sim.output_writers["fields"] = FieldWriter(
         outputs=field_outputs(),
         schedule=TimeInterval(args.fields_interval),
-        path=os.path.join(outdir, "fields"))
+        path=os.path.join(outdir, "fields"), decomposition=dd)
 
     energy_names = ("kinetic_energy", "magnetic_energy",
                     "potential_energy", "total_energy", "cross_helicity")
@@ -141,14 +194,22 @@ def cmd_run(args):
 
     if args.checkpoint_every:
         def ckpt(s):
-            checkpoint.save(os.path.join(outdir, "checkpoint.npz"),
-                            s.state, s.model.grid)
+            if dd is None:
+                checkpoint.save(os.path.join(outdir, "checkpoint.npz"),
+                                s.state, s.model.grid)
+            else:
+                checkpoint.save_sharded(os.path.join(outdir, "checkpoint"),
+                                        s.state, s.model.grid, dd.mesh)
         sim.callbacks["checkpoint"] = Callback(
             ckpt, IterationInterval(args.checkpoint_every))
 
     final = sim.run(state)
-    checkpoint.save(os.path.join(outdir, "final.npz"), final, model.grid)
-    print(f"done: {outdir} ({sim.run_wall_time:.1f}s wall, {path})")
+    if dd is not None:
+        final = dd.gather_state(final)
+    if multihost.rank() == 0:
+        checkpoint.save(os.path.join(outdir, "final.npz"), final, model.grid)
+        print(f"done: {outdir} ({sim.run_wall_time:.1f}s wall, {path})")
+    multihost.shutdown()
 
 
 def main(argv=None):

@@ -11,13 +11,14 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .grid import Grid
+from .grid import Grid, require_device
 from .models.state import Clock, State
 
 
-def state_from_numpy(arrays: Mapping, device="cpu",
+def state_from_numpy(arrays: Mapping, device="cuda",
                      dtype: torch.dtype = torch.float32) -> State:
     """``{"h", "u", "v", "A", "time", "iteration"}`` -> :class:`State`."""
+    require_device(device)
     fields = {k: torch.as_tensor(np.array(arrays[k]), dtype=dtype,
                                  device=device)
               for k in State.FIELDS}
@@ -33,7 +34,7 @@ def state_to_numpy(state: State) -> dict:
     return out
 
 
-def grid_from_meta(meta: Mapping, device="cpu") -> Grid:
+def grid_from_meta(meta: Mapping, device="cuda") -> Grid:
     """A grid from the checkpoint's ``meta["grid"]`` keys."""
     return Grid(Nx=int(meta["Nx"]), Ny=int(meta["Ny"]),
                 Lx=float(meta["Lx"]), Ly=float(meta["Ly"]),

@@ -4,9 +4,11 @@
 // tracer, and the divergence-form Lorentz force ∇·(hB⊗B) with
 // UpwindBiased3 reconstructions of B (swmhd_tpu/models/shallow_water.py
 // _tendencies_conservative, physics/lorentz.py lorentz_force_divergence),
-// for each periodic/bounded pair of axes.
+// for each periodic/bounded pair of axes and on exchanged tiles.
 //
-// Three kernels, each reading the previous one's arrays at radius <= 3:
+// Three kernels, each reading the previous one's arrays at radius <= 3;
+// the first two run over the whole (padded) array, the last over the
+// unpadded points:
 //   point_fields: the point-local derived arrays u, v, hBx, hBy, Bx, By and
 //     the tracer fluxes;
 //   flux_fields: the momentum and Lorentz fluxes at (c,c) and (f,f);
@@ -39,9 +41,10 @@ enum Tmp {
 };
 static_assert(kNumTmp == 16, "N_TMP of ops/substage.py");
 
-template <typename T, bool WX, bool WY>
+template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 point_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
+  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   const int j = blockIdx.x * kBlockY + threadIdx.x;
   const int i = blockIdx.y * kBlockX + threadIdx.y;
   if (i >= p.nx || j >= p.ny) return;
@@ -51,8 +54,8 @@ point_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   const T* vh = s + 2 * n;
   const T* A = s + 3 * n;
   auto at = [&](const T* a, int di, int dj) {
-    return a[static_cast<size_t>(sh<WX>(i, di, p.nx)) * p.ny
-             + sh<WY>(j, dj, p.ny)];
+    return a[static_cast<size_t>(sh<X>(i, di, p.nx)) * p.ny
+             + sh<Y>(j, dj, p.ny)];
   };
   const size_t c = static_cast<size_t>(i) * p.ny + j;
   const bool last_x = WX && i == p.nx - 1;
@@ -97,9 +100,10 @@ point_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   for (int k = 0; k < 8; ++k) tmp[(kU + k) * n + c] = out[k];
 }
 
-template <typename T, bool WX, bool WY>
+template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 flux_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
+  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   const int j = blockIdx.x * kBlockY + threadIdx.x;
   const int i = blockIdx.y * kBlockX + threadIdx.y;
   if (i >= p.nx || j >= p.ny) return;
@@ -108,7 +112,7 @@ flux_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
     return a[static_cast<size_t>(ii) * p.ny + jj];
   };
   auto at = [&](const T* a, int di, int dj) {
-    return ld(a, sh<WX>(i, di, p.nx), sh<WY>(j, dj, p.ny));
+    return ld(a, sh<X>(i, di, p.nx), sh<Y>(j, dj, p.ny));
   };
   const size_t c = static_cast<size_t>(i) * p.ny + j;
   const T* uh = s + n;
@@ -119,16 +123,16 @@ flux_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   const T* hBy = tmp + kHBy * n;
   const T* Bx = tmp + kBx * n;
   const T* By = tmp + kBy * n;
-  const int ip = sh<WX>(i, 1, p.nx), jp = sh<WY>(j, 1, p.ny);
+  const int ip = sh<X>(i, 1, p.nx), jp = sh<Y>(j, 1, p.ny);
 
   // windows: at faces (i, j) and at the next face (the center forms)
   T ux[6], uy[6], vx[6], vy[6], bxx[6], bxy[6], byx[6], byy[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    const int ic = sh2<WX>(i, 1, k - 3, p.nx);
-    const int jc = sh2<WY>(j, 1, k - 3, p.ny);
-    const int jf = sh<WY>(j, k - 3, p.ny);
-    const int iff = sh<WX>(i, k - 3, p.nx);
+    const int ic = sh2<X>(i, 1, k - 3, p.nx);
+    const int jc = sh2<Y>(j, 1, k - 3, p.ny);
+    const int jf = sh<Y>(j, k - 3, p.ny);
+    const int iff = sh<X>(i, k - 3, p.nx);
     ux[k] = ld(u, ic, j);        // u at centers along x
     uy[k] = ld(u, i, jf);        // u at faces along y
     vx[k] = ld(v, iff, j);       // v at faces along x
@@ -164,20 +168,20 @@ flux_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   for (int k = 0; k < 8; ++k) tmp[(kMxx + k) * n + c] = out[k];
 }
 
-template <typename T, bool WX, bool WY>
+template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 flux_update(const T* __restrict__ s, const T* __restrict__ tmp,
             const T* __restrict__ g_prev, T* __restrict__ s_out,
             T* __restrict__ g_out, Params<T> p, T dt, T gk, T zk) {
-  const int j = blockIdx.x * kBlockY + threadIdx.x;
-  const int i = blockIdx.y * kBlockX + threadIdx.y;
-  if (i >= p.nx || j >= p.ny) return;
+  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
+  int i, j;
+  size_t c, co;
+  if (!update_point(p, i, j, c, co)) return;
   const size_t n = static_cast<size_t>(p.nx) * p.ny;
   auto at = [&](const T* a, int di, int dj) {
-    return a[static_cast<size_t>(sh<WX>(i, di, p.nx)) * p.ny
-             + sh<WY>(j, dj, p.ny)];
+    return a[static_cast<size_t>(sh<X>(i, di, p.nx)) * p.ny
+             + sh<Y>(j, dj, p.ny)];
   };
-  const size_t c = static_cast<size_t>(i) * p.ny + j;
   const bool last_x = WX && i == p.nx - 1;
   const bool last_y = WY && j == p.ny - 1;
   const T* h = s;
@@ -230,33 +234,34 @@ flux_update(const T* __restrict__ s, const T* __restrict__ tmp,
   Gu = Gu + ((Lxx[c] - at(Lxx, -1, 0)) + (at(Lyx, 0, 1) - Lyx0)) / p.az;
   Gv = Gv + ((at(Lxy, 1, 0) - Lxy0) + (Lyy[c] - at(Lyy, 0, -1))) / p.az;
 
-  mask_and_update<WX, WY>(Gh, Gu, Gv, GA, i, j, c, n, s, g_prev, s_out,
+  mask_and_update<WX, WY>(Gh, Gu, Gv, GA, i, j, c, co, p, s, g_prev, s_out,
                           g_out, dt, gk, zk);
 }
 
-template <typename T, bool WX, bool WY>
-cudaError_t run(const Launch<T>& a) {
-  const dim3 block = block_dims();
-  const dim3 grid = grid_dims(a.p.nx, a.p.ny);
-  point_fields<T, WX, WY><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flux_fields<T, WX, WY><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flux_update<T, WX, WY><<<grid, block, 0, a.stream>>>(
-      a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
-  return cudaGetLastError();
-}
+struct Run {
+  template <typename T, Axis X, Axis Y>
+  static cudaError_t go(const Launch<T>& a) {
+    const dim3 block = block_dims();
+    const dim3 grid = grid_dims(a.p.nx, a.p.ny);
+    point_fields<T, X, Y><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flux_fields<T, X, Y><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flux_update<T, X, Y><<<grid_dims(a.p.nx - 2 * a.p.hx,
+                                     a.p.ny - 2 * a.p.hy),
+                           block, 0, a.stream>>>(
+        a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a) {
-  if (a.p.wall_x) {
-    return a.p.wall_y ? run<T, true, true>(a) : run<T, true, false>(a);
-  }
-  return a.p.wall_y ? run<T, false, true>(a) : run<T, false, false>(a);
+  return dispatch_modes<Run>(a);
 }
 
 template cudaError_t launch_conservative<float>(const Launch<float>&);

@@ -5,11 +5,16 @@
 // conservative.cu (flux-form momentum, divergence-form Lorentz force);
 // shared pieces in substage.cuh.
 //
-// Replaces the two Pallas TPU kernels of swmhd_tpu/ops/fused_step.py:
-//   - build_fused_calls / fused_step_fn (one windowed substage per launch)
-//     -> swmhd_substage_{f32,f64};
-//   - resident_step_fn (3·n substages in one launch, state resident in
-//     on-chip memory) -> swmhd_multistep_{f32,f64}.
+// Replaces three Pallas TPU kernels:
+//   - build_fused_calls / fused_step_fn of swmhd_tpu/ops/fused_step.py
+//     (one windowed substage per launch) -> swmhd_substage_{f32,f64} with
+//     no halo;
+//   - resident_step_fn of the same file (3·n substages in one launch,
+//     state resident in on-chip memory) -> swmhd_multistep_{f32,f64};
+//   - DomainDecomposition.fused_step_fn of
+//     swmhd_tpu/parallel/decomposition.py (the windowed substage on each
+//     tile of a decomposed domain, padded with a halo exchanged from its
+//     neighbours) -> swmhd_substage_{f32,f64} with a halo.
 // Both TPU kernels evaluate the same arithmetic; what differed was how the
 // TPU kept data on chip, and neither layout carries over: a 128² state with
 // its G and temporaries exceeds one SM's 227 KB of shared memory, and the
@@ -33,9 +38,10 @@
 // Design. Kernels pass intermediates through device memory; no shared
 // memory; blocks of 32 threads along y (the contiguous axis) by 8 along x,
 // so a warp reads 32 neighbouring words. Each kernel is templated on the
-// value type and on whether each axis is bounded, so the periodic code
-// carries no wall logic; neighbour reads wrap (periodic) or clamp
-// (bounded). Expressions keep the operation order of the PyTorch version.
+// value type and on each axis' mode (substage.cuh), so the periodic code
+// carries no wall logic; neighbour reads wrap (periodic), clamp (bounded)
+// or go into the halo (exchanged). Expressions keep the operation order of
+// the PyTorch version.
 //
 // swmhd_multistep runs its substages as a loop of launches on the caller's
 // stream, with ping-pong buffers the caller allocates: this stands in for
@@ -44,6 +50,16 @@
 // state in distributed shared memory, is later work to be measured
 // against this loop.
 //
+// With a halo, swmhd_substage runs the same pair (or triple) of kernels on
+// a tile padded by (hx, hy) cells, each padded axis in the exchanged mode
+// (substage.cuh): the first kernels run over the padded tile, the update
+// over the unpadded one, so every unpadded point runs the expressions of
+// the whole-domain substage in the same order and matches it bit for bit. Its bound
+// is the substage's: the first kernels run on (nx + 2hx)(ny + 2hy) points,
+// a 2.4% overhead on a 1024² tile with a halo of 6. The TPU kernel's 8-row
+// halo and 128-lane y pad were alignment rules of that compiler; here any
+// halo of at least the composed radius, 6, works.
+//
 // Each entry point returns cudaGetLastError() after its launches.
 
 #include "substage.cuh"
@@ -51,11 +67,14 @@
 namespace swmhd {
 namespace {
 
+// nx, ny: the unpadded extents; the arrays the first kernels read are
+// (nx + 2hx, ny + 2hy).
 template <typename T>
-Params<T> make_params(int nx, int ny, int wall_x, int wall_y, double dx,
-                      double dy, double g, double f, double gam_bg) {
-  return Params<T>{nx, ny, wall_x != 0, wall_y != 0, T(dx), T(dy), T(g),
-                   T(f), T(gam_bg), T(dx * dy)};
+Params<T> make_params(int nx, int ny, int hx, int hy, int mode_x,
+                      int mode_y, double dx, double dy, double g, double f,
+                      double gam_bg) {
+  return Params<T>{nx + 2 * hx, ny + 2 * hy, hx, hy, mode_x, mode_y,
+                   T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy)};
 }
 
 template <typename T>
@@ -98,12 +117,13 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
 #define SWMHD_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int swmhd_substage_##SUFFIX(                                    \
       const T* s_in, const T* g_prev, T* s_out, T* g_out, T* tmp, int nx,    \
-      int ny, int conservative, int wall_x, int wall_y, double dx,           \
-      double dy, double g, double f, double gam_bg, double dt, double gk,    \
-      double zk, void* stream) {                                             \
+      int ny, int hx, int hy, int conservative, int mode_x, int mode_y,      \
+      double dx, double dy, double g, double f, double gam_bg, double dt,    \
+      double gk, double zk, void* stream) {                                  \
     const swmhd::Launch<T> a{                                                \
         s_in, g_prev, s_out, g_out, tmp,                                     \
-        swmhd::make_params<T>(nx, ny, wall_x, wall_y, dx, dy, g, f, gam_bg), \
+        swmhd::make_params<T>(nx, ny, hx, hy, mode_x, mode_y, dx, dy, g, f,  \
+                              gam_bg),                                       \
         T(dt), T(gk), T(zk), static_cast<cudaStream_t>(stream)};             \
     return static_cast<int>(swmhd::launch_substage<T>(a, conservative));     \
   }                                                                          \
@@ -114,7 +134,8 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
       void* stream) {                                                        \
     return static_cast<int>(swmhd::launch_multistep<T>(                      \
         s_in, s_out, work, gbuf, tmp,                                        \
-        swmhd::make_params<T>(nx, ny, wall_x, wall_y, dx, dy, g, f, gam_bg), \
+        swmhd::make_params<T>(nx, ny, 0, 0, wall_x, wall_y, dx, dy, g, f,     \
+                              gam_bg),                                       \
         conservative, dt, n_steps, static_cast<cudaStream_t>(stream)));      \
   }
 

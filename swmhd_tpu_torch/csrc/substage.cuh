@@ -1,10 +1,12 @@
 // Shared pieces of the RK3 substage kernels (substage.cu,
 // vector_invariant.cu, conservative.cu): parameters, the index maps of
-// periodic and bounded axes, and the WENO5-Z / third-order biased
-// reconstructions with their near-wall degradation.
+// periodic, bounded and exchanged axes, and the WENO5-Z / third-order
+// biased reconstructions with their near-wall degradation.
 //
 // Layout: every field is (Nx, Ny) row-major, index i*Ny + j, i along x.
-// Face i is the left edge of cell i.
+// Face i is the left edge of cell i. On a tile of a domain decomposition
+// the state and the intermediates are the tile padded by (hx, hy) cells
+// of halo, and G_prev and the outputs are the unpadded tile.
 
 #pragma once
 
@@ -18,10 +20,23 @@ namespace swmhd {
 constexpr int kBlockY = 32;
 constexpr int kBlockX = 8;
 
+// How an axis reads past its end. Periodic wraps and bounded clamps at a
+// wall (edge replication) over the whole domain. Exchanged is an axis of
+// a tile padded with a halo that the caller filled from the neighbouring
+// tiles: reads go straight into the padded array, and the few that would
+// leave it are clamped into it. A value that took such a read lies within
+// one stencil radius of the array's end, and a value that reads it within
+// two: the composed radius of a substage is at most 6, so with a halo of
+// 6 or more no such value reaches the unpadded tile, which is all the
+// update writes. There the arithmetic is that of the periodic axis.
+enum class Axis : int { kPeriodic = 0, kBounded = 1, kExchanged = 2 };
+
 template <typename T>
 struct Params {
-  int nx, ny;
-  bool wall_x, wall_y;   // bounded axes
+  int nx, ny;            // extents of the state and intermediates (padded)
+  int hx, hy;            // halo widths; the update writes the inner
+                         // (nx - 2hx, ny - 2hy)
+  int mode_x, mode_y;    // Axis of each axis
   T dx, dy, g, f, gam_bg;
   T az;                  // cell area dx·dy (divergence-form Lorentz force)
 };
@@ -48,6 +63,28 @@ cudaError_t launch_vector_invariant(const Launch<T>& a);
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a);
 
+// R::go<T, X, Y>(a) for the launch's pair of axis modes: each periodic /
+// bounded pair on a whole domain, and on a tile an exchanged x with a
+// periodic, bounded or exchanged y, or a periodic x with an exchanged y
+// (a mesh of one tile along x). Only a periodic axis is ever cut into
+// tiles.
+template <typename R, typename T>
+cudaError_t dispatch_modes(const Launch<T>& a) {
+  constexpr Axis P = Axis::kPeriodic, B = Axis::kBounded,
+                 E = Axis::kExchanged;
+  switch (a.p.mode_x * 3 + a.p.mode_y) {
+    case 0: return R::template go<T, P, P>(a);
+    case 1: return R::template go<T, P, B>(a);
+    case 2: return R::template go<T, P, E>(a);
+    case 3: return R::template go<T, B, P>(a);
+    case 4: return R::template go<T, B, B>(a);
+    case 6: return R::template go<T, E, P>(a);
+    case 7: return R::template go<T, E, B>(a);
+    case 8: return R::template go<T, E, E>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 inline dim3 block_dims() { return dim3(kBlockY, kBlockX); }
 
 inline dim3 grid_dims(int nx, int ny) {
@@ -57,10 +94,11 @@ inline dim3 grid_dims(int nx, int ny) {
 // -- index maps ---------------------------------------------------------------
 //
 // A shift by m of a field: wrapped on a periodic axis (|m| < n), clamped
-// to the edge on a bounded axis (edge replication). A shift of a derived
-// array is the derived array evaluated at the shifted index, so where the
-// reference shifts a shifted array the index is clamped at each step
-// (sh2); on a periodic axis that is one wrap.
+// to the edge on a bounded axis (edge replication), straight into the
+// halo on an exchanged axis (clamped only at the padded array's end). A
+// shift of a derived array is the derived array evaluated at the shifted
+// index, so where the reference shifts a shifted array the index is
+// clamped at each step (sh2); on a periodic axis that is one wrap.
 
 __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
@@ -70,23 +108,42 @@ __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-template <bool Wall>
+template <Axis A>
 __device__ __forceinline__ int sh(int i, int m, int n) {
-  if constexpr (Wall) {
-    return clampi(i + m, n);
-  } else {
+  if constexpr (A == Axis::kPeriodic) {
     return wrap(i + m, n);
+  } else {
+    return clampi(i + m, n);
   }
 }
 
 // shift by m, then by s
-template <bool Wall>
+template <Axis A>
 __device__ __forceinline__ int sh2(int i, int m, int s, int n) {
-  if constexpr (Wall) {
+  if constexpr (A == Axis::kPeriodic) {
+    return wrap(i + m + s, n);
+  } else if constexpr (A == Axis::kBounded) {
     return clampi(clampi(i + m, n) + s, n);
   } else {
-    return wrap(i + m + s, n);
+    return clampi(i + m + s, n);
   }
+}
+
+// Indices of the point an update thread owns: (i, j) in the padded arrays,
+// c there, co in the unpadded outputs; false for a thread past the end.
+template <typename T>
+__device__ __forceinline__ bool update_point(const Params<T>& p, int& i,
+                                             int& j, size_t& c,
+                                             size_t& co) {
+  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  const int jj = blockIdx.x * kBlockY + threadIdx.x;
+  const int ii = blockIdx.y * kBlockX + threadIdx.y;
+  if (ii >= mx || jj >= my) return false;
+  i = ii + p.hx;
+  j = jj + p.hy;
+  c = static_cast<size_t>(i) * p.ny + j;
+  co = static_cast<size_t>(ii) * my + jj;
+  return true;
 }
 
 // -- arithmetic -----------------------------------------------------------------
@@ -212,19 +269,23 @@ __device__ __forceinline__ void weno5_pair(const T* c, int q, int n,
 //
 // No penetration (the wall-normal tendency is zero on face 0 of a bounded
 // axis; the far wall face is not stored), then the Le–Moin update
-// s' = s + dt (γ G + ζ G_prev) at point c, G stored where g_out is given.
+// s' = s + dt (γ G + ζ G_prev): s at c of the padded arrays, G_prev and
+// the outputs at co of the unpadded ones, G stored where g_out is given.
 template <bool WX, bool WY, typename T>
 __device__ __forceinline__ void mask_and_update(
-    T Gh, T Gu, T Gv, T GA, int i, int j, size_t c, size_t n, const T* s,
-    const T* g_prev, T* s_out, T* g_out, T dt, T gk, T zk) {
+    T Gh, T Gu, T Gv, T GA, int i, int j, size_t c, size_t co,
+    const Params<T>& p, const T* s, const T* g_prev, T* s_out, T* g_out,
+    T dt, T gk, T zk) {
   if (WX && i == 0) Gu = T(0);
   if (WY && j == 0) Gv = T(0);
+  const size_t n = static_cast<size_t>(p.nx) * p.ny;
+  const size_t no = static_cast<size_t>(p.nx - 2 * p.hx) * (p.ny - 2 * p.hy);
   const T G[4] = {Gh, Gu, Gv, GA};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const size_t o = k * n + c;
+    const size_t o = k * no + co;
     const T inc = g_prev ? gk * G[k] + zk * g_prev[o] : gk * G[k];
-    s_out[o] = s[o] + dt * inc;
+    s_out[o] = s[k * n + c] + dt * inc;
     if (g_out) g_out[o] = G[k];
   }
 }

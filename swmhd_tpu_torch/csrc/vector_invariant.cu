@@ -3,10 +3,11 @@
 // hA-conservative tracer with a linear background gradient, jacobian-form
 // Lorentz force (swmhd_tpu/models/shallow_water.py
 // _tendencies_vector_invariant, physics/lorentz.py lorentz_force_jacobian),
-// for each periodic/bounded pair of axes.
+// for each periodic/bounded pair of axes and on exchanged tiles.
 //
-// Two kernels: face_fluxes writes the 12 intermediates below, and
-// tendency_update reads them at radius <= 3 and applies the Le–Moin update.
+// Two kernels: face_fluxes writes the 12 intermediates below over the
+// whole (padded) array, and tendency_update reads them at radius <= 3 and
+// applies the Le–Moin update on the unpadded points.
 // Each intermediate is the reference's derived array, so a shift of it is a
 // read at the shifted (wrapped or clamped) index. Where the reference
 // shifts a derived array that this code recomputes from raw reads instead
@@ -61,9 +62,10 @@ __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
                     T(0.5) * (ub0 + vb0));
 }
 
-template <typename T, bool WX, bool WY>
+template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
+  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   const int j = blockIdx.x * kBlockY + threadIdx.x;
   const int i = blockIdx.y * kBlockX + threadIdx.y;
   if (i >= p.nx || j >= p.ny) return;
@@ -73,8 +75,8 @@ face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   const T* v = s + 2 * n;
   const T* A = s + 3 * n;
   auto at = [&](const T* a, int di, int dj) {
-    return a[static_cast<size_t>(sh<WX>(i, di, p.nx)) * p.ny
-             + sh<WY>(j, dj, p.ny)];
+    return a[static_cast<size_t>(sh<X>(i, di, p.nx)) * p.ny
+             + sh<Y>(j, dj, p.ny)];
   };
   const size_t c = static_cast<size_t>(i) * p.ny + j;
   const bool last_x = WX && i == p.nx - 1;
@@ -123,22 +125,22 @@ face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   for (int k = 0; k < kNumTmp; ++k) tmp[k * n + c] = out[k];
 }
 
-template <typename T, bool WX, bool WY>
+template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
                 const T* __restrict__ g_prev, T* __restrict__ s_out,
                 T* __restrict__ g_out, Params<T> p, T dt, T gk, T zk) {
-  const int j = blockIdx.x * kBlockY + threadIdx.x;
-  const int i = blockIdx.y * kBlockX + threadIdx.y;
-  if (i >= p.nx || j >= p.ny) return;
+  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
+  int i, j;
+  size_t c, co;
+  if (!update_point(p, i, j, c, co)) return;
   const size_t n = static_cast<size_t>(p.nx) * p.ny;
   auto ld = [&](const T* a, int ii, int jj) {
     return a[static_cast<size_t>(ii) * p.ny + jj];
   };
   auto at = [&](const T* a, int di, int dj) {
-    return ld(a, sh<WX>(i, di, p.nx), sh<WY>(j, dj, p.ny));
+    return ld(a, sh<X>(i, di, p.nx), sh<Y>(j, dj, p.ny));
   };
-  const size_t c = static_cast<size_t>(i) * p.ny + j;
   const bool last_x = WX && i == p.nx - 1;
   const bool last_y = WY && j == p.ny - 1;
   const T* h = s;
@@ -172,7 +174,7 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
   T z[6], uw[6], vw[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    const int jj = sh2<WY>(j, k - 3, 1, p.ny);
+    const int jj = sh2<Y>(j, k - 3, 1, p.ny);
     z[k] = ld(zeta, i, jj);
     uw[k] = ld(uff, i, jj);
     vw[k] = ld(vff, i, jj);
@@ -186,7 +188,7 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
   // v-equation along x, onto (c,f)
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    const int ii = sh2<WX>(i, k - 3, 1, p.nx);
+    const int ii = sh2<X>(i, k - 3, 1, p.nx);
     z[k] = ld(zeta, ii, j);
     uw[k] = ld(uff, ii, j);
     vw[k] = ld(vff, ii, j);
@@ -237,30 +239,31 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
   Gu = Gu + jac_x / (T(0.5) * (h0 + at(h, -1, 0)));
   Gv = Gv + jac_y / (T(0.5) * (h0 + at(h, 0, -1)));
 
-  mask_and_update<WX, WY>(Gh, Gu, Gv, GA, i, j, c, n, s, g_prev, s_out,
+  mask_and_update<WX, WY>(Gh, Gu, Gv, GA, i, j, c, co, p, s, g_prev, s_out,
                           g_out, dt, gk, zk);
 }
 
-template <typename T, bool WX, bool WY>
-cudaError_t run(const Launch<T>& a) {
-  const dim3 block = block_dims();
-  const dim3 grid = grid_dims(a.p.nx, a.p.ny);
-  face_fluxes<T, WX, WY><<<grid, block, 0, a.stream>>>(a.s_in, a.tmp, a.p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tendency_update<T, WX, WY><<<grid, block, 0, a.stream>>>(
-      a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
-  return cudaGetLastError();
-}
+struct Run {
+  template <typename T, Axis X, Axis Y>
+  static cudaError_t go(const Launch<T>& a) {
+    const dim3 block = block_dims();
+    face_fluxes<T, X, Y><<<grid_dims(a.p.nx, a.p.ny), block, 0, a.stream>>>(
+        a.s_in, a.tmp, a.p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    tendency_update<T, X, Y><<<grid_dims(a.p.nx - 2 * a.p.hx,
+                                         a.p.ny - 2 * a.p.hy),
+                               block, 0, a.stream>>>(
+        a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
 template <typename T>
 cudaError_t launch_vector_invariant(const Launch<T>& a) {
-  if (a.p.wall_x) {
-    return a.p.wall_y ? run<T, true, true>(a) : run<T, true, false>(a);
-  }
-  return a.p.wall_y ? run<T, false, true>(a) : run<T, false, false>(a);
+  return dispatch_modes<Run>(a);
 }
 
 template cudaError_t launch_vector_invariant<float>(const Launch<float>&);

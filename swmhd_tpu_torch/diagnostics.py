@@ -4,19 +4,90 @@ that stay on the device.
 
 Domain integrals are ``mean(·)·Lx·Ly``; potential energy is measured
 against the initial height field.
+
+On a tile of a domain decomposition the same functions run on the tile
+padded with a halo (see ``DomainDecomposition.tile_diagnostics``): under
+:func:`tile_reduction` each integral is the tile's share of the sum and
+each extremum the tile's, both over the tile without its halo, and the
+reduction object combines them over ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 
 from . import operators as op
 from .models.shallow_water import CONSERVATIVE
+from .parallel import multihost
 from .physics.lorentz import magnetic_field_cc
+
+_TILE = [None]
+
+
+class TileReduction:
+    """Collects which values of one diagnostics evaluation are extrema
+    (every other value is a linear combination of integrals, so a sum over
+    ranks) and reduces them: one ``all_reduce`` of the stacked sums, one
+    of the stacked maxima and negated minima."""
+
+    def __init__(self, halo: int):
+        self.halo = halo
+        self._kind = {}       # id(value) -> "max" | "min"
+        self._keep = []       # holds the values so their ids stay unique
+
+    def crop(self, a):
+        H = self.halo
+        return a[H:a.shape[0] - H, H:a.shape[1] - H]
+
+    def mark(self, value, kind):
+        self._kind[id(value)] = kind
+        self._keep.append(value)
+        return value
+
+    def reduce(self, out: dict) -> dict:
+        kind = {n: self._kind.get(id(v), "sum") for n, v in out.items()}
+        sums = [n for n in out if kind[n] == "sum"]
+        ext = [n for n in out if kind[n] != "sum"]
+        res = {}
+        if sums:
+            v = multihost.all_reduce(torch.stack([out[n] for n in sums]))
+            res.update(zip(sums, v.unbind(0)))
+        if ext:
+            v = multihost.all_reduce(
+                torch.stack([out[n] if kind[n] == "max" else -out[n]
+                             for n in ext]), dist.ReduceOp.MAX)
+            res.update((n, x if kind[n] == "max" else -x)
+                       for n, x in zip(ext, v.unbind(0)))
+        return {n: res[n] for n in out}
+
+
+@contextlib.contextmanager
+def tile_reduction(halo: int):
+    """Evaluate diagnostics on a tile padded by ``halo``; yields the
+    :class:`TileReduction` that combines the results over ranks."""
+    prev, _TILE[0] = _TILE[0], TileReduction(halo)
+    try:
+        yield _TILE[0]
+    finally:
+        _TILE[0] = prev
 
 
 def _integral(field, grid):
-    return torch.mean(field) * grid.Lx * grid.Ly
+    t = _TILE[0]
+    if t is None:
+        return torch.mean(field) * grid.Lx * grid.Ly
+    return torch.sum(t.crop(field)) / (grid.Nx * grid.Ny) * grid.Lx * grid.Ly
+
+
+def _extremum(a, kind):
+    t = _TILE[0]
+    if t is None:
+        return torch.max(a) if kind == "max" else torch.min(a)
+    a = t.crop(a)
+    return t.mark(torch.max(a) if kind == "max" else torch.min(a), kind)
 
 
 def kinetic_energy(u, v, h, grid):
@@ -54,10 +125,10 @@ def extrema_report(u, v, h, A, grid):
     """max speed, max|u|, max A, min h (the progress-log fields)."""
     speed = torch.sqrt(op.ix_c(u, grid) ** 2 + op.iy_c(v, grid) ** 2)
     return {
-        "max_speed": torch.max(speed),
-        "max_abs_u": torch.max(torch.abs(u)),
-        "max_A": torch.max(A),
-        "min_h": torch.min(h),
+        "max_speed": _extremum(speed, "max"),
+        "max_abs_u": _extremum(torch.abs(u), "max"),
+        "max_A": _extremum(A, "max"),
+        "min_h": _extremum(h, "min"),
     }
 
 

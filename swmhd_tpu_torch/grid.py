@@ -24,6 +24,15 @@ BOUNDED = "bounded"
 _VALID_TOPOLOGIES = (PERIODIC, BOUNDED)
 
 
+def require_device(device) -> str:
+    """``device`` as a string, or ``RuntimeError`` for a CUDA device when
+    CUDA is not available: nothing moves to the CPU unless asked to."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} but CUDA is not "
+                           f"available (pass device='cpu' for the CPU)")
+    return str(device)
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """``torch.float32`` -> ``"float32"`` (the checkpoint's spelling)."""
     return str(dtype).replace("torch.", "")
@@ -31,7 +40,8 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Uniform rectilinear staggered grid (2-D, z Flat) on one device."""
+    """Uniform rectilinear staggered grid (2-D, z Flat) on one device:
+    the card unless ``device="cpu"`` is asked for."""
 
     Nx: int
     Ny: int
@@ -42,7 +52,10 @@ class Grid:
     topology_x: str = PERIODIC
     topology_y: str = PERIODIC
     dtype_name: str = "float32"
-    device: str = "cpu"
+    device: str = "cuda"
+
+    def __post_init__(self):
+        require_device(self.device)
 
     @staticmethod
     def regular(Nx: int, Ny: int,
@@ -50,7 +63,7 @@ class Grid:
                 extent_y: Tuple[float, float],
                 topology: Tuple[str, str] = (PERIODIC, PERIODIC),
                 dtype: torch.dtype = torch.float32,
-                device="cpu") -> "Grid":
+                device="cuda") -> "Grid":
         tx, ty = (t.lower() for t in topology)
         if tx not in _VALID_TOPOLOGIES or ty not in _VALID_TOPOLOGIES:
             raise ValueError(f"topology must be in {_VALID_TOPOLOGIES}")

@@ -82,6 +82,24 @@ class ShallowWaterModel:
         if isinstance(self.forcing, Mapping):
             object.__setattr__(self, "forcing", tuple(self.forcing.items()))
 
+    # -- halo widths ------------------------------------------------------------
+
+    @property
+    def halo(self) -> int:
+        """Widest single-operator stencil half-width (WENO5: 3; 2 for the
+        Lorentz chains)."""
+        return max(self.momentum_advection.halo, self.mass_advection.halo,
+                   self.tracer_advection.halo, 2)
+
+    @property
+    def exchange_halo(self) -> int:
+        """Composed stencil radius of one tendency evaluation, the halo a
+        tile of a domain decomposition exchanges per substage: a
+        reconstruction (radius ``halo``) feeds a flux divergence (+1)
+        whose transport is itself reconstructed (+1 shift of another
+        reconstruction), and the Lorentz chains compose to at most 4."""
+        return self.halo + 3
+
     # -- construction ---------------------------------------------------------
 
     def initial_state(self, u=None, v=None, h=None, A=None,
@@ -138,13 +156,15 @@ class ShallowWaterModel:
 
     def _mask_walls(self, u_like, v_like):
         """No penetration: the wall-normal velocity (or its tendency) is
-        zero on face 0 of a BOUNDED axis; the far wall face is not stored
-        and its zero flux is enforced by the flux differences."""
+        zero on face 0 of a BOUNDED axis (the global face 0, see
+        :class:`~swmhd_tpu_torch.operators.IndexContext`); the far wall
+        face is not stored and its zero flux is enforced by the flux
+        differences."""
         g = self.grid
         if g.topology_x == BOUNDED:
-            u_like = torch.where(op.index_x(u_like) == 0, 0.0, u_like)
+            u_like = torch.where(op.global_index_x(u_like) == 0, 0.0, u_like)
         if g.topology_y == BOUNDED:
-            v_like = torch.where(op.index_y(v_like) == 0, 0.0, v_like)
+            v_like = torch.where(op.global_index_y(v_like) == 0, 0.0, v_like)
         return u_like, v_like
 
     def _apply_forcing(self, state, Gu, Gv, Gh, GA):

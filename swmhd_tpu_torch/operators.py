@@ -11,22 +11,68 @@ Index convention (0-based, arrays ``(Nx, Ny)``, axis 0 = x):
 and the same with x<->y on axis 1. Periodic shifts are ``torch.roll``;
 a BOUNDED axis clamps the shift at the walls (edge replication), and
 the flux differences zero the flux through the far wall face.
+
+Every wall is keyed on the *global* index of a row or column. On a whole
+array that is the local index; on a tile of a domain decomposition,
+padded with an exchanged halo, the :class:`IndexContext` installed
+around the tile's tendency shifts it by the tile's origin, so the same
+code clamps and zeroes at the domain's walls and never at a tile edge.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from .grid import Grid, PERIODIC, BOUNDED
 
 
-def index_x(a: torch.Tensor) -> torch.Tensor:
-    """x-index of every row of ``a``, shaped to broadcast against it."""
-    return torch.arange(a.shape[0], device=a.device).unsqueeze(1)
+# -- global-index context --------------------------------------------------------
+
+@dataclasses.dataclass
+class IndexContext:
+    """Maps local array indices to global domain indices: ``ox``/``oy``
+    are the global indices of local row/column 0, ``gNx``/``gNy`` the
+    domain's sizes (what the wall masks compare against)."""
+    ox: int
+    oy: int
+    gNx: int
+    gNy: int
 
 
-def index_y(a: torch.Tensor) -> torch.Tensor:
-    return torch.arange(a.shape[1], device=a.device).unsqueeze(0)
+_INDEX_CTX = [None]
+
+
+def set_index_ctx(ctx):
+    """Install an IndexContext (None to clear); returns the previous one."""
+    old = _INDEX_CTX[0]
+    _INDEX_CTX[0] = ctx
+    return old
+
+
+def global_index_x(a: torch.Tensor) -> torch.Tensor:
+    """Global x-index of every row of ``a``, shaped to broadcast against
+    it."""
+    ctx = _INDEX_CTX[0]
+    i = torch.arange(a.shape[0], device=a.device).unsqueeze(1)
+    return i if ctx is None else i + ctx.ox
+
+
+def global_index_y(a: torch.Tensor) -> torch.Tensor:
+    ctx = _INDEX_CTX[0]
+    j = torch.arange(a.shape[1], device=a.device).unsqueeze(0)
+    return j if ctx is None else j + ctx.oy
+
+
+def global_nx(grid: Grid) -> int:
+    ctx = _INDEX_CTX[0]
+    return grid.Nx if ctx is None else ctx.gNx
+
+
+def global_ny(grid: Grid) -> int:
+    ctx = _INDEX_CTX[0]
+    return grid.Ny if ctx is None else ctx.gNy
 
 
 # -- shifts -------------------------------------------------------------------
@@ -50,9 +96,19 @@ def shift_y(a: torch.Tensor, n: int, grid: Grid) -> torch.Tensor:
 
 
 def _clamped_shift(a: torch.Tensor, n: int, axis: int) -> torch.Tensor:
-    # out[i] = a[clip(i + n, 0, N - 1)]
+    # out[i] = a[i + n] with the read clamped to the GLOBAL wall rows: a
+    # read past a wall takes the wall row (at its local index, clamped
+    # into the array as the reference's dynamic_slice does); any other
+    # read wraps like a roll, which only a tile's halo ring ever sees.
     N = a.shape[axis]
-    idx = torch.clamp(torch.arange(N, device=a.device) + n, 0, N - 1)
+    ctx = _INDEX_CTX[0]
+    origin = 0 if ctx is None else (ctx.ox if axis == 0 else ctx.oy)
+    gN = N if ctx is None else (ctx.gNx if axis == 0 else ctx.gNy)
+    j = torch.arange(N, device=a.device) + n
+    g = j + origin
+    lo = min(max(-origin, 0), N - 1)
+    hi = min(max(gN - 1 - origin, 0), N - 1)
+    idx = torch.where(g < 0, lo, torch.where(g > gN - 1, hi, j % N))
     return torch.index_select(a, axis, idx)
 
 
@@ -79,14 +135,14 @@ def dy_c(a, grid):
 def dx_c_flux(f, grid):
     up = shift_x(f, 1, grid)
     if grid.topology_x == BOUNDED:
-        up = torch.where(index_x(up) == grid.Nx - 1, 0.0, up)
+        up = torch.where(global_index_x(up) == global_nx(grid) - 1, 0.0, up)
     return up - f
 
 
 def dy_c_flux(f, grid):
     up = shift_y(f, 1, grid)
     if grid.topology_y == BOUNDED:
-        up = torch.where(index_y(up) == grid.Ny - 1, 0.0, up)
+        up = torch.where(global_index_y(up) == global_ny(grid) - 1, 0.0, up)
     return up - f
 
 

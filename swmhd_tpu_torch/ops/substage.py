@@ -5,8 +5,13 @@ plain PyTorch versions, and the :class:`KernelStepper` that drives a
 Counterparts of the Pallas kernels of ``swmhd_tpu/ops/fused_step.py``:
 :func:`substage` of the windowed substage (``fused_step_fn``) and
 :func:`multistep` of the resident multi-step kernel
-(``resident_step_fn``). The prognostics travel stacked as one
-``(4, Nx, Ny)`` tensor in the order h, u, v, A.
+(``resident_step_fn``). :func:`substage` with a ``halo`` is also the
+counterpart of the sharded substage of
+``swmhd_tpu/parallel/decomposition.py`` (``fused_step_fn``): the same
+substage on a tile padded with a halo exchanged from its neighbours, its
+launches counted under the branches with an exchanged axis. The
+prognostics travel stacked as one ``(4, Nx, Ny)`` tensor in the order h,
+u, v, A.
 
 The kernel covers both formulations (vector-invariant with the jacobian
 Lorentz forcing, conservative with the divergence-form one) on any pair of
@@ -14,9 +19,9 @@ periodic and bounded axes. Dispatch: on a CPU tensor a wrapper runs its
 plain version; on a CUDA tensor it launches the kernel or raises. A
 configuration the kernel does not cover raises ``ValueError`` on CUDA.
 Each wrapper counts its launches in ``<wrapper>.launches`` and, by
-templated branch (the ``(conservative, wall_x, wall_y)`` head of
-:func:`kernel_params`; :func:`branch_label` names it), in
-``<wrapper>.launches_by_branch``;
+templated branch ``(conservative, mode_x, mode_y)`` with the axis modes
+:data:`PERIODIC_AXIS`, :data:`BOUNDED_AXIS` and :data:`EXCHANGED_AXIS`
+(:func:`branch_label` names it), in ``<wrapper>.launches_by_branch``;
 each plain version counts its calls in ``<function>.calls``, so a run can
 show which path it took.
 """
@@ -24,11 +29,12 @@ show which path it took.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 
 import torch
 
-from ..grid import BOUNDED
+from ..grid import BOUNDED, PERIODIC
 from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
                                     VECTOR_INVARIANT, run_steps)
 from ..models.state import Clock, State
@@ -36,6 +42,9 @@ from ..models.state import Clock, State
 # intermediates between the kernels of one substage, by formulation
 N_TMP = {VECTOR_INVARIANT: 12, CONSERVATIVE: 16}
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
+# how the kernel reads past the end of an axis (the AxisMode of
+# csrc/substage.cuh): wrap, clamp at a wall, or read the exchanged halo
+PERIODIC_AXIS, BOUNDED_AXIS, EXCHANGED_AXIS = 0, 1, 2
 # the Lorentz forcing each formulation's kernel computes in-kernel:
 # (forcing key, tag set by the forcing factory, factory name)
 LORENTZ = {
@@ -48,15 +57,33 @@ LORENTZ = {
 
 # -- plain versions ------------------------------------------------------------
 
-def substage_reference(model, s, dt, stage, g_prev=None):
+def _crop(a, halo):
+    hx, hy = halo
+    return a[:, hx:a.shape[1] - hx, hy:a.shape[2] - hy]
+
+
+def substage_reference(model, s, dt, stage, g_prev=None, halo=(0, 0)):
     """Substage ``stage`` (0, 1, 2) of the Le–Moin step on stacked fields:
-    ``(s + dt (γ G + ζ G_prev), G)`` with G = ``model.tendencies(s)``."""
+    ``(s + dt (γ G + ζ G_prev), G)`` with G = ``model.tendencies(s)``.
+
+    On a tile padded by ``halo = (hx, hy)`` the tendencies run on the
+    padded tile's own grid, where a padded (exchanged) axis is periodic,
+    so its wrap puts garbage only into a ring narrower than the composed
+    radius, which the crop removes; ``g_prev`` and the results are
+    unpadded."""
     substage_reference.calls += 1
-    G = torch.stack(model.tendencies(State(*s)).fields())
+    if halo != (0, 0):
+        g = model.grid
+        NX, NY = s.shape[1:]
+        model = dataclasses.replace(model, grid=dataclasses.replace(
+            g, Nx=NX, Ny=NY, Lx=g.dx * NX, Ly=g.dy * NY,
+            topology_x=PERIODIC if halo[0] else g.topology_x,
+            topology_y=PERIODIC if halo[1] else g.topology_y))
+    G = _crop(torch.stack(model.tendencies(State(*s)).fields()), halo)
     inc = RK3_GAMMA[stage] * G
     if g_prev is not None:
         inc = inc + RK3_ZETA[stage] * g_prev
-    return s + dt * inc, G
+    return _crop(s, halo) + dt * inc, G
 
 
 def multistep_reference(model, s, dt, n_steps):
@@ -104,19 +131,20 @@ def kernel_params(model):
 
 
 def branch_label(branch) -> str:
-    """``(conservative, wall_x, wall_y)`` as ``"<formulation>, <periodic |
-    bounded x | bounded y | bounded xy>"``."""
-    conservative, wall_x, wall_y = branch
-    walls = "x" * wall_x + "y" * wall_y
-    return (f"{CONSERVATIVE if conservative else VECTOR_INVARIANT}, "
-            f"{'bounded ' + walls if walls else 'periodic'}")
+    """``(conservative, mode_x, mode_y)`` as ``"<formulation>, <periodic |
+    bounded x | bounded y | bounded xy>[, exchanged x | y | xy]"``."""
+    conservative, mode_x, mode_y = branch
+    parts = []
+    for mode, word in ((BOUNDED_AXIS, "bounded"),
+                       (EXCHANGED_AXIS, "exchanged")):
+        axes = "x" * (mode_x == mode) + "y" * (mode_y == mode)
+        if axes:
+            parts.append(f"{word} {axes}")
+    return ", ".join([CONSERVATIVE if conservative else VECTOR_INVARIANT]
+                     + (parts or ["periodic"]))
 
 
-def _check_fields(model, s):
-    g = model.grid
-    if s.shape != (4, g.Nx, g.Ny):
-        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}); "
-                         f"got {tuple(s.shape)}")
+def _check_fields(s):
     if s.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the CUDA substage takes float32 or float64, "
                          f"not {s.dtype}")
@@ -145,31 +173,57 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def substage(model, s, dt, stage, g_prev=None, write_G=True):
-    """One Le–Moin substage on stacked fields ``s``; returns
-    ``(s_new, G)`` with ``G`` None unless ``write_G``."""
+def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
+             halo=(0, 0)):
+    """One Le–Moin substage on stacked fields ``s``; returns ``(s_new,
+    G)`` with ``G`` None unless ``write_G``.
+
+    With ``halo = (hx, hy)``, ``s`` is a tile of ``model``'s domain padded
+    by cells the caller has exchanged from the neighbouring tiles, ``(4,
+    nx + 2hx, ny + 2hy)``; ``g_prev`` and the results are ``(4, nx, ny)``.
+    A padded axis must be periodic in ``model`` and is read from the halo
+    (the exchanged axis mode); an axis with no pad is the whole domain's
+    and wraps or walls."""
+    hx, hy = halo
+    g = model.grid
+    for h, topo, name in ((hx, g.topology_x, "x"), (hy, g.topology_y, "y")):
+        if h < 0 or (h and topo != PERIODIC):
+            raise ValueError(f"a tile pads only a periodic axis: {name} is "
+                             f"{topo}, halo {h}")
     if s.device.type == "cpu":
-        s_new, G = substage_reference(model, s, dt, stage, g_prev)
+        s_new, G = substage_reference(model, s, dt, stage, g_prev, halo)
         return s_new, (G if write_G else None)
-    params = kernel_params(model)
-    _check_fields(model, s)
+    conservative, wall_x, wall_y, *params = kernel_params(model)
+    mode_x = EXCHANGED_AXIS if hx else wall_x
+    mode_y = EXCHANGED_AXIS if hy else wall_y
+    nx, ny = ((s.shape[1] - 2 * hx, s.shape[2] - 2 * hy) if s.dim() == 3
+              else (0, 0))
+    if (s.shape[0] != 4 or nx < 1 or ny < 1
+            or (not hx and nx != g.Nx) or (not hy and ny != g.Ny)):
+        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}), or "
+                         f"a tile (4, nx + 2*{hx}, ny + 2*{hy}) with the "
+                         f"whole domain on an unpadded axis; got "
+                         f"{tuple(s.shape)}")
+    _check_fields(s)
     if (stage > 0) != (g_prev is not None):
         raise ValueError("substages 1 and 2 take G_prev; substage 0 does not")
-    if g_prev is not None and (g_prev.shape != s.shape
+    shape = (4, nx, ny)
+    if g_prev is not None and (tuple(g_prev.shape) != shape
                                or g_prev.dtype != s.dtype
                                or g_prev.device != s.device
                                or not g_prev.is_contiguous()):
-        raise ValueError("G_prev must match the stacked fields")
-    s_out = torch.empty_like(s)
-    g_out = torch.empty_like(s) if write_G else None
+        raise ValueError(f"G_prev must be a contiguous {shape} tensor like "
+                         f"the stacked fields")
+    s_out = torch.empty(shape, dtype=s.dtype, device=s.device)
+    g_out = torch.empty_like(s_out) if write_G else None
     tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
-             model.grid.Nx, model.grid.Ny, *params, float(dt),
-             RK3_GAMMA[stage], RK3_ZETA[stage], stream)
+             nx, ny, hx, hy, conservative, mode_x, mode_y, *params,
+             float(dt), RK3_GAMMA[stage], RK3_ZETA[stage], stream)
     substage.launches += 1
-    substage.launches_by_branch[params[:3]] += 1
+    substage.launches_by_branch[(conservative, mode_x, mode_y)] += 1
     _raise_on(err, "swmhd_substage")
     return s_out, g_out
 
@@ -179,7 +233,11 @@ def multistep(model, s, dt, n_steps):
     if s.device.type == "cpu":
         return multistep_reference(model, s, dt, n_steps)
     params = kernel_params(model)
-    _check_fields(model, s)
+    g = model.grid
+    if s.shape != (4, g.Nx, g.Ny):
+        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}); "
+                         f"got {tuple(s.shape)}")
+    _check_fields(s)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
     out = torch.empty_like(s)
@@ -189,8 +247,7 @@ def multistep(model, s, dt, n_steps):
     fn = _lib_fn("swmhd_multistep", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
-             model.grid.Nx, model.grid.Ny, *params, float(dt),
-             int(n_steps), stream)
+             g.Nx, g.Ny, *params, float(dt), int(n_steps), stream)
     multistep.launches += 1
     multistep.launches_by_branch[params[:3]] += 1
     _raise_on(err, "swmhd_multistep")

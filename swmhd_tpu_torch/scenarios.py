@@ -107,8 +107,9 @@ def get(name: str) -> Scenario:
 
 
 def build(name: str, formulation: str = VECTOR_INVARIANT,
-          dtype: torch.dtype = torch.float32, device="cpu", **model_kwargs):
-    """(model, state, scenario) for a named scenario."""
+          dtype: torch.dtype = torch.float32, device="cuda", **model_kwargs):
+    """(model, state, scenario) for a named scenario, on the card unless
+    ``device="cpu"``."""
     sc = get(name)
     grid = Grid.regular(sc.N, sc.N, (-sc.L / 2, sc.L / 2),
                         (-sc.L / 2, sc.L / 2), topology=sc.topology,

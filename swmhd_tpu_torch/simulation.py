@@ -73,7 +73,13 @@ def _to_host(d: Dict[str, torch.Tensor]) -> Dict[str, list]:
 class Simulation:
     """``stepper`` defaults to the model itself (the plain PyTorch step);
     pass a :class:`~swmhd_tpu_torch.ops.substage.KernelStepper` to run the
-    CUDA kernel. Either has ``step_fn(dt, n_steps, diagnostics)``."""
+    CUDA kernel. Either has ``step_fn(dt, n_steps, diagnostics)``.
+
+    A decomposed run passes a ``DomainDecomposition`` (the plain step on
+    tiles) or its ``fused_stepper()`` (the CUDA tile substage) and this
+    rank's tile as the state: diagnostics, written for a global state,
+    then go through the stepper's ``tile_diagnostics`` and give global
+    values on every rank."""
 
     def __init__(self, model, dt: float, stop_time: Optional[float] = None,
                  stop_iteration: Optional[int] = None, stepper=None):
@@ -89,6 +95,13 @@ class Simulation:
         self.state: Optional[State] = None
         self._steppers = {}
         self.run_wall_time = 0.0
+        self._on_tiles = getattr(self.stepper, "tile_diagnostics",
+                                 lambda fn: fn)
+
+    def diagnose(self, fn):
+        """``fn(state) -> {name: 0-d tensor}`` of the current state, global
+        values also when the state is a tile."""
+        return self._on_tiles(fn)(self.state)
 
     def _series_writers(self):
         from .io.writers import ScalarSeriesWriter
@@ -148,7 +161,7 @@ class Simulation:
         series_writers = self._series_writers()
         self._fire(it, t, force=True)
         if series_writers:
-            diag0 = _to_host(self._diag_fn()(state))
+            diag0 = _to_host(self.diagnose(self._diag_fn()))
             for w in series_writers:
                 w.write_series([t], [it], {k: [v] for k, v in diag0.items()})
 
@@ -202,9 +215,11 @@ def progress_callback():
     def cb(sim: Simulation):
         from . import diagnostics
         st = sim.state
-        u, v = sim.model.velocities(st)
-        rep = _to_host(diagnostics.extrema_report(u, v, st.h, st.A,
-                                                  sim.model.grid))
+
+        def extrema(s):
+            u, v = sim.model.velocities(s)
+            return diagnostics.extrema_report(u, v, s.h, s.A, sim.model.grid)
+        rep = _to_host(sim.diagnose(extrema))
         now = time.perf_counter()
         logger.info(
             "Time: %12s, iteration: %d, max(|u|): %.2e, max(A): %.2e, "

@@ -40,7 +40,7 @@ def test_state_round_trip(jdtype, tdtype):
     arrays = {k: np.asarray(getattr(js, k)) for k in FIELDS}
     arrays["time"] = np.asarray(js.clock.time)
     arrays["iteration"] = np.asarray(js.clock.iteration)
-    ts = state_from_numpy(arrays, dtype=tdtype)
+    ts = state_from_numpy(arrays, device="cpu", dtype=tdtype)
     assert ts.h.dtype == tdtype and ts.clock == Clock(1.23, 123)
     back = state_to_numpy(ts)
     for k in FIELDS:
@@ -52,7 +52,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
     jm, js = jax_state()
     path = str(tmp_path / "jax.npz")
     jckpt.save(path, js, jm.grid)
-    grid = tckpt.grid_from_checkpoint(path)
+    grid = tckpt.grid_from_checkpoint(path, device="cpu")
     assert grid.meta() == {k: getattr(jm.grid, k) for k in grid.meta()}
     ts = tckpt.restore(path, grid)
     for k in FIELDS:
@@ -62,7 +62,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
 
 
 def test_port_checkpoint_restores_in_jax(tmp_path):
-    tm, ts, _ = tscen.build(SCENARIO, dtype=torch.float64)
+    tm, ts, _ = tscen.build(SCENARIO, dtype=torch.float64, device="cpu")
     ts = ts.replace(clock=Clock(4.56, 456))
     path = str(tmp_path / "port.npz")
     tckpt.save(path, ts, tm.grid)
@@ -77,10 +77,34 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 
 
 def test_grid_from_meta_and_size_check(tmp_path):
-    tm, ts, _ = tscen.build(SCENARIO, dtype=torch.float32)
-    assert grid_from_meta(tm.grid.meta()) == tm.grid
+    tm, ts, _ = tscen.build(SCENARIO, dtype=torch.float32, device="cpu")
+    assert grid_from_meta(tm.grid.meta(), device="cpu") == tm.grid
     path = str(tmp_path / "c.npz")
     tckpt.save(path, ts, tm.grid)
-    other, _, _ = tscen.build("128x128_low_B_low_U")
+    other, _, _ = tscen.build("128x128_low_B_low_U", device="cpu")
     with pytest.raises(ValueError, match="checkpoint grid"):
         tckpt.restore(path, other.grid)
+
+
+@pytest.mark.parametrize("entry", ["Grid.regular", "scenarios.build",
+                                   "state_from_numpy", "grid_from_meta",
+                                   "grid_from_checkpoint"])
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
+    """Without ``device=`` the library's entry points put everything on
+    the card, and without a card they raise instead of moving to the
+    CPU."""
+    from swmhd_tpu_torch import Grid
+    tm, ts, _ = tscen.build(SCENARIO, device="cpu")
+    path = str(tmp_path / "c.npz")
+    tckpt.save(path, ts, tm.grid)
+    calls = {
+        "Grid.regular": lambda: Grid.regular(8, 8, (0, 1), (0, 1)),
+        "scenarios.build": lambda: tscen.build(SCENARIO),
+        "state_from_numpy": lambda: state_from_numpy(
+            {k: np.zeros((8, 8)) for k in FIELDS}),
+        "grid_from_meta": lambda: grid_from_meta(tm.grid.meta()),
+        "grid_from_checkpoint": lambda: tckpt.grid_from_checkpoint(path),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()

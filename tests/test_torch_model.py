@@ -59,7 +59,7 @@ def fused_test_pair(N=64, formulation=VECTOR_INVARIANT):
         A=lambda x, y: 0.5 * jnp.exp(-((x - 0.5)**2 + y**2))
         - 0.5 * jnp.exp(-((x + 0.5)**2 + y**2)))
     tg = TGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
-                       dtype=torch.float64)
+                       dtype=torch.float64, device="cpu")
     tm = TModel(grid=tg, formulation=formulation, coriolis=TFPlane(1.0),
                 forcing=t_div_forcing() if conservative else t_forcing())
     return jm, js, tm, to_torch(js)
@@ -67,13 +67,14 @@ def fused_test_pair(N=64, formulation=VECTOR_INVARIANT):
 
 def scenario_pair(name, formulation=VECTOR_INVARIANT):
     jm, js, _ = jscen.build(name, formulation, dtype=jnp.float64)
-    tm, _, _ = tscen.build(name, formulation, dtype=torch.float64)
+    tm, _, _ = tscen.build(name, formulation, dtype=torch.float64,
+                           device="cpu")
     return jm, js, tm, to_torch(js)
 
 
 def to_torch(js):
     return state_from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
-                            dtype=torch.float64)
+                            device="cpu", dtype=torch.float64)
 
 
 def assert_fields_close(got, want, tol=1e-12, what="", shared_scale=False):
@@ -136,7 +137,7 @@ def test_conservative_step_fn_matches_jax(case):
 @pytest.mark.parametrize("name", sorted(jscen.names()))
 def test_scenario_initial_conditions_match_jax(name):
     _, js, jsc = jscen.build(name, VECTOR_INVARIANT, dtype=jnp.float64)
-    _, ts, tsc = tscen.build(name, dtype=torch.float64)
+    _, ts, tsc = tscen.build(name, dtype=torch.float64, device="cpu")
     assert_fields_close(ts, js, tol=1e-14, what=name)
     for key in ("N", "L", "g", "f", "dt", "stop_time", "h0", "topology",
                 "A_bg_grad_y"):
@@ -148,7 +149,8 @@ def test_conservative_scenario_initial_conditions_match_jax(name):
     """Transports uh = u0·h0 where the scenario has a velocity; the
     forcing is the divergence form."""
     jm, js, _ = jscen.build(name, CONSERVATIVE, dtype=jnp.float64)
-    tm, ts, _ = tscen.build(name, CONSERVATIVE, dtype=torch.float64)
+    tm, ts, _ = tscen.build(name, CONSERVATIVE, dtype=torch.float64,
+                            device="cpu")
     assert_fields_close(ts, js, tol=1e-14, what=name)
     ((key, fn),) = tm.forcing
     assert key == ("uh", "vh") == tuple(dict(jm.forcing))[0]
@@ -184,7 +186,8 @@ def test_step_fn_diagnostics_series_on_device():
 
 def test_frozen_trajectory_1000_steps():
     want = np.load(FIXTURE)
-    tm, ts, _ = tscen.build("64x64_two_Gaussians_high_B", dtype=torch.float64)
+    tm, ts, _ = tscen.build("64x64_two_Gaussians_high_B", dtype=torch.float64,
+                            device="cpu")
     got = tm.step_fn(0.01, 1000)(ts)
     for k in FIELDS:
         err = np.max(np.abs(getattr(got, k).numpy() - want[k]))
@@ -194,7 +197,7 @@ def test_frozen_trajectory_1000_steps():
 def test_frozen_divergence_trajectory_1000_steps():
     want = np.load(os.path.join(FIXTURES, "divergence_64.npz"))
     tm, ts, _ = tscen.build("64x64_two_Gaussians_high_B", CONSERVATIVE,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     got = tm.step_fn(0.01, 1000)(ts)
     for k in FIELDS:
         err = np.max(np.abs(getattr(got, k).numpy() - want[k]))
@@ -202,7 +205,8 @@ def test_frozen_divergence_trajectory_1000_steps():
 
 
 def test_unported_configurations_raise():
-    tg = TGrid.regular(16, 16, (-5, 5), (-5, 5), dtype=torch.float64)
+    tg = TGrid.regular(16, 16, (-5, 5), (-5, 5), dtype=torch.float64,
+                       device="cpu")
     with pytest.raises(ValueError, match="unknown formulation"):
         TModel(grid=tg, formulation="divergence")
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):

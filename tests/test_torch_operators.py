@@ -29,7 +29,8 @@ TOPOLOGIES = [("periodic", "periodic"), ("bounded", "bounded"),
 def twin_grids(topology, jdtype=jnp.float64, tdtype=torch.float64):
     ext = ((-5.0, 5.0), (-4.0, 6.0))
     return (JGrid.regular(NX, NY, *ext, topology=topology, dtype=jdtype),
-            TGrid.regular(NX, NY, *ext, topology=topology, dtype=tdtype))
+            TGrid.regular(NX, NY, *ext, topology=topology, dtype=tdtype,
+                          device="cpu"))
 
 
 def fields(n, seed=0, dtype=np.float64):

@@ -29,7 +29,7 @@ def twin_grids(topology):
     return (JGrid.regular(NX, NY, *ext, topology=topology,
                           dtype=jnp.float64),
             TGrid.regular(NX, NY, *ext, topology=topology,
-                          dtype=torch.float64))
+                          dtype=torch.float64, device="cpu"))
 
 
 def inputs(seed=0):

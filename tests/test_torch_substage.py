@@ -27,7 +27,7 @@ from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
                              divergence_lorentz_forcing as tdivforce)
 from swmhd_tpu_torch.convert import state_from_numpy
 from swmhd_tpu_torch.ops import substage as K
-from chip_smoke import wall_terms
+from chip_smoke import initial_fields
 
 torch.set_num_threads(1)
 
@@ -39,18 +39,7 @@ def ic(xp, walls=False):
     """Vortex, height bump, Gaussian dipole; with ``walls``, plus
     chip_smoke's smooth wall-reaching terms, so a wall-bounded run has
     structure next to its walls."""
-    e = lambda x, y: xp.exp(-(x ** 2 + y ** 2))
-    base = dict(
-        u=lambda x, y: 5 * y * e(x, y),
-        v=lambda x, y: -5 * x * e(x, y),
-        h=lambda x, y: 1.0 + 0.05 * e(x, y),
-        A=lambda x, y: 0.5 * xp.exp(-((x - 0.5) ** 2 + y ** 2))
-        - 0.5 * xp.exp(-((x + 0.5) ** 2 + y ** 2)))
-    if not walls:
-        return base
-    add = wall_terms(xp)
-    return {k: (lambda f, g: lambda x, y: f(x, y) + g(x, y))(f, add[k])
-            for k, f in base.items()}
+    return initial_fields(xp, h_bump=0.05, walls=walls)
 
 
 def torch_model(N=32, dtype=torch.float64, device="cpu", topology=None,
@@ -74,7 +63,7 @@ def jax_pair(N=32, formulation="vector_invariant",
                 A_background_gradient_y=gamma)
     js = jm.initial_state(**ic(jnp, walls="bounded" in topology))
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
-                          dtype=torch.float64)
+                          device="cpu", dtype=torch.float64)
     tm = torch_model(N, topology=topology, formulation=formulation,
                      forcing=tdivforce(gamma) if conservative
                      else tforce(gamma),
