@@ -12,29 +12,43 @@ each printing lines of findings; any failure exits non-zero:
 3. each kernel branch against its plain PyTorch version at 256²: the
    vector-invariant and conservative formulations, periodic, bounded in y
    (A background gradient −0.05) and bounded in x and y (with fields that
-   carry structure next to the walls); one substage's
-   tendencies G and 10 RK3 steps, float64 (<= 1e-11) and float32
-   (<= 2e-5), relative to the largest field of the compared set, with the
-   error over the four rows next to each wall printed on its own;
+   carry structure next to the walls), each with no closure, a Laplacian
+   and a biharmonic one (ν·dt/dx^p = 0.01), and bounded in x and y with
+   the other OPTIONS (VorticityStencil, Centered2 and UpwindBiased3
+   momentum, mass and tracer); one substage's tendencies G and 10 RK3
+   steps, float64 (<= 1e-11) and float32 (<= 2e-5), relative to the
+   largest field of the compared set, with the error over the four rows
+   next to each wall printed on its own;
 4. 1000 float32 steps of ``64x64_two_Gaussians_high_B`` in each
    formulation against the frozen float64 trajectories
    ``tests/fixtures/{jacobian,divergence}_64.npz``, within the per-field
    drift bounds of ``tests/fixtures/f32_tolerance.npz``;
 5. the main path: ``swmhd_tpu_torch.cli run <scenario> --stop-time 1.0``
    on CUDA in float32 for ``128x128_two_Gaussians_high_B`` and
-   ``128x128_low_B_low_U`` in both formulations (each: 101 finite energy
-   rows, ``final.npz``, 300 substage launches, no plain-version call);
-6. the ``bench.py`` configuration at 2048² float32 in both formulations:
-   20 steps through the kernel stepper timed with CUDA events after a
-   warm-up, and 100 steps of each ``128x128_low_B_low_U`` (bounded y)
-   through the stepper without a series (one multistep call); then,
+   ``128x128_low_B_low_U`` in both formulations, and with the closures of
+   CLOSURE_FLAGS (``128x128_two_Gaussians_high_B --nu 1e-5 --kappa 1e-5
+   --biharmonic``, ``128x128_low_B_low_U --formulation conservative --nu
+   1e-3 --kappa 1e-3``) (each: 101 finite energy rows, ``final.npz``, 300
+   substage launches in one branch, the closure's where there is one, no
+   plain-version call);
+6. the ``bench.py`` configuration at 2048² float32 in both formulations,
+   without and with a biharmonic closure: 20 steps through the kernel
+   stepper timed with CUDA events after a warm-up (with the closure one
+   step with a series, so through substages), and 100 steps of each
+   ``128x128_low_B_low_U`` (bounded y; conservative with the Laplacian
+   closure; and with the scheme and stencil switches of SCHEME_RUNS,
+   after one step with a series) through the stepper without a series
+   (one multistep call); then,
    outside the counted window, the plain versions' times, per substage and
    per step, the 2048² states after 3 steps against each other, the
-   kernel against the plain version at 128² for the four configurations
-   of phase 5 (G of one substage and 10 steps, float32 <= 2e-5, wall rows
-   printed), the 128² rates of ``128x128_two_Gaussians_high_B``, and the
-   CLI runs of phase 5 timed with the kernel and with ``--no-fused`` in
-   turns.
+   kernel against the plain version at 128² for the configurations of
+   phase 5, of SCHEME_RUNS and ``128x128_two_Gaussians_high_B``
+   conservative with the biharmonic closure (G of one substage and 10
+   steps, float64 <= 1e-11 and float32 <= 2e-5, wall rows printed; with
+   a closure, how far it moves G, which must exceed 100 × 1e-11), the
+   128² rates of ``128x128_two_Gaussians_high_B``, and the CLI runs of
+   phase 5 timed with the kernel, with ``--no-fused`` and with the kernel
+   again.
 
 7. the tile substage (``swmhd_substage`` with a halo, the kernel of the
    domain decomposition) against the whole-domain substage in one
@@ -43,14 +57,18 @@ each printing lines of findings; any failure exits non-zero:
    wrap) and ``128x128_low_B_low_U`` into 4×1 (halo 6 in x, whole walled
    rows), in both formulations, float32 (<= 2e-5) and float64 (<=
    1e-12), G and the state of substages 0 and 1 relative to the field
-   scale, printing whether the two agree bit for bit; the tile kernel
+   scale, printing whether the two agree bit for bit; the 2048² 2×2
+   tiles with a biharmonic closure, which must agree bit for bit with a
+   halo of 7 (printed for 6 and 3 besides); the tile kernel
    against its plain version on one tile at 256² with wall-reaching
    fields for each of the four tile branches, and on one tile of each
    main-path layout (2048² in 2×2, 128² in 4×1; G and the state of
    substages 0 and 1: float64 <= 1e-11; float32 states <= 2e-5 and G
    within 2e-5 or no farther from the float64 plain G than twice the
-   float32 plain G), where it is timed against the plain version and the
-   whole-domain substage on a grid of the tile's size;
+   float32 plain G; the 128² 4×1 tile also with the biharmonic closure
+   of the decomposed CLI run, halo 7), where it is timed against the
+   plain version and the whole-domain substage on a grid of the tile's
+   size;
 8. the decomposed main path, four ranks sharing the one card over gloo
    (``torch.distributed.run``, halo slabs staged through host memory):
    the 2048² configuration in both formulations, 20 steps through
@@ -58,10 +76,11 @@ each printing lines of findings; any failure exits non-zero:
    multistep steps (<= 2e-5), with the per-step time, the time of one
    substage's halo exchange (CUDA events) and the tile launches by
    branch; then ``swmhd_tpu_torch.cli run 128x128_low_B_low_U
-   --stop-time 1.0`` in both formulations on a 4×1 mesh (101 finite
-   energy rows, ``final.npz`` against the single-rank CLI run within the
-   float32 bound, 300 tile launches a rank). With two cards or more the
-   2048² run repeats with one rank per card over NCCL.
+   --stop-time 1.0`` in both formulations, and vector-invariant with the
+   biharmonic CLOSURE_FLAGS (halo 7), on a 4×1 mesh (101 finite energy
+   rows, ``final.npz`` against the single-rank CLI run within the float32
+   bound, 300 tile launches a rank). With two cards or more the 2048² run
+   repeats with one rank per card over NCCL.
 
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
@@ -75,9 +94,18 @@ the CPU, over 67 TFLOP/s) and the result line ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --worker dd <dir>               (under torchrun)
-    python3 chip_smoke.py --worker cli <dir> <formulation>
+    python3 chip_smoke.py --worker cli <dir> <name> <formulation> [flags]
 
 run one rank of phase 8's runs and write its report to ``<dir>``.
+
+    python3 chip_smoke.py --worker time <root>
+
+times the default model (no closure, WENO5 everywhere) of the
+``swmhd_tpu_torch`` under ``<root>`` (this checkout, or an unpacked
+archive of another commit) at phase 6's and 7's shapes: five 20-step
+multistep calls at 2048² and five runs of 20 tile substages (2048² in 2×2
+tiles), each formulation, float32; prints one JSON line. Run it for two
+trees in turns in one process group on one card to compare them.
 """
 
 import json
@@ -114,17 +142,68 @@ BOUNDED_XY = ("bounded", "bounded")
 CONFIGS = [(VI, PERIODIC, 0.0), (CONS, PERIODIC, 0.0),
            (VI, BOUNDED_Y, -0.05), (CONS, BOUNDED_Y, -0.05),
            (VI, BOUNDED_XY, -0.05), (CONS, BOUNDED_XY, -0.05)]
-# the CLI runs of the main path: (scenario, formulation)
-CLI_RUNS = [("128x128_two_Gaussians_high_B", VI),
-            ("128x128_low_B_low_U", VI),
-            ("128x128_two_Gaussians_high_B", CONS),
-            ("128x128_low_B_low_U", CONS)]
+# the closures of the CLI runs, ν·dt/dx^p ≈ 0.003 (biharmonic) and
+# 0.0016 (Laplacian) at 128², dt = 0.01
+CLOSURE_FLAGS = {VI: ("--nu", "1e-5", "--kappa", "1e-5", "--biharmonic"),
+                 CONS: ("--nu", "1e-3", "--kappa", "1e-3")}
+# the CLI runs of the main path: (scenario, formulation, flags); the
+# decomposed runs of phase 8 take 128x128_low_B_low_U in both
+# formulations and with the vector-invariant closure
+CLI_RUNS = [("128x128_two_Gaussians_high_B", VI, ()),
+            ("128x128_low_B_low_U", VI, ()),
+            ("128x128_two_Gaussians_high_B", CONS, ()),
+            ("128x128_low_B_low_U", CONS, ()),
+            ("128x128_two_Gaussians_high_B", VI, CLOSURE_FLAGS[VI]),
+            ("128x128_low_B_low_U", CONS, CLOSURE_FLAGS[CONS])]
+# the scheme and stencil switches on the main path: 128x128_low_B_low_U
+# through the kernel stepper in phase 6 (the conservative formulation has
+# no mass reconstruction and no vorticity flux)
+SCHEME_RUNS = [
+    (VI, {"momentum_advection": "upwind3", "mass_advection": "upwind3",
+          "tracer_advection": "centered2"}),
+    (VI, {"momentum_advection": "centered2"}),
+    (VI, {"vector_invariant_stencil": "vorticity",
+          "mass_advection": "centered2", "tracer_advection": "upwind3"}),
+    (CONS, {"momentum_advection": "upwind3",
+            "tracer_advection": "centered2"}),
+    (CONS, {"momentum_advection": "centered2",
+            "tracer_advection": "upwind3"})]
 SOURCES = {VI: "swmhd_tpu_torch/csrc/vector_invariant.cu",
            CONS: "swmhd_tpu_torch/csrc/conservative.cu"}
 REPLACES = {"swmhd_substage": "swmhd_tpu/ops/fused_step.py:176",
             "swmhd_multistep": "swmhd_tpu/ops/fused_step.py:458"}
 # swmhd_substage's branches with an exchanged axis: the tile substage
 TILE_REPLACES = "swmhd_tpu/parallel/decomposition.py:299"
+
+
+def ptxas_kernels(log):
+    """``[(kernel, registers, spill store bytes)]`` from the log of
+    ``ptxas -v``, the kernels' names demangled where ``c++filt`` exists
+    and cut to ``name<type, mode_x, mode_y[, ...]>``."""
+    import re
+    found, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+        elif "spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif "Used" in ln and "registers" in ln and name:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            found.append((name, regs, spill))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            n for n, _, _ in found), capture_output=True, text=True,
+            timeout=60).stdout.split("\n")
+    except OSError:
+        names = [n for n, _, _ in found]
+    short = []
+    for n in names[:len(found)]:
+        n = n.replace("(swmhd::Axis)", "")
+        short.append((n.split(">(")[0] + ">" if ">(" in n else n)
+                     .split("::")[-1].replace(" ", ""))
+    return [(n, r, sp) for n, (_, r, sp) in zip(short, found)]
 
 
 def fail(msg):
@@ -199,6 +278,48 @@ def bench_model(N, dtype, device, formulation=VI, topology=PERIODIC,
     return model, model.initial_state(**initial_fields(torch, walls=walls))
 
 
+# the model options beyond the default model (no closure, WENO5 everywhere,
+# VelocityStencil) that the kernel runs as runtime switches
+OPTIONS = ("laplacian", "biharmonic", "vorticity stencil",
+           "centered2 momentum", "upwind3 momentum",
+           "upwind3 mass, centered2 tracer", "centered2 mass, upwind3 tracer")
+
+
+def option_kwargs(options, pkg, nu):
+    """``ShallowWaterModel`` keywords of one entry of OPTIONS (None: the
+    default model), the closures taken from ``pkg`` (either package) with
+    viscosity ``nu`` and diffusivity 1.5 ``nu``."""
+    closures = {"laplacian": "LaplacianDiffusion",
+                "biharmonic": "BiharmonicDiffusion"}
+    if options in closures:
+        return {"closure": getattr(pkg, closures[options])(
+            nu=nu, kappa=1.5 * nu)}
+    kw = {}
+    for part in (options or "").split(", "):
+        if part == "vorticity stencil":
+            kw["vector_invariant_stencil"] = "vorticity"
+        elif part:
+            scheme, field = part.split()
+            kw[f"{field}_advection"] = scheme
+    return kw
+
+
+def stable_nu(grid, dt, options):
+    """The viscosity with ν·dt/dx^p = 0.01 (p = 2, or 4 for a biharmonic
+    closure), the largest this script runs."""
+    p = 4 if options == "biharmonic" else 2
+    return 0.01 * min(grid.dx, grid.dy) ** p / dt
+
+
+def with_options(model, options, dt):
+    """``model`` with ``options`` (an entry of OPTIONS or None), its
+    closure at :func:`stable_nu` for steps of ``dt``."""
+    import dataclasses
+    import swmhd_tpu_torch
+    return dataclasses.replace(model, **option_kwargs(
+        options, swmhd_tpu_torch, stable_nu(model.grid, dt, options)))
+
+
 def wall_model(N, dtype, device, formulation, topology, gamma):
     """The bench configuration with the wall terms of
     :func:`initial_fields`."""
@@ -236,13 +357,14 @@ def wall_errors(a, b, scale, topology):
     return ", ".join(parts)
 
 
-def compare_branch(K, dev, cfg, dtype, bound, dt=0.005):
-    """Phase 3 for one configuration; returns its kernel branch and the
-    max abs errors of G and of the 10-step state."""
+def compare_branch(K, dev, cfg, dtype, bound, options=None, dt=0.005):
+    """Phase 3 for one configuration with ``options`` (an entry of
+    OPTIONS or None)."""
     import torch
     formulation, topology, gamma = cfg
     make = wall_model if "bounded" in topology else bench_model
     model, state = make(SMOKE_N, dtype, dev, *cfg)
+    model = with_options(model, options, dt)
     s = K.stack(state)
     s_k, G_k = K.substage(model, s, dt, 0)
     s_p, G_p = K.substage_reference(model, s, dt, 0)
@@ -257,7 +379,8 @@ def compare_branch(K, dev, cfg, dtype, bound, dt=0.005):
     sub_err = rel_err(s2_k, s2_p, scale)
     step_err = [rel_err(x[n], y[n], scale) for n in range(4)]
     worst = max(g_err + step_err + [sub_err])
-    label = f"{formulation} {'/'.join(topology)} gamma {gamma:g}"
+    label = (f"{formulation} {'/'.join(topology)} gamma {gamma:g}"
+             + (f", {options}" if options else ""))
     walls = ""
     if "bounded" in topology:
         walls = (f"; next to walls: G {wall_errors(G_k, G_p, g_scale, topology)}"
@@ -271,28 +394,71 @@ def compare_branch(K, dev, cfg, dtype, bound, dt=0.005):
             and worst <= bound):
         fail(f"kernel disagrees with the plain version in {dtype}, "
              f"{label}: {worst:.3e} > {bound:g}")
-    return (K.kernel_params(model)[:3],
-            float((G_k - G_p).abs().max()), float((x - y).abs().max()))
 
 
-def compare_main_size(K, label, model, s, dt, y10, G_k, G_p):
-    """The kernel against the plain version at a size the main path runs:
-    G of one substage (``G_k`` against ``G_p``) and 10 RK3 steps against
-    ``y10``, the plain result, in float32 within F32_BOUND."""
+def cli_closure(flags):
+    """The closure ``swmhd_tpu_torch.cli`` builds from ``flags`` (--nu,
+    --kappa, --biharmonic)."""
+    import argparse
+    from swmhd_tpu_torch import cli
+    p = argparse.ArgumentParser()
+    p.add_argument("--nu", type=float, default=0.0)
+    p.add_argument("--kappa", type=float, default=0.0)
+    p.add_argument("--biharmonic", action="store_true")
+    return cli.closure_of(p.parse_args(list(flags)))
+
+
+def scenario_case(name, formulation, device, **kw):
+    """``build(dtype)`` for :func:`compare_main_size`: the scenario's model
+    with the keywords ``kw``, its stacked initial state and its dt."""
+    def build(dtype):
+        from swmhd_tpu_torch import scenarios
+        from swmhd_tpu_torch.ops.substage import stack
+        model, state, sc = scenarios.build(name, formulation, dtype=dtype,
+                                           device=device, **kw)
+        return model, stack(state), sc.dt
+    return build
+
+
+def compare_main_size(K, label, build):
+    """The kernel against the plain version at a size the main path runs,
+    for the model, stacked state and dt that ``build(dtype)`` gives: G of
+    one substage and 10 RK3 steps, float64 within F64_BOUND and float32
+    within F32_BOUND of the plain result's scale, the rows next to each
+    wall printed on their own. With a closure, how far it moves the plain
+    G is printed beside the bound; in float64 it must exceed 100 ×
+    F64_BOUND, so that a kernel that left out ν or κ would fail. Returns
+    the float32 max abs errors of G and of the 10-step state."""
+    import dataclasses
     import torch
-    x10 = K.multistep(model, s, dt, 10)
-    topology = (model.grid.topology_x, model.grid.topology_y)
-    g_scale, scale = float(G_p.abs().max()), float(y10.abs().max())
-    g_err, err = rel_err(G_k, G_p, g_scale), rel_err(x10, y10, scale)
-    walls = ""
-    if "bounded" in topology:
-        walls = (f"; next to walls: G {wall_errors(G_k, G_p, g_scale, topology)}"
-                 f"; 10 steps {wall_errors(x10, y10, scale, topology)}")
-    say(6, f"{label} f32 kernel vs plain: G rel err {g_err:.2e}; 10 steps "
-           f"{err:.2e}{walls}; bound {F32_BOUND:g}")
-    if not (torch.isfinite(x10).all() and max(g_err, err) <= F32_BOUND):
-        fail(f"kernel disagrees with the plain version, {label}: "
-             f"{max(g_err, err):.3e} > {F32_BOUND:g}")
+    for dtype, bound in ((torch.float64, F64_BOUND),
+                         (torch.float32, F32_BOUND)):
+        model, s, dt = build(dtype)
+        G_k = K.substage(model, s, dt, 0)[1]
+        G_p = K.substage_reference(model, s, dt, 0)[1]
+        x10 = K.multistep(model, s, dt, 10)
+        y10 = K.multistep_reference(model, s, dt, 10)
+        topology = (model.grid.topology_x, model.grid.topology_y)
+        g_scale, scale = float(G_p.abs().max()), float(y10.abs().max())
+        g_err, err = rel_err(G_k, G_p, g_scale), rel_err(x10, y10, scale)
+        line = f"G rel err {g_err:.2e}; 10 steps {err:.2e}"
+        if "bounded" in topology:
+            line += (f"; next to walls: G "
+                     f"{wall_errors(G_k, G_p, g_scale, topology)}; 10 steps "
+                     f"{wall_errors(x10, y10, scale, topology)}")
+        if model.closure is not None:
+            G_0 = K.substage_reference(dataclasses.replace(
+                model, closure=None), s, dt, 0)[1]
+            moved = rel_err(G_p, G_0, g_scale)
+            line += f"; the closure moves G by {moved:.2e}"
+            if dtype == torch.float64 and not moved > 100 * bound:
+                fail(f"{label}: the closure moves G by only {moved:.3e}, "
+                     f"too little for the bound {bound:g} to see it")
+        say(6, f"{label} {dtype} kernel vs plain: {line}; bound {bound:g}")
+        if not (torch.isfinite(x10).all() and max(g_err, err) <= bound):
+            fail(f"kernel disagrees with the plain version, {label}, "
+                 f"{dtype}: {max(g_err, err):.3e} > {bound:g}")
+    return float((G_k - G_p).abs().max()), float((x10 - y10).abs().max())
 
 
 # -- bounds ----------------------------------------------------------------------
@@ -321,15 +487,23 @@ def count_ops(fn):
 def ops_per_point(K, branch, per):
     """Arithmetic per grid point of the plain version of one substage 0
     (``per="substage"``) or one RK3 step (``per="step"``) of ``branch``
-    ((conservative, mode_x, mode_y); an exchanged axis counts as
-    periodic), float32, counted on the CPU at 64²."""
+    (a ``K.Branch``; an exchanged axis counts as periodic), float32,
+    counted on the CPU at 64²."""
+    import dataclasses
     import torch
-    conservative, mode_x, mode_y = branch
+    b = K.Branch(*branch)
     topology = tuple("bounded" if m == K.BOUNDED_AXIS else "periodic"
-                     for m in (mode_x, mode_y))
+                     for m in (b.mode_x, b.mode_y))
     gamma = -0.05 if "bounded" in topology else 0.0
     model, state = bench_model(64, torch.float32, "cpu",
-                               CONS if conservative else VI, topology, gamma)
+                               CONS if b.conservative else VI, topology,
+                               gamma)
+    model = dataclasses.replace(
+        model, vector_invariant_stencil=K.STENCILS[b.stencil],
+        closure=(K.CLOSURES[b.closure](nu=1e-5, kappa=1e-5) if b.closure
+                 else None),
+        **{f"{name}_advection": K.SCHEMES[getattr(b, name)]
+           for name in ("momentum", "mass", "tracer")})
     s = K.stack(state)
     if per == "step":
         n = count_ops(lambda: K.multistep_reference(model, s, BENCH_DT, 1))
@@ -358,33 +532,34 @@ def cut_tile(s, b, hx, hy):
     return s[:, ix][:, :, iy].contiguous()
 
 
-def tile_layout(N, M, mesh):
+def tile_layout(N, M, mesh, halo=TILE_HALO):
     """``(bounds of each tile, (hx, hy))`` of a ``mesh`` of an N×M grid:
-    a halo of TILE_HALO on each axis that is cut."""
+    a halo of ``halo`` on each axis that is cut."""
     px, py = mesh
     nx, ny = N // px, M // py
     tiles = [(ix * nx, (ix + 1) * nx, iy * ny, (iy + 1) * ny)
              for ix in range(px) for iy in range(py)]
-    return tiles, (TILE_HALO if px > 1 else 0, TILE_HALO if py > 1 else 0)
+    return tiles, (halo if px > 1 else 0, halo if py > 1 else 0)
 
 
 def tile_branch(K, model, mesh):
-    """The kernel branch ``(conservative, mode_x, mode_y)`` of ``model``'s
-    tiles in ``mesh``: exchanged along each axis that is cut."""
-    conservative, wall_x, wall_y = K.kernel_params(model)[:3]
-    return (conservative, K.EXCHANGED_AXIS if mesh[0] > 1 else wall_x,
-            K.EXCHANGED_AXIS if mesh[1] > 1 else wall_y)
+    """The kernel branch of ``model``'s tiles in ``mesh``: exchanged along
+    each axis that is cut."""
+    p = K.kernel_params(model)
+    return p.branch._replace(
+        mode_x=K.EXCHANGED_AXIS if mesh[0] > 1 else p.wall_x,
+        mode_y=K.EXCHANGED_AXIS if mesh[1] > 1 else p.wall_y)
 
 
-def tile_against_substage(K, model, s, dt, mesh):
-    """The tile substage on every tile of ``mesh`` against the substage on
-    the whole grid, substages 0 and 1 (taking G_prev): the worst error
-    relative to each compared array's scale, and whether every value
-    agreed bit for bit."""
+def tile_against_substage(K, model, s, dt, mesh, halo=TILE_HALO):
+    """The tile substage on every tile of ``mesh`` (padded by ``halo``)
+    against the substage on the whole grid, substages 0 and 1 (taking
+    G_prev): the worst error relative to each compared array's scale, and
+    whether every value agreed bit for bit."""
     import torch
     s1, g1 = K.substage(model, s, dt, 0)
     s2, g2 = K.substage(model, s1, dt, 1, g1)
-    tiles, halo = tile_layout(model.grid.Nx, model.grid.Ny, mesh)
+    tiles, halo = tile_layout(model.grid.Nx, model.grid.Ny, mesh, halo)
     worst, bitwise = 0.0, True
     for x0, x1, y0, y1 in tiles:
         b = (x0, x1, y0, y1)
@@ -422,8 +597,10 @@ def torchrun(nproc, args, timeout=600):
     """``python -m torch.distributed.run --standalone`` of this script's
     worker mode on ``nproc`` ranks; its output. Kills the whole process
     group on a timeout; fails on a nonzero exit."""
+    # "--" ends the launcher's own options: without it an argument such
+    # as --nu is read as an abbreviation of one of them
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={nproc}", os.path.abspath(__file__),
+           f"--nproc-per-node={nproc}", "--", os.path.abspath(__file__),
            "--worker", *args]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -444,7 +621,7 @@ def tile_launches(K):
     """``swmhd_substage``'s launches on tiles (a branch with an exchanged
     axis), by branch as JSON keys."""
     return {json.dumps(b): n for b, n in K.substage.launches_by_branch.items()
-            if K.EXCHANGED_AXIS in b[1:]}
+            if K.EXCHANGED_AXIS in b[1:3]}
 
 
 def other_calls(K):
@@ -454,23 +631,49 @@ def other_calls(K):
             + K.multistep_reference.calls)
 
 
+def time_default(K, root):
+    """The ``--worker time`` report of the package under ``root``."""
+    import torch
+    from swmhd_tpu_torch.ops import _build
+    lib = _build.load()
+    report = {"root": root, "build_s": lib.build_seconds,
+              "ptxas": ptxas_kernels(lib.log)}
+    for formulation in (VI, CONS):
+        model, state = bench_model(BENCH_N, torch.float32, "cuda",
+                                   formulation)
+        run20 = K.KernelStepper(model).step_fn(BENCH_DT, DD_STEPS)
+        run20(state)
+        report[f"multistep_{formulation}_ms_step"] = [
+            timed(lambda: run20(state), 1)[0] / DD_STEPS for _ in range(5)]
+        tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
+        p = cut_tile(K.stack(state), tiles[0], *halo)
+        K.substage(model, p, BENCH_DT, 0, halo=halo)
+        report[f"tile_{formulation}_ms"] = [
+            timed(lambda: K.substage(model, p, BENCH_DT, 0, halo=halo),
+                  20)[0] for _ in range(5)]
+    print(json.dumps(report), flush=True)
+
+
 def worker(args):
-    """One rank of phase 8 (see the module's docstring)."""
+    """One rank of phase 8, or the timing of ``--worker time`` (see the
+    module's docstring)."""
     import torch
     import numpy as np
-    sys.path.insert(0, HERE)
-    from swmhd_tpu_torch.ops import substage as K
     task, outdir = args[0], args[1]
+    sys.path.insert(0, os.path.abspath(outdir) if task == "time" else HERE)
+    from swmhd_tpu_torch.ops import substage as K
+    if task == "time":
+        return time_default(K, outdir)
     rank = int(os.environ["RANK"])
     report = {}
     if task == "cli":
         from swmhd_tpu_torch import cli
-        formulation = args[2]
+        name, formulation, flags = args[2], args[3], args[4:]
         K.reset_counters()
         t0 = time.perf_counter()
         cli.main(["run", "128x128_low_B_low_U", "--formulation",
                   formulation, "--stop-time", "1.0", "--outdir",
-                  os.path.join(outdir, f"cli_{formulation}")])
+                  os.path.join(outdir, name), *flags])
         report = {"wall_s": time.perf_counter() - t0,
                   "launches": tile_launches(K),
                   "other_calls": other_calls(K)}
@@ -508,7 +711,7 @@ def worker(args):
                 "launches": launches, "other_calls": other,
                 "mesh": [dd.px, dd.py]}
         multihost.shutdown()
-    label = "_".join([task] + args[2:])
+    label = args[2] if task == "cli" else task
     with open(os.path.join(outdir, f"{label}_rank{rank}.json"), "w") as f:
         json.dump(report, f)
 
@@ -563,14 +766,15 @@ def decomposed_bench(K, nproc, tmp, smi, tile_launches, backend="gloo"):
                  f"{backend}): {err:.3e}")
 
 
-def decomposed_cli(K, cli, formulation, tmp, tile_launches):
-    """Phase 8's decomposed CLI run of 128x128_low_B_low_U on WORLD ranks,
-    held against the single-rank run."""
+def decomposed_cli(K, cli, formulation, tmp, tile_launches, flags=()):
+    """Phase 8's decomposed CLI run of 128x128_low_B_low_U on WORLD ranks
+    with ``flags``, held against the single-rank run."""
     import numpy as np
-    torchrun(WORLD, ["cli", tmp, formulation])
+    name = f"cli_{formulation}" + ("_closure" if flags else "")
+    torchrun(WORLD, ["cli", tmp, name, formulation, *flags])
     reps = []
     for r in range(WORLD):
-        with open(os.path.join(tmp, f"cli_{formulation}_rank{r}.json")) as f:
+        with open(os.path.join(tmp, f"{name}_rank{r}.json")) as f:
             reps.append(json.load(f))
     per_rank = []
     for r in reps:
@@ -581,10 +785,10 @@ def decomposed_cli(K, cli, formulation, tmp, tile_launches):
         for k, n in r["launches"].items():
             b = tuple(json.loads(k))
             tile_launches[b] = tile_launches.get(b, 0) + n
-    one = os.path.join(tmp, f"one_{formulation}")
+    one = os.path.join(tmp, f"one_{name}")
     cli.main(["run", "128x128_low_B_low_U", "--formulation", formulation,
-              "--stop-time", "1.0", "--outdir", one])
-    run = os.path.join(tmp, f"cli_{formulation}")
+              "--stop-time", "1.0", "--outdir", one, *flags])
+    run = os.path.join(tmp, name)
     rows = np.loadtxt(os.path.join(run, "energies.csv"), delimiter=",",
                       skiprows=1, ndmin=2)
     rows1 = np.loadtxt(os.path.join(one, "energies.csv"), delimiter=",",
@@ -598,7 +802,8 @@ def decomposed_cli(K, cli, formulation, tmp, tile_launches):
         rows1.shape else math.inf
     wall = max(r["wall_s"] for r in reps)
     say(8, f"{WORLD} ranks: cli run 128x128_low_B_low_U {formulation} "
-           f"t=1.0 on a 4x1 mesh: {wall:.2f} s wall (slowest rank, process "
+           f"{' '.join(flags)} t=1.0 on a 4x1 mesh: {wall:.2f} s wall "
+           f"(slowest rank, process "
            f"group set-up included), {len(rows)} energy rows, finite "
            f"{bool(np.isfinite(rows).all())}; final.npz vs the single-rank "
            f"run: rel err {err:.2e}; energies rel err {e_err:.2e}; tile "
@@ -643,23 +848,25 @@ def main():
     # 2 -------------------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.load()
-    regs = [ln.split("info    : ")[-1] for ln in lib.log.splitlines()
-            if "registers" in ln]
-    spills = [ln.strip() for ln in lib.log.splitlines()
-              if "spill stores" in ln and ", 0 bytes spill" not in ln]
+    kernels = ptxas_kernels(lib.log)
     say(2, f"built {os.path.relpath(lib.path, HERE)} in "
            f"{lib.build_seconds:.2f} s (load {time.perf_counter() - t0:.2f} "
-           f"s); ptxas: {'; '.join(regs)}; nonzero spills: "
-           f"{'; '.join(spills) or 'none'}")
+           f"s); {len(kernels)} kernels, ptxas registers: "
+           + "; ".join(f"{n} {r}" for n, r, _ in kernels)
+           + "; nonzero spill stores: "
+           + ("; ".join(f"{n} {sp} B" for n, _, sp in kernels if sp)
+              or "none"))
 
     # 3 -------------------------------------------------------------------
-    errors = {}           # branch -> (substage G, multistep) f32 abs err
-    for cfg in CONFIGS:
+    cases = [(cfg, None) for cfg in CONFIGS]
+    cases += [(cfg, o) for cfg in CONFIGS for o in ("laplacian",
+                                                    "biharmonic")]
+    cases += [((f, BOUNDED_XY, -0.05), o) for f in (VI, CONS)
+              for o in OPTIONS[2:] if f == VI or o != "vorticity stencil"]
+    for cfg, options in cases:
         for dtype, bound in ((torch.float64, F64_BOUND),
                              (torch.float32, F32_BOUND)):
-            b, g_err, step_err = compare_branch(K, dev, cfg, dtype, bound)
-            if dtype == torch.float32:
-                errors[b] = (g_err, step_err)
+            compare_branch(K, dev, cfg, dtype, bound, options)
 
     # 4 -------------------------------------------------------------------
     tol = np.load(os.path.join(HERE, "tests", "fixtures",
@@ -684,6 +891,8 @@ def main():
 
     # 5 -------------------------------------------------------------------
     def cli_run(scenario, formulation, *flags):
+        """(wall s, energy rows, final.npz written) of a CLI run to t =
+        1.0 with ``flags``."""
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             cli.main(["run", scenario, "--formulation", formulation,
@@ -699,48 +908,73 @@ def main():
 
     K.reset_counters()
     cli_walls = {}
-    for scenario, formulation in CLI_RUNS:
-        before = K.substage.launches
-        wall, rows, has_final = cli_run(scenario, formulation)
-        launches = K.substage.launches - before
-        cli_walls[(scenario, formulation)] = wall
-        say(5, f"cli run {scenario} {formulation} f32 t=1.0: {wall:.2f} s "
-               f"wall, {len(rows)} energy rows, finite "
+    for scenario, formulation, flags in CLI_RUNS:
+        before = dict(K.substage.launches_by_branch)
+        wall, rows, has_final = cli_run(scenario, formulation, *flags)
+        launches = {b: n - before.get(b, 0)
+                    for b, n in K.substage.launches_by_branch.items()
+                    if n != before.get(b, 0)}
+        cli_walls[(scenario, formulation, flags)] = wall
+        labels = {K.branch_label(b): n for b, n in launches.items()}
+        say(5, f"cli run {scenario} {formulation} {' '.join(flags)} f32 "
+               f"t=1.0: {wall:.2f} s wall, {len(rows)} energy rows, finite "
                f"{bool(np.isfinite(rows).all())}, final.npz {has_final}, "
-               f"substage launches {launches}, plain calls {plain_calls()}")
+               f"substage launches {json.dumps(labels)}, plain calls "
+               f"{plain_calls()}")
         if not (len(rows) == 101 and np.isfinite(rows).all()
                 and has_final):
             fail(f"the CLI run of {scenario} ({formulation}) did not write "
                  f"101 finite rows and final.npz")
-        if launches != 300:
-            fail(f"expected 300 substage launches, got {launches}")
+        ((b, n),) = launches.items() if len(launches) == 1 else ((None, 0),)
+        if n != 300 or (b.closure != 0) != bool(flags):
+            fail(f"expected 300 substage launches in one branch, with a "
+                 f"closure where the run has one; got {labels}")
 
     # 6 -------------------------------------------------------------------
     bench_dt, steps = BENCH_DT, DD_STEPS
-    bench = {}            # formulation -> (model, state, ms per step)
-    for formulation in (VI, CONS):
+    # the bench configuration without and with a biharmonic closure; the
+    # closure's warm-up step carries a series, so it runs substages
+    bench = {}            # (formulation, options) -> (model, state, ms/step)
+    for formulation, options in ((VI, None), (CONS, None),
+                                 (VI, "biharmonic"), (CONS, "biharmonic")):
         model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
+        model = with_options(model, options, bench_dt)
         stepper = K.KernelStepper(model)
-        stepper.step_fn(bench_dt, 1)(state)                   # warm-up
+        series = (lambda st: {"mass": st.h.sum()}) if options else None
+        stepper.step_fn(bench_dt, 1, series)(state)           # warm-up
         run20 = stepper.step_fn(bench_dt, steps)
         ms_call, _ = timed(lambda: run20(state), 1)
-        bench[formulation] = (model, state, ms_call / steps)
-    walled = {}           # formulation -> (model, state, dt, ms per step)
-    for formulation in (VI, CONS):
+        bench[(formulation, options)] = (model, state, ms_call / steps)
+    # 128x128_low_B_low_U, with the conservative CLI run's closure, and
+    # with the SCHEME_RUNS (their warm-up step carries a series)
+    walled = []           # (formulation, options, model, state, dt, ms)
+    runs = [(VI, {}), (CONS, {}),
+            (CONS, {"closure": cli_closure(CLOSURE_FLAGS[CONS])})]
+    for formulation, kw in runs + SCHEME_RUNS:
         model, state, sc = scenarios.build("128x128_low_B_low_U",
                                            formulation, dtype=torch.float32,
-                                           device=dev)
-        run100 = K.KernelStepper(model).step_fn(sc.dt, 100)
+                                           device=dev, **kw)
+        stepper = K.KernelStepper(model)
+        if kw and "closure" not in kw:
+            stepper.step_fn(sc.dt, 1, lambda st: {"mass": st.h.sum()})(state)
+        run100 = stepper.step_fn(sc.dt, 100)
         ms_call, out = timed(lambda: run100(state), 1)
         if not all(torch.isfinite(f).all() for f in out.fields()):
-            fail(f"128x128_low_B_low_U ({formulation}) went non-finite")
-        walled[formulation] = (model, state, sc.dt, ms_call / 100)
+            fail(f"128x128_low_B_low_U ({formulation}, {kw}) went "
+                 f"non-finite")
+        walled.append((formulation, kw, model, state, sc.dt, ms_call / 100))
     launches = {"swmhd_substage": dict(K.substage.launches_by_branch),
                 "swmhd_multistep": dict(K.multistep.launches_by_branch)}
     if plain_calls():
         fail(f"plain versions ran {plain_calls()} times on the main path")
-    # (conservative, wall_x, wall_y) of the main path's runs
-    main_branches = [(c, 0, wall_y) for c in (0, 1) for wall_y in (0, 1)]
+    # the branches of the main path's runs: each formulation periodic and
+    # bounded in y; with a biharmonic closure periodic; the conservative
+    # formulation with a Laplacian closure bounded in y
+    main_branches = ([K.Branch(c, 0, wall_y) for c in (0, 1)
+                      for wall_y in (0, 1)]
+                     + [K.Branch(c, 0, 0, closure=2) for c in (0, 1)]
+                     + [K.Branch(1, 0, 1, closure=1)]
+                     + [K.kernel_params(w[2]).branch for w in walled[3:]])
     for name, counts in launches.items():
         for b in main_branches:
             if not counts.get(b):
@@ -755,9 +989,9 @@ def main():
     # time of one call and, for its bound, the bytes it must move and the
     # points whose arithmetic it does (per substage 0 or per RK3 step)
     timings = {}
+    errors = {}           # branch -> (substage G, multistep) f32 abs err
     pts = BENCH_N * BENCH_N
-    for formulation in (VI, CONS):
-        model, state, ms_step = bench[formulation]
+    for (formulation, options), (model, state, ms_step) in bench.items():
         s = K.stack(state)
         K.multistep_reference(model, s, bench_dt, 1)          # warm-up
         plain_ms_step, y = timed(
@@ -769,77 +1003,80 @@ def main():
         sub_plain_ms, _ = timed(
             lambda: K.substage_reference(model, s, bench_dt, 0), 3)
         rate, plain_rate = pts / (ms_step * 1e-3), pts / (plain_ms_step * 1e-3)
-        say(6, f"bench {BENCH_N}^2 f32 {formulation} periodic on {smi}: "
+        say(6, f"bench {BENCH_N}^2 f32 {formulation} periodic "
+               f"{options or ''} on {smi}: "
                f"kernel {ms_step:.4f} ms/step = {rate:.4e} points/s; plain "
                f"{plain_ms_step:.4f} ms/step = {plain_rate:.4e} points/s; "
                f"substage kernel {sub_ms:.4f} ms, plain {sub_plain_ms:.4f} "
                f"ms; 3-step rel err {err3:.2e}")
         if not (math.isfinite(err3) and err3 <= F32_BOUND):
-            fail(f"bench state after 3 steps disagrees ({formulation}): "
-                 f"{err3:.3e}")
-        timings[K.kernel_params(model)[:3]] = {
+            fail(f"bench state after 3 steps disagrees ({formulation}, "
+                 f"{options}): {err3:.3e}")
+        timings[K.kernel_params(model).branch] = {
             "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
                                    nbytes=48 * pts, points=pts,
                                    per="substage"),
             "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
                                     nbytes=32 * pts / steps, points=pts,
                                     per="step")}
-    for formulation in (VI, CONS):
-        model, state, dt, ms_step = walled[formulation]
+    for formulation, kw, model, state, dt, ms_step in walled:
         s = K.stack(state)
+        b = K.kernel_params(model).branch
+        label = f"128x128_low_B_low_U [{K.branch_label(b)}]"
         K.multistep_reference(model, s, dt, 1)
-        plain_ms_step, y10 = timed(
+        plain_ms_step, _ = timed(
             lambda: K.multistep_reference(model, s, dt, 10), 1)
         plain_ms_step /= 10
         K.substage(model, s, dt, 0)
-        sub_ms, (_, G_k) = timed(lambda: K.substage(model, s, dt, 0), 100)
-        sub_plain_ms, (_, G_p) = timed(
+        sub_ms, _ = timed(lambda: K.substage(model, s, dt, 0), 100)
+        sub_plain_ms, _ = timed(
             lambda: K.substage_reference(model, s, dt, 0), 10)
-        compare_main_size(K, f"128x128_low_B_low_U {formulation}", model, s,
-                          dt, y10, G_k, G_p)
+        errors[b] = compare_main_size(K, label, scenario_case(
+            "128x128_low_B_low_U", formulation, dev, **kw))
         n = model.grid.Nx * model.grid.Ny
-        say(6, f"128x128_low_B_low_U f32 {formulation} bounded y on {smi}: "
+        say(6, f"{label} f32 on {smi}: "
                f"multistep kernel {ms_step:.4f} ms/step = "
                f"{n / (ms_step * 1e-3):.4e} points/s; plain "
                f"{plain_ms_step:.4f} ms/step = "
                f"{n / (plain_ms_step * 1e-3):.4e} points/s; substage kernel "
                f"{sub_ms:.4f} ms, plain {sub_plain_ms:.4f} ms")
-        timings[K.kernel_params(model)[:3]] = {
+        timings[b] = {
             "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
                                    nbytes=48 * n, points=n, per="substage"),
             "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
                                     nbytes=32 * n / 100, points=n,
                                     per="step")}
 
-    # the 128² periodic CLI configuration per step, checked against the
-    # plain version; then the CLI runs end to end with the kernel and
-    # with --no-fused, in turns
+    # the 128² periodic CLI configuration per step, without and with the
+    # biharmonic closure of the CLI run, checked against the plain version
+    # (the max abs errors of the periodic branches timed at 2048²); then
+    # the CLI runs end to end with the kernel and with --no-fused, in turns
     pts = 128 * 128
-    for formulation in (VI, CONS):
-        model, state, sc = scenarios.build("128x128_two_Gaussians_high_B",
-                                           formulation, dtype=torch.float32,
-                                           device=dev)
-        s = K.stack(state)
-        K.multistep(model, s, sc.dt, 1)
-        k128, _ = timed(lambda: K.multistep(model, s, sc.dt, 100), 1)
-        K.multistep_reference(model, s, sc.dt, 1)
-        p128, y10 = timed(
-            lambda: K.multistep_reference(model, s, sc.dt, 10), 1)
+    biharmonic = cli_closure(CLOSURE_FLAGS[VI])
+    for formulation, closure in ((VI, None), (CONS, None), (VI, biharmonic),
+                                 (CONS, biharmonic)):
+        build = scenario_case("128x128_two_Gaussians_high_B", formulation,
+                              dev, closure=closure)
+        model, s, dt = build(torch.float32)
+        label = (f"128x128_two_Gaussians_high_B "
+                 f"[{K.branch_label(K.kernel_params(model).branch)}]")
+        K.multistep(model, s, dt, 1)
+        k128, _ = timed(lambda: K.multistep(model, s, dt, 100), 1)
+        K.multistep_reference(model, s, dt, 1)
+        p128, _ = timed(lambda: K.multistep_reference(model, s, dt, 10), 1)
         k128, p128 = k128 / 100, p128 / 10
-        say(6, f"128x128_two_Gaussians_high_B f32 {formulation} on {smi}: "
-               f"multistep kernel {k128:.4f} ms/step = "
-               f"{pts / (k128 * 1e-3):.4e} points/s; plain {p128:.4f} "
+        say(6, f"{label} f32 on {smi}: multistep kernel {k128:.4f} ms/step "
+               f"= {pts / (k128 * 1e-3):.4e} points/s; plain {p128:.4f} "
                f"ms/step = {pts / (p128 * 1e-3):.4e} points/s")
-        compare_main_size(K, f"128x128_two_Gaussians_high_B {formulation}",
-                          model, s, sc.dt, y10,
-                          K.substage(model, s, sc.dt, 0)[1],
-                          K.substage_reference(model, s, sc.dt, 0)[1])
-    for scenario, formulation in CLI_RUNS:
+        errors[K.kernel_params(model).branch] = compare_main_size(
+            K, label, build)
+    for scenario, formulation, flags in CLI_RUNS[:4]:
         walls = {"--fused": [], "--no-fused": []}
-        for flag in ("--fused", "--no-fused", "--no-fused", "--fused"):
+        for flag in ("--fused", "--no-fused", "--fused"):
             walls[flag].append(cli_run(scenario, formulation, flag)[0])
         say(6, f"cli {scenario} {formulation} t=1.0 wall s on {smi}: "
-               f"main path {cli_walls[(scenario, formulation)]:.3f}; kernel "
+               f"main path {cli_walls[(scenario, formulation, flags)]:.3f}; "
+               f"kernel "
                f"{', '.join(f'{w:.3f}' for w in walls['--fused'])}; "
                f"--no-fused "
                f"{', '.join(f'{w:.3f}' for w in walls['--no-fused'])}")
@@ -869,6 +1106,30 @@ def main():
                          f"kernel ({label}, {formulation}, {dtype}): "
                          f"{worst:.3e}")
             del cases, s
+    # a biharmonic closure: the halo grows to model.exchange_halo = 7,
+    # where the tiles must agree bit for bit; printed too, the narrower
+    # halos 6 and 3 (the kernels' own composed radius is 3 for the
+    # vector-invariant substage and 4 for the conservative one)
+    for formulation in (VI, CONS):
+        for dtype in (torch.float32, torch.float64):
+            model, state = bench_model(BENCH_N, dtype, dev, formulation)
+            model = with_options(model, "biharmonic", BENCH_DT)
+            s = K.stack(state)
+            halos = {}
+            for H in (model.exchange_halo, 6, 3):
+                halos[H] = tile_against_substage(K, model, s, BENCH_DT,
+                                                 (2, 2), H)
+            b = K.branch_label(tile_branch(K, model, (2, 2)))
+            say(7, f"bench {BENCH_N}^2 {dtype} in 2x2 tiles [{b}]: tile "
+                   f"kernel vs single-device kernel, G and state of "
+                   f"substages 0 and 1, by halo: " + "; ".join(
+                       f"{H}: rel err {w:.2e}, bitwise equal {bit}"
+                       for H, (w, bit) in halos.items()))
+            if not halos[model.exchange_halo][1]:
+                fail(f"biharmonic tiles with a halo of "
+                     f"{model.exchange_halo} differ from the single-device "
+                     f"kernel ({formulation}, {dtype})")
+            del s, state
     # the tile kernel against its plain version: wall-reaching fields at
     # 256², then one tile of each main-path layout (timed there too)
     for formulation in (VI, CONS):
@@ -907,20 +1168,29 @@ def main():
             tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
             cases.append((model, cut_tile(K.stack(state), tiles[0], *halo)))
         del state
-        bench_tile = (f"{BENCH_N}^2 in 2x2 tiles", *cases[0], cases[1][0],
-                      halo, BENCH_DT, (c, E, E), 20)
-        cases = []
-        for dtype in (torch.float32, torch.float64):
-            model, state, sc = scenarios.build("128x128_low_B_low_U",
-                                               formulation, dtype=dtype,
-                                               device=dev)
-            tiles, halo = tile_layout(128, 128, (4, 1))
-            cases.append((model, cut_tile(K.stack(state), tiles[0], *halo)))
-        walled_tile = ("128x128_low_B_low_U in 4x1 tiles", *cases[0],
-                       cases[1][0], halo, sc.dt, (c, E, B), 100)
+        main_tiles = [(f"{BENCH_N}^2 in 2x2 tiles", *cases[0], cases[1][0],
+                       halo, BENCH_DT, K.Branch(c, E, E), 20)]
+        # 128x128_low_B_low_U in 4x1 tiles, and with the closure of the
+        # decomposed CLI run (vector-invariant: biharmonic, halo 7)
+        closures = [None] + ([cli_closure(CLOSURE_FLAGS[VI])]
+                             if formulation == VI else [])
+        for closure in closures:
+            cases = []
+            for dtype in (torch.float32, torch.float64):
+                model, state, sc = scenarios.build(
+                    "128x128_low_B_low_U", formulation, dtype=dtype,
+                    device=dev, closure=closure)
+                tiles, halo = tile_layout(128, 128, (4, 1),
+                                          model.exchange_halo)
+                cases.append((model,
+                              cut_tile(K.stack(state), tiles[0], *halo)))
+            main_tiles.append((
+                "128x128_low_B_low_U in 4x1 tiles" + (
+                    " biharmonic" if closure else ""),
+                *cases[0], cases[1][0], halo, sc.dt,
+                tile_branch(K, cases[0][0], (4, 1)), 100))
         del cases
-        for label, model, p, model64, halo, dt, b, reps in (bench_tile,
-                                                            walled_tile):
+        for label, model, p, model64, halo, dt, b, reps in main_tiles:
             K.substage(model, p, dt, 0, halo=halo)
             ms, _ = timed(lambda: K.substage(model, p, dt, 0, halo=halo),
                           reps)
@@ -965,7 +1235,7 @@ def main():
                 ms=ms, plain_ms=plain_ms,
                 nbytes=4 * (4 * p.shape[1] * p.shape[2] + 8 * nx * ny),
                 points=nx * ny, per="substage")}
-        del bench_tile, walled_tile, p, got, want, got64, want64
+        del main_tiles, p, got, want, got64, want64
 
     # 8 -------------------------------------------------------------------
     tile_launches = {}    # branch -> launches over all ranks of phase 8
@@ -980,7 +1250,9 @@ def main():
                    f"the {WORLD} ranks above shared it over gloo")
         for formulation in (VI, CONS):
             decomposed_cli(K, cli, formulation, tmp, tile_launches)
-    dd_branches = [(c, E, y) for c in (0, 1) for y in (E, B)]
+        decomposed_cli(K, cli, VI, tmp, tile_launches, CLOSURE_FLAGS[VI])
+    dd_branches = ([K.Branch(c, E, y) for c in (0, 1) for y in (E, B)]
+                   + [K.Branch(0, E, B, closure=2)])
     for b in dd_branches:
         if not tile_launches.get(b):
             fail(f"swmhd_substage [{K.branch_label(b)}] was not "
@@ -998,12 +1270,16 @@ def main():
                 ops[(b, t["per"])] = ops_per_point(K, b, t["per"])
             bound_ms, bound_by = least_time(t["nbytes"],
                                        ops[(b, t["per"])] * t["points"])
-            tile = E in b[1:]
+            tile = E in b[1:3]
+            n_launches = (tile_launches if tile else launches[name]).get(b)
+            if not n_launches:
+                fail(f"{name} [{K.branch_label(b)}] was timed but not "
+                     f"launched on the main path")
             kernels.append({
                 "name": f"{name} [{K.branch_label(b)}]", "route": "cuda",
                 "source": SOURCES[CONS if b[0] else VI],
                 "replaces": TILE_REPLACES if tile else REPLACES[name],
-                "launches": (tile_launches if tile else launches[name])[b],
+                "launches": n_launches,
                 "max_abs_err": (tile_errors[b] if tile else
                                 errors[b][name == "swmhd_multistep"]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -13,7 +13,8 @@ from .grid import Grid, PERIODIC, BOUNDED
 from .models import (State, Clock, ShallowWaterModel, VECTOR_INVARIANT,
                      CONSERVATIVE)
 from .advection import Centered2, UpwindBiased3, WENO5, get_scheme
-from .physics import (FPlane, magnetic_field_cc, magnetic_field_faces,
+from .physics import (FPlane, LaplacianDiffusion, BiharmonicDiffusion,
+                      magnetic_field_cc, magnetic_field_faces,
                       lorentz_force_jacobian, lorentz_force_divergence)
 from .forcing import jacobian_lorentz_forcing, divergence_lorentz_forcing
 
@@ -21,7 +22,8 @@ __all__ = [
     "Grid", "PERIODIC", "BOUNDED",
     "State", "Clock", "ShallowWaterModel", "VECTOR_INVARIANT", "CONSERVATIVE",
     "Centered2", "UpwindBiased3", "WENO5", "get_scheme",
-    "FPlane", "magnetic_field_cc", "magnetic_field_faces",
+    "FPlane", "LaplacianDiffusion", "BiharmonicDiffusion",
+    "magnetic_field_cc", "magnetic_field_faces",
     "lorentz_force_jacobian", "lorentz_force_divergence",
     "jacobian_lorentz_forcing", "divergence_lorentz_forcing",
 ]

@@ -7,6 +7,12 @@
         --device cpu --dtype float64          # plain PyTorch on the CPU
     torchrun --nproc-per-node 4 -m swmhd_tpu_torch.cli run \
         128x128_low_B_low_U                   # decomposed, one tile a rank
+    python -m swmhd_tpu_torch.cli run 128x128_two_Gaussians_high_B \
+        --nu 1e-5 --kappa 1e-5 --biharmonic   # with a closure
+    torchrun --nproc-per-node 4 -m -- swmhd_tpu_torch.cli run \
+        128x128_low_B_low_U --nu 1e-5 --biharmonic
+                                          # "--": torchrun would read --nu
+                                          # as its --numa-binding
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the run is decomposed over the
 ranks: the process group's backend follows the device layout
@@ -54,6 +60,24 @@ def _add_run_args(p):
                         "kernel (default); --no-fused runs the plain "
                         "PyTorch step")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--nu", type=float, default=0.0,
+                   help="momentum diffusivity (Laplacian; biharmonic with "
+                        "--biharmonic)")
+    p.add_argument("--kappa", type=float, default=0.0,
+                   help="tracer diffusivity")
+    p.add_argument("--biharmonic", action="store_true",
+                   help="use -nu grad^4 / -kappa grad^4 instead of "
+                        "Laplacian diffusion")
+
+
+def closure_of(args):
+    """The closure the flags ask for: none unless ``--nu`` or ``--kappa``
+    is nonzero."""
+    if not (args.nu or args.kappa):
+        return None
+    from .physics.diffusion import LaplacianDiffusion, BiharmonicDiffusion
+    cls = BiharmonicDiffusion if args.biharmonic else LaplacianDiffusion
+    return cls(nu=args.nu, kappa=args.kappa)
 
 
 def cmd_list(_args):
@@ -122,7 +146,8 @@ def cmd_run(args):
 
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     model, state, sc = scenarios.build(args.scenario, args.formulation,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device,
+                                       closure=closure_of(args))
     dt = args.dt if args.dt is not None else sc.dt
     stop_time = args.stop_time if args.stop_time is not None else sc.stop_time
     dd = _decomposition(model) if multihost.world_size() > 1 else None

@@ -1,19 +1,26 @@
 // The conservative (flux-form) substage: momentum flux ∇·(U ⊗ ũ) with
-// WENO5-Z reconstructions of u = uh/ℑh and v = vh/ℑh, gravity −g ℑh ∂h,
-// f-plane Coriolis on the transports, mass −∇·(uh, vh), hA-conservative
-// tracer, and the divergence-form Lorentz force ∇·(hB⊗B) with
+// the momentum scheme's reconstructions (WENO5-Z, UpwindBiased3 or
+// Centered2) of u = uh/ℑh and v = vh/ℑh, gravity −g ℑh ∂h, f-plane
+// Coriolis on the transports, mass −∇·(uh, vh), hA-conservative tracer
+// with the tracer scheme, the Laplacian or biharmonic closure of uh, vh
+// and A, and the divergence-form Lorentz force ∇·(hB⊗B) with
 // UpwindBiased3 reconstructions of B (swmhd_tpu/models/shallow_water.py
-// _tendencies_conservative, physics/lorentz.py lorentz_force_divergence),
-// for each periodic/bounded pair of axes and on exchanged tiles.
+// _tendencies_conservative, physics/diffusion.py, physics/lorentz.py
+// lorentz_force_divergence), for each periodic/bounded pair of axes and on
+// exchanged tiles.
 //
 // Three kernels, each reading the previous one's arrays at radius <= 3;
 // the first two run over the whole (padded) array, the last over the
 // unpadded points:
-//   point_fields: the point-local derived arrays u, v, hBx, hBy, Bx, By and
-//     the tracer fluxes;
+//   point_fields: the point-local derived arrays u, v, hBx, hBy, Bx, By,
+//     the tracer fluxes and, with a biharmonic closure, the inner
+//     Laplacians;
 //   flux_fields: the momentum and Lorentz fluxes at (c,c) and (f,f);
 //   flux_update: their differences, gravity, Coriolis, mass and tracer,
 //     then the Le–Moin update.
+// Every model reads the closure and the schemes from Params at run time:
+// flux_fields then takes fewer registers than with them constant, and the
+// default model's step is the faster for it.
 // A reconstruction at centers is the face form at the next face, read
 // through a window clamped at each of the two shifts (sh2). Three
 // difference operators differ at a bounded axis and stay apart: the
@@ -37,9 +44,13 @@ enum Tmp {
   kMxy, kMyy,        // momentum fluxes of v: (f,f), (c,c)
   kLxx, kLyx,        // Lorentz fluxes of the uh equation: (c,c), (f,f)
   kLxy, kLyy,        // Lorentz fluxes of the vh equation: (f,f), (c,c)
-  kNumTmp
+  kNumTmp,
+  // with a biharmonic closure: ∇²uh at (f,c), ∇²vh at (c,f), ∇²A at (c,c)
+  kLu = kNumTmp, kLv, kLA,
+  kNumTmpBiharmonic
 };
-static_assert(kNumTmp == 16, "N_TMP of ops/substage.py");
+static_assert(kNumTmp == 16 && kNumTmpBiharmonic == 19,
+              "N_TMP of ops/substage.py");
 
 template <typename T, Axis X, Axis Y>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
@@ -89,15 +100,19 @@ point_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
     ay[k] = at(A, 0, k - 3);
   }
   T l, r;
-  weno5_pair<WX>(ax, i, p.nx, l, r);
+  face_pair<WX>(p.tracer, ax, i, p.nx, l, r);
   const T fx = upwind(uh0, l, r);
-  weno5_pair<WY>(ay, j, p.ny, l, r);
+  face_pair<WY>(p.tracer, ay, j, p.ny, l, r);
   const T fy = upwind(vh0, l, r);
 
   const T out[8] = {uh0 / hfx, vh0 / hfy, hBx, hBy, hBx / hfx, hBy / hfy,
                     fx, fy};
 #pragma unroll
   for (int k = 0; k < 8; ++k) tmp[(kU + k) * n + c] = out[k];
+  if (p.closure == kBiharmonic) {
+    store_inner_laplacians<X, Y>(uh, vh, A, i, j, c, p, tmp + kLu * n,
+                                 tmp + kLv * n, tmp + kLA * n);
+  }
 }
 
 template <typename T, Axis X, Axis Y>
@@ -145,13 +160,13 @@ flux_fields(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   const T uh0 = uh[c], vh0 = vh[c];
   const T hBx0 = hBx[c], hBy0 = hBy[c];
   T l, r;
-  weno5_pair<WX>(ux, ip, p.nx, l, r);
+  center_pair<WX>(p.momentum, ux, u[c], ip, p.nx, l, r);
   const T Mxx = upwind(T(0.5) * (ld(uh, ip, j) + uh0), l, r);
-  weno5_pair<WY>(uy, j, p.ny, l, r);
+  face_pair<WY>(p.momentum, uy, j, p.ny, l, r);
   const T Myx = upwind(T(0.5) * (vh0 + at(vh, -1, 0)), l, r);
-  weno5_pair<WX>(vx, i, p.nx, l, r);
+  face_pair<WX>(p.momentum, vx, i, p.nx, l, r);
   const T Mxy = upwind(T(0.5) * (uh0 + at(uh, 0, -1)), l, r);
-  weno5_pair<WY>(vy, jp, p.ny, l, r);
+  center_pair<WY>(p.momentum, vy, v[c], jp, p.ny, l, r);
   const T Myy = upwind(T(0.5) * (ld(vh, i, jp) + vh0), l, r);
 
   upwind3_pair<WX>(bxx, ip, p.nx, l, r);
@@ -229,6 +244,9 @@ flux_update(const T* __restrict__ s, const T* __restrict__ tmp,
   T GA = (A[c] * divU - div_flux) / h0;
   if (p.gam_bg != T(0)) GA = GA - p.gam_bg * (T(0.5) * (vh_jp + vh0)) / h0;
 
+  add_closure<X, Y>(p, uh, vh, A, tmp + kLu * n, tmp + kLv * n,
+                    tmp + kLA * n, i, j, Gu, Gv, GA);
+
   // divergence-form Lorentz force, plain (clamped) differences
   const T Lyx0 = Lyx[c], Lxy0 = Lxy[c];
   Gu = Gu + ((Lxx[c] - at(Lxx, -1, 0)) + (at(Lyx, 0, 1) - Lyx0)) / p.az;
@@ -261,7 +279,7 @@ struct Run {
 
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a) {
-  return dispatch_modes<Run>(a);
+  return dispatch_axes<Run>(a);
 }
 
 template cudaError_t launch_conservative<float>(const Launch<float>&);

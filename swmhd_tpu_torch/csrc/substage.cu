@@ -1,9 +1,10 @@
 // One Le–Moin RK3 substage of the shallow-water MHD model, in either
-// formulation and for any pair of periodic/bounded axes, written by hand
-// for Hopper (sm_90a): the entry points. The tendencies are in
-// vector_invariant.cu (WENO5-Z/VelocityStencil, jacobian Lorentz force) and
+// formulation and for any pair of periodic/bounded axes, with any of the
+// model's advection schemes, vorticity stencils and closures, written by
+// hand for Hopper (sm_90a): the entry points. The tendencies are in
+// vector_invariant.cu (vorticity flux, jacobian Lorentz force) and
 // conservative.cu (flux-form momentum, divergence-form Lorentz force);
-// shared pieces in substage.cuh.
+// shared pieces (reconstructions, Laplacians) in substage.cuh.
 //
 // Replaces three Pallas TPU kernels:
 //   - build_fused_calls / fused_step_fn of swmhd_tpu/ops/fused_step.py
@@ -30,7 +31,9 @@
 // neighbour reads hit L1/L2. That is about 6 flop/B, under the card's fp32
 // balance of about 20 flop/B (67 TFLOP/s over 3.35 TB/s), so the split is
 // bound by memory traffic by design. The conservative substage moves 16
-// intermediates through three kernels, about 52 words per point. Fusing the
+// intermediates through three kernels, about 52 words per point; a
+// biharmonic closure adds three more intermediates to either (a write and
+// about one read each). Fusing the
 // kernels into one shared-memory tile with a halo of 6 moves only the
 // state, G_prev, the new state and G (16 words per point) and is the
 // performance work that follows this cut.
@@ -40,8 +43,23 @@
 // so a warp reads 32 neighbouring words. Each kernel is templated on the
 // value type and on each axis' mode (substage.cuh), so the periodic code
 // carries no wall logic; neighbour reads wrap (periodic), clamp (bounded)
-// or go into the halo (exchanged). Expressions keep the operation order of
-// the PyTorch version.
+// or go into the halo (exchanged). The advection schemes, the vorticity
+// stencil and the closure are fields of Params, the same for every thread
+// of a launch, so a branch on them never diverges a warp. The
+// conservative kernels read them at run time for every model. The
+// vector-invariant ones are also templated on Opt: the default model (no
+// closure, WENO5, VelocityStencil) runs the kernels without it, where
+// those fields are constants, any other model the kernels with it (112
+// kernels in all); read at run time in every model, they took more
+// registers in the update kernel and made the default step 12% longer on
+// the card, where the conservative step got 24% shorter (PERF.md). A
+// Laplacian closure reads the state's neighbours in the update kernel; a
+// biharmonic one stores the three inner Laplacians in the first kernel
+// and takes the outer ones in the update kernel. Expressions keep the
+// operation order of the PyTorch version. A tile matches the whole-grid
+// kernel bit for bit as long as nvcc contracts multiplies and adds into
+// fmas alike in both instantiations. The card's tile tests check that;
+// nvcc's -fmad=false would enforce it, at +2.7% on the conservative step.
 //
 // swmhd_multistep runs its substages as a loop of launches on the caller's
 // stream, with ping-pong buffers the caller allocates: this stands in for
@@ -71,10 +89,14 @@ namespace {
 // (nx + 2hx, ny + 2hy).
 template <typename T>
 Params<T> make_params(int nx, int ny, int hx, int hy, int mode_x,
-                      int mode_y, double dx, double dy, double g, double f,
-                      double gam_bg) {
+                      int mode_y, int closure, int momentum, int mass,
+                      int tracer, int stencil, double dx, double dy,
+                      double g, double f, double gam_bg, double nu,
+                      double kappa) {
   return Params<T>{nx + 2 * hx, ny + 2 * hy, hx, hy, mode_x, mode_y,
-                   T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy)};
+                   closure, momentum, mass, tracer, stencil,
+                   T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy),
+                   T(nu), T(kappa)};
 }
 
 template <typename T>
@@ -114,28 +136,34 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
 }  // namespace
 }  // namespace swmhd
 
+// closure, momentum, mass, tracer, stencil: the Closure, Scheme and
+// Stencil ids of substage.cuh; nu, kappa: the closure's diffusivities.
 #define SWMHD_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int swmhd_substage_##SUFFIX(                                    \
       const T* s_in, const T* g_prev, T* s_out, T* g_out, T* tmp, int nx,    \
       int ny, int hx, int hy, int conservative, int mode_x, int mode_y,      \
-      double dx, double dy, double g, double f, double gam_bg, double dt,    \
-      double gk, double zk, void* stream) {                                  \
+      int closure, int momentum, int mass, int tracer, int stencil,          \
+      double dx, double dy, double g, double f, double gam_bg, double nu,    \
+      double kappa, double dt, double gk, double zk, void* stream) {         \
     const swmhd::Launch<T> a{                                                \
         s_in, g_prev, s_out, g_out, tmp,                                     \
-        swmhd::make_params<T>(nx, ny, hx, hy, mode_x, mode_y, dx, dy, g, f,  \
-                              gam_bg),                                       \
+        swmhd::make_params<T>(nx, ny, hx, hy, mode_x, mode_y, closure,       \
+                              momentum, mass, tracer, stencil, dx, dy, g, f, \
+                              gam_bg, nu, kappa),                            \
         T(dt), T(gk), T(zk), static_cast<cudaStream_t>(stream)};             \
     return static_cast<int>(swmhd::launch_substage<T>(a, conservative));     \
   }                                                                          \
   extern "C" int swmhd_multistep_##SUFFIX(                                   \
       const T* s_in, T* s_out, T* work, T* gbuf, T* tmp, int nx, int ny,     \
-      int conservative, int wall_x, int wall_y, double dx, double dy,        \
-      double g, double f, double gam_bg, double dt, int n_steps,             \
-      void* stream) {                                                        \
+      int conservative, int wall_x, int wall_y, int closure, int momentum,   \
+      int mass, int tracer, int stencil, double dx, double dy, double g,     \
+      double f, double gam_bg, double nu, double kappa, double dt,           \
+      int n_steps, void* stream) {                                           \
     return static_cast<int>(swmhd::launch_multistep<T>(                      \
         s_in, s_out, work, gbuf, tmp,                                        \
-        swmhd::make_params<T>(nx, ny, 0, 0, wall_x, wall_y, dx, dy, g, f,     \
-                              gam_bg),                                       \
+        swmhd::make_params<T>(nx, ny, 0, 0, wall_x, wall_y, closure,         \
+                              momentum, mass, tracer, stencil, dx, dy, g, f, \
+                              gam_bg, nu, kappa),                            \
         conservative, dt, n_steps, static_cast<cudaStream_t>(stream)));      \
   }
 

@@ -1,7 +1,8 @@
 // Shared pieces of the RK3 substage kernels (substage.cu,
 // vector_invariant.cu, conservative.cu): parameters, the index maps of
-// periodic, bounded and exchanged axes, and the WENO5-Z / third-order
-// biased reconstructions with their near-wall degradation.
+// periodic, bounded and exchanged axes, the WENO5-Z / third-order biased /
+// centered reconstructions with their near-wall degradation, and the
+// staggered Laplacians of the diffusion closures.
 //
 // Layout: every field is (Nx, Ny) row-major, index i*Ny + j, i along x.
 // Face i is the left edge of cell i. On a tile of a domain decomposition
@@ -26,10 +27,19 @@ constexpr int kBlockX = 8;
 // tiles: reads go straight into the padded array, and the few that would
 // leave it are clamped into it. A value that took such a read lies within
 // one stencil radius of the array's end, and a value that reads it within
-// two: the composed radius of a substage is at most 6, so with a halo of
-// 6 or more no such value reaches the unpadded tile, which is all the
-// update writes. There the arithmetic is that of the periodic axis.
+// two: the composed radius of a substage is at most the model's
+// exchange_halo (6, 7 with a biharmonic closure), so with a halo that wide
+// no such value reaches the unpadded tile, which is all the update writes.
+// There the arithmetic is that of the periodic axis.
 enum class Axis : int { kPeriodic = 0, kBounded = 1, kExchanged = 2 };
+
+// The model's options, fields of Params, the same for every thread of a
+// launch (ids of ops/substage.py); a formulation's kernels read only the
+// ones it uses (the conservative one has no mass reconstruction and no
+// vorticity stencil).
+enum Scheme : int { kWeno5 = 0, kUpwind3 = 1, kCentered2 = 2 };
+enum Closure : int { kNoClosure = 0, kLaplacian = 1, kBiharmonic = 2 };
+enum Stencil : int { kVelocityStencil = 0, kVorticityStencil = 1 };
 
 template <typename T>
 struct Params {
@@ -37,8 +47,12 @@ struct Params {
   int hx, hy;            // halo widths; the update writes the inner
                          // (nx - 2hx, ny - 2hy)
   int mode_x, mode_y;    // Axis of each axis
+  int closure;           // Closure
+  int momentum, mass, tracer;  // Scheme of each advection
+  int stencil;           // Stencil of the WENO5 vorticity flux
   T dx, dy, g, f, gam_bg;
   T az;                  // cell area dx·dy (divergence-form Lorentz force)
+  T nu, kappa;           // the closure's diffusivities
 };
 
 // One substage: input state, G_prev (null in substage 0), outputs (g_out
@@ -65,11 +79,10 @@ cudaError_t launch_conservative(const Launch<T>& a);
 
 // R::go<T, X, Y>(a) for the launch's pair of axis modes: each periodic /
 // bounded pair on a whole domain, and on a tile an exchanged x with a
-// periodic, bounded or exchanged y, or a periodic x with an exchanged y
-// (a mesh of one tile along x). Only a periodic axis is ever cut into
-// tiles.
+// periodic, bounded or exchanged y, or a periodic x with an exchanged y (a
+// mesh of one tile along x). Only a periodic axis is ever cut into tiles.
 template <typename R, typename T>
-cudaError_t dispatch_modes(const Launch<T>& a) {
+cudaError_t dispatch_axes(const Launch<T>& a) {
   constexpr Axis P = Axis::kPeriodic, B = Axis::kBounded,
                  E = Axis::kExchanged;
   switch (a.p.mode_x * 3 + a.p.mode_y) {
@@ -262,6 +275,96 @@ __device__ __forceinline__ void weno5_pair(const T* c, int q, int n,
       if (deg_left) left = l3;
       if (deg_right) right = r3;
     }
+  }
+}
+
+// (left, right) of scheme s at face q from the window c[k] = c(q + k - 3).
+// Centered2 is unbiased: both are ℑᶠc = (c[q] + c[q-1])/2.
+template <bool Wall, typename T>
+__device__ __forceinline__ void face_pair(int s, const T* c, int q, int n,
+                                          T& left, T& right) {
+  if (s == kCentered2) {
+    left = right = T(0.5) * (c[3] + c[2]);
+  } else if (s == kUpwind3) {
+    upwind3_pair<Wall>(c, q, n, left, right);
+  } else {
+    weno5_pair<Wall>(c, q, n, left, right);
+  }
+}
+
+// (left, right) of scheme s at center i from face values: the face form at
+// the next face q, read through the window c[k] = c(q + k - 3) clamped at
+// each shift. Centered2's is ℑᶜ = (c[i+1] + c[i])/2 of the value c_i at i
+// itself, which at a bounded axis' last point is not the window's c[2].
+template <bool Wall, typename T>
+__device__ __forceinline__ void center_pair(int s, const T* c, T c_i, int q,
+                                            int n, T& left, T& right) {
+  if (s == kCentered2) {
+    left = right = T(0.5) * (c[3] + c_i);
+  } else {
+    face_pair<Wall>(s, c, q, n, left, right);
+  }
+}
+
+// -- Laplacians of the closures ------------------------------------------------
+//
+// ∂ᶠ(∂ᶜ a) (Face) or ∂ᶜ(∂ᶠ a) along one axis at index i of n points, from
+// rd(k), the value of a at index k, and the spacing d. The inner
+// difference is an array of its own, so the outer one reads it at the
+// shifted index: at a wall, the clamped index (∂ᶠ(∂ᶜ a) is 0 at face 0,
+// ∂ᶜ(∂ᶠ a) at the last center).
+template <Axis A, bool Face, typename T, typename R>
+__device__ __forceinline__ T second_difference(const R& rd, int i, int n,
+                                               T d) {
+  if constexpr (Face) {
+    const int im = sh<A>(i, -1, n);
+    return ((rd(sh<A>(i, 1, n)) - rd(i)) / d
+            - (rd(sh<A>(im, 1, n)) - rd(im)) / d) / d;
+  } else {
+    const int ip = sh<A>(i, 1, n);
+    return ((rd(ip) - rd(sh<A>(ip, -1, n))) / d
+            - (rd(i) - rd(sh<A>(i, -1, n))) / d) / d;
+  }
+}
+
+// ∇²a at (i, j); FX, FY: a lies on faces along x, y (u: (f,c) is <true,
+// false>, v: (c,f) <false, true>, a center field <false, false>).
+template <Axis X, Axis Y, bool FX, bool FY, typename T>
+__device__ __forceinline__ T laplacian(const T* a, int i, int j,
+                                       const Params<T>& p) {
+  auto rx = [&](int k) { return a[static_cast<size_t>(k) * p.ny + j]; };
+  auto ry = [&](int k) { return a[static_cast<size_t>(i) * p.ny + k]; };
+  return second_difference<X, FX>(rx, i, p.nx, p.dx)
+         + second_difference<Y, FY>(ry, j, p.ny, p.dy);
+}
+
+// The inner Laplacians of a biharmonic closure, of the momentum
+// prognostics mu, mv and the tracer A, stored at c of the intermediates
+// lu, lv, lA by a first kernel over the whole (padded) array.
+template <Axis X, Axis Y, typename T>
+__device__ __forceinline__ void store_inner_laplacians(
+    const T* mu, const T* mv, const T* A, int i, int j, size_t c,
+    const Params<T>& p, T* lu, T* lv, T* lA) {
+  lu[c] = laplacian<X, Y, true, false>(mu, i, j, p);
+  lv[c] = laplacian<X, Y, false, true>(mv, i, j, p);
+  lA[c] = laplacian<X, Y, false, false>(A, i, j, p);
+}
+
+// The closure's tendencies added to (Gu, Gv, GA) at (i, j): ν∇² of the
+// momentum prognostics mu, mv and κ∇²A, or −ν∇⁴ and −κ∇⁴ as the outer
+// Laplacians of the stored inner ones lu, lv, lA.
+template <Axis X, Axis Y, typename T>
+__device__ __forceinline__ void add_closure(
+    const Params<T>& p, const T* mu, const T* mv, const T* A, const T* lu,
+    const T* lv, const T* lA, int i, int j, T& Gu, T& Gv, T& GA) {
+  if (p.closure == kLaplacian) {
+    Gu = Gu + p.nu * laplacian<X, Y, true, false>(mu, i, j, p);
+    Gv = Gv + p.nu * laplacian<X, Y, false, true>(mv, i, j, p);
+    GA = GA + p.kappa * laplacian<X, Y, false, false>(A, i, j, p);
+  } else if (p.closure == kBiharmonic) {
+    Gu = Gu + (-p.nu) * laplacian<X, Y, true, false>(lu, i, j, p);
+    Gv = Gv + (-p.nu) * laplacian<X, Y, false, true>(lv, i, j, p);
+    GA = GA + (-p.kappa) * laplacian<X, Y, false, false>(lA, i, j, p);
   }
 }
 

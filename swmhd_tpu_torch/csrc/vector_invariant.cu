@@ -1,13 +1,17 @@
-// The vector-invariant substage: WENO5-Z mass/tracer reconstruction,
-// VelocityStencil vorticity flux, Bernoulli gradient, f-plane Coriolis,
-// hA-conservative tracer with a linear background gradient, jacobian-form
-// Lorentz force (swmhd_tpu/models/shallow_water.py
-// _tendencies_vector_invariant, physics/lorentz.py lorentz_force_jacobian),
-// for each periodic/bounded pair of axes and on exchanged tiles.
+// The vector-invariant substage: mass and tracer reconstruction (WENO5-Z,
+// UpwindBiased3 or Centered2), the vorticity flux of the momentum scheme
+// (WENO5 with VelocityStencil or VorticityStencil weights, UpwindBiased3,
+// or the centered form), Bernoulli gradient, f-plane Coriolis,
+// hA-conservative tracer with a linear background gradient, the Laplacian
+// or biharmonic closure, jacobian-form Lorentz force
+// (swmhd_tpu/models/shallow_water.py _tendencies_vector_invariant,
+// physics/diffusion.py, physics/lorentz.py lorentz_force_jacobian), for
+// each periodic/bounded pair of axes and on exchanged tiles.
 //
-// Two kernels: face_fluxes writes the 12 intermediates below over the
-// whole (padded) array, and tendency_update reads them at radius <= 3 and
-// applies the Le–Moin update on the unpadded points.
+// Two kernels: face_fluxes writes the 12 intermediates below (15 with a
+// biharmonic closure) over the whole (padded) array, and tendency_update
+// reads them at radius <= 3 and applies the Le–Moin update on the
+// unpadded points.
 // Each intermediate is the reference's derived array, so a shift of it is a
 // read at the shifted (wrapped or clamped) index. Where the reference
 // shifts a derived array that this code recomputes from raw reads instead
@@ -21,6 +25,22 @@
 namespace swmhd {
 namespace {
 
+// The default model (no closure, WENO5 everywhere, VelocityStencil) runs
+// kernels with Opt false, in which those options are constants, so they
+// carry no code of the other branches; any other model runs the Opt
+// kernels, which read the options from Params. With the options read at
+// run time, tendency_update took more registers and the default step 12%
+// longer on the card.
+template <bool Opt, typename T>
+__device__ __forceinline__ Params<T> options(Params<T> p) {
+  if constexpr (!Opt) {
+    p.closure = kNoClosure;
+    p.momentum = p.mass = p.tracer = kWeno5;
+    p.stencil = kVelocityStencil;
+  }
+  return p;
+}
+
 // Intermediates written by face_fluxes, in this order, each (Nx, Ny).
 enum Tmp {
   kUf, kVf,        // mass fluxes u·h̃ at (f,c), v·h̃ at (c,f)
@@ -30,41 +50,91 @@ enum Tmp {
   kKB,             // K + g h at (c,c)
   kDAdx, kDAdy,    // ∂xᶠA at (f,c), ∂yᶠA + γ at (c,f)
   kBx, kBy,        // B at (c,c)
-  kNumTmp
+  kNumTmp,
+  // with a biharmonic closure: ∇²u at (f,c), ∇²v at (c,f), ∇²A at (c,c)
+  kLu = kNumTmp, kLv, kLA,
+  kNumTmpBiharmonic
 };
-static_assert(kNumTmp == 12, "N_TMP of ops/substage.py");
+static_assert(kNumTmp == 12 && kNumTmpBiharmonic == 15,
+              "N_TMP of ops/substage.py");
 
-// VelocityStencil reconstruction of ζ onto the flux point from windows
-// z[k], uf[k], vf[k] = value at offset k - 2 (k = 0..5) along the
-// reconstruction axis: candidates from ζ, weights from the averaged betas
-// of ℑu and ℑv at (f,f). At a bounded axis' last point (last) the right
-// betas are the left ones: the reference's shift of the betas is clamped.
+// WENO5 reconstruction of ζ onto the flux point from windows z[k], uf[k],
+// vf[k] = value at offset k - 2 (k = 0..5) along the reconstruction axis:
+// candidates from ζ, weights from the averaged betas of ℑu and ℑv at
+// (f,f) (velocity; uf, vf are read only then) or from ζ's own. At a
+// bounded axis' last point (last) the right betas are the left ones: the
+// reference's shift of the betas is clamped.
 template <typename T>
 __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
-                                               const T* vf, bool last,
-                                               T& zl, T& zr) {
-  T ua0, ua1, ua2, va0, va1, va2, ub0, ub1, ub2, vb0, vb1, vb2;
-  betas_left(uf[0], uf[1], uf[2], uf[3], uf[4], ua0, ua1, ua2);
-  betas_left(vf[0], vf[1], vf[2], vf[3], vf[4], va0, va1, va2);
-  if (last) {
-    ub0 = ua0; ub1 = ua1; ub2 = ua2;
-    vb0 = va0; vb1 = va1; vb2 = va2;
+                                               const T* vf, bool velocity,
+                                               bool last, T& zl, T& zr) {
+  T b0, b1, b2, r0, r1, r2;   // left betas at this face and at the next
+  if (velocity) {
+    T ua0, ua1, ua2, va0, va1, va2, ub0, ub1, ub2, vb0, vb1, vb2;
+    betas_left(uf[0], uf[1], uf[2], uf[3], uf[4], ua0, ua1, ua2);
+    betas_left(vf[0], vf[1], vf[2], vf[3], vf[4], va0, va1, va2);
+    if (last) {
+      ub0 = ua0; ub1 = ua1; ub2 = ua2;
+      vb0 = va0; vb1 = va1; vb2 = va2;
+    } else {
+      betas_left(uf[1], uf[2], uf[3], uf[4], uf[5], ub0, ub1, ub2);
+      betas_left(vf[1], vf[2], vf[3], vf[4], vf[5], vb0, vb1, vb2);
+    }
+    b0 = T(0.5) * (ua0 + va0);
+    b1 = T(0.5) * (ua1 + va1);
+    b2 = T(0.5) * (ua2 + va2);
+    r0 = T(0.5) * (ub0 + vb0);
+    r1 = T(0.5) * (ub1 + vb1);
+    r2 = T(0.5) * (ub2 + vb2);
   } else {
-    betas_left(uf[1], uf[2], uf[3], uf[4], uf[5], ub0, ub1, ub2);
-    betas_left(vf[1], vf[2], vf[3], vf[4], vf[5], vb0, vb1, vb2);
+    betas_left(z[0], z[1], z[2], z[3], z[4], b0, b1, b2);
+    if (last) {
+      r0 = b0; r1 = b1; r2 = b2;
+    } else {
+      betas_left(z[1], z[2], z[3], z[4], z[5], r0, r1, r2);
+    }
   }
   T p0, p1, p2;
   cands_left(z[0], z[1], z[2], z[3], z[4], p0, p1, p2);
-  zl = weno_combine(p0, p1, p2, T(0.5) * (ua0 + va0), T(0.5) * (ua1 + va1),
-                    T(0.5) * (ua2 + va2));
+  zl = weno_combine(p0, p1, p2, b0, b1, b2);
   cands_right(z[1], z[2], z[3], z[4], z[5], p0, p1, p2);
-  zr = weno_combine(p0, p1, p2, T(0.5) * (ub2 + vb2), T(0.5) * (ub1 + vb1),
-                    T(0.5) * (ub0 + vb0));
+  zr = weno_combine(p0, p1, p2, r2, r1, r0);
 }
 
-template <typename T, Axis X, Axis Y>
+// (left, right) of ζ on the flux point at (i, j) along axis A, the
+// reconstruction axis, of n points at index q of it. WENO5 reconstructs
+// the shifted arrays ζ, ℑu, ℑv at the face form (windows shifted, then
+// clamped); UpwindBiased3 takes its face form at the next face (windows
+// clamped at that face, then shifted), as the reference's center-from-face
+// reconstruction does.
+template <Axis A, bool Wall, typename T, typename L>
+__device__ __forceinline__ void vorticity_recon(const Params<T>& p,
+                                                const L& load, int q, int n,
+                                                T& zl, T& zr) {
+  T z[6], uw[6], vw[6];
+  const bool velocity = p.stencil == kVelocityStencil;
+  if (p.momentum == kWeno5) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int qq = sh2<A>(q, k - 3, 1, n);
+      z[k] = load(kZeta, qq);
+      if (velocity) {
+        uw[k] = load(kUff, qq);
+        vw[k] = load(kVff, qq);
+      }
+    }
+    vorticity_pair(z, uw, vw, velocity, Wall && q == n - 1, zl, zr);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) z[k] = load(kZeta, sh2<A>(q, 1, k - 3, n));
+    upwind3_pair<Wall>(z, sh<A>(q, 1, n), n, zl, zr);
+  }
+}
+
+template <typename T, Axis X, Axis Y, bool Opt>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
+  p = options<Opt>(p);
   constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   const int j = blockIdx.x * kBlockY + threadIdx.x;
   const int i = blockIdx.y * kBlockX + threadIdx.y;
@@ -92,13 +162,13 @@ face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
   }
   T l, r;
   const T u0 = u[c], v0 = v[c];
-  weno5_pair<WX>(hx, i, p.nx, l, r);
+  face_pair<WX>(p.mass, hx, i, p.nx, l, r);
   const T Uf = upwind(u0, l, r);
-  weno5_pair<WY>(hy, j, p.ny, l, r);
+  face_pair<WY>(p.mass, hy, j, p.ny, l, r);
   const T Vf = upwind(v0, l, r);
-  weno5_pair<WX>(ax, i, p.nx, l, r);
+  face_pair<WX>(p.tracer, ax, i, p.nx, l, r);
   const T fx = upwind(Uf, l, r);
-  weno5_pair<WY>(ay, j, p.ny, l, r);
+  face_pair<WY>(p.tracer, ay, j, p.ny, l, r);
   const T fy = upwind(Vf, l, r);
 
   const T u_jm = at(u, 0, -1), u_ip = at(u, 1, 0);
@@ -123,13 +193,18 @@ face_fluxes(const T* __restrict__ s, T* __restrict__ tmp, Params<T> p) {
                           dAdx, dAdy, Bx, By};
 #pragma unroll
   for (int k = 0; k < kNumTmp; ++k) tmp[k * n + c] = out[k];
+  if (p.closure == kBiharmonic) {
+    store_inner_laplacians<X, Y>(u, v, A, i, j, c, p, tmp + kLu * n,
+                                 tmp + kLv * n, tmp + kLA * n);
+  }
 }
 
-template <typename T, Axis X, Axis Y>
+template <typename T, Axis X, Axis Y, bool Opt>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
                 const T* __restrict__ g_prev, T* __restrict__ s_out,
                 T* __restrict__ g_out, Params<T> p, T dt, T gk, T zk) {
+  p = options<Opt>(p);
   constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   int i, j;
   size_t c, co;
@@ -168,34 +243,28 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
   const T divU = (Uf_up - Uf[c]) / p.dx + (Vf_up - Vf0) / p.dy;
   const T Gh = -divU;
 
-  // vorticity flux: u-equation along y, onto (f,c) — the window of the
-  // reconstruction at j is the face form of the arrays shifted by one,
-  // ζ(j-2 .. j+3) on a periodic axis
-  T z[6], uw[6], vw[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const int jj = sh2<Y>(j, k - 3, 1, p.ny);
-    z[k] = ld(zeta, i, jj);
-    uw[k] = ld(uff, i, jj);
-    vw[k] = ld(vff, i, jj);
-  }
-  T zl, zr;
-  vorticity_pair(z, uw, vw, last_y, zl, zr);
+  // vorticity flux, with the transverse velocities ℑxyᶠᶜv and ℑxyᶜᶠu:
+  // the u-equation's along y onto (f,c), the v-equation's along x onto
+  // (c,f)
   const T v_hat = T(0.5) * (T(0.5) * (at(v, 0, 1) + v[c])
                             + T(0.5) * (at(v, -1, 1) + at(v, -1, 0)));
-  const T vort_u = upwind(v_hat, zl, zr);
-
-  // v-equation along x, onto (c,f)
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const int ii = sh2<X>(i, k - 3, 1, p.nx);
-    z[k] = ld(zeta, ii, j);
-    uw[k] = ld(uff, ii, j);
-    vw[k] = ld(vff, ii, j);
+  const T u_hat = T(0.5) * (at(uff, 1, 0) + uff[c]);
+  T vort_u, vort_v;
+  if (p.momentum == kCentered2) {
+    // ℑyᶜ(ζ ℑxᶠv), −ℑxᶜ(ζ ℑyᶠu)
+    vort_u = T(0.5) * (at(zeta, 0, 1) * at(vff, 0, 1) + zeta[c] * vff[c]);
+    vort_v = -(T(0.5) * (at(zeta, 1, 0) * at(uff, 1, 0) + zeta[c] * uff[c]));
+  } else {
+    T zl, zr;
+    vorticity_recon<Y, WY>(
+        p, [&](int t, int jj) { return ld(tmp + t * n, i, jj); }, j, p.ny,
+        zl, zr);
+    vort_u = upwind(v_hat, zl, zr);
+    vorticity_recon<X, WX>(
+        p, [&](int t, int ii) { return ld(tmp + t * n, ii, j); }, i, p.nx,
+        zl, zr);
+    vort_v = -upwind(u_hat, zl, zr);
   }
-  vorticity_pair(z, uw, vw, last_x, zl, zr);
-  const T u_hat = T(0.5) * (uw[3] + uff[c]);
-  const T vort_v = -upwind(u_hat, zl, zr);
 
   // Bernoulli gradient and Coriolis
   const T KB0 = KB[c];
@@ -210,6 +279,9 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
   const T div_flux = (fx_up - fx[c]) / p.dx + (fy_up - fy[c]) / p.dy;
   T GA = (A[c] * divU - div_flux) / h0;
   if (p.gam_bg != T(0)) GA = GA - p.gam_bg * (T(0.5) * (Vf_jp + Vf0)) / h0;
+
+  add_closure<X, Y>(p, u, v, A, tmp + kLu * n, tmp + kLv * n, tmp + kLA * n,
+                    i, j, Gu, Gv, GA);
 
   // jacobian Lorentz force; ∂yᶠBx at j+1 and ∂xᶠBy at i+1 are clamped
   const T Bx0 = Bx[c], Bx_im = at(Bx, -1, 0);
@@ -243,17 +315,18 @@ tendency_update(const T* __restrict__ s, const T* __restrict__ tmp,
                           g_out, dt, gk, zk);
 }
 
+template <bool Opt>
 struct Run {
   template <typename T, Axis X, Axis Y>
   static cudaError_t go(const Launch<T>& a) {
     const dim3 block = block_dims();
-    face_fluxes<T, X, Y><<<grid_dims(a.p.nx, a.p.ny), block, 0, a.stream>>>(
-        a.s_in, a.tmp, a.p);
+    face_fluxes<T, X, Y, Opt><<<grid_dims(a.p.nx, a.p.ny), block, 0,
+                                a.stream>>>(a.s_in, a.tmp, a.p);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    tendency_update<T, X, Y><<<grid_dims(a.p.nx - 2 * a.p.hx,
-                                         a.p.ny - 2 * a.p.hy),
-                               block, 0, a.stream>>>(
+    tendency_update<T, X, Y, Opt><<<grid_dims(a.p.nx - 2 * a.p.hx,
+                                              a.p.ny - 2 * a.p.hy),
+                                    block, 0, a.stream>>>(
         a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
     return cudaGetLastError();
   }
@@ -263,7 +336,11 @@ struct Run {
 
 template <typename T>
 cudaError_t launch_vector_invariant(const Launch<T>& a) {
-  return dispatch_modes<Run>(a);
+  const Params<T>& p = a.p;
+  const bool opt = p.closure != kNoClosure || p.momentum != kWeno5
+                   || p.mass != kWeno5 || p.tracer != kWeno5
+                   || p.stencil != kVelocityStencil;
+  return opt ? dispatch_axes<Run<true>>(a) : dispatch_axes<Run<false>>(a);
 }
 
 template cudaError_t launch_vector_invariant<float>(const Launch<float>&);

@@ -5,7 +5,7 @@ vector-invariant (prognostics u, v, h):
 
     ∂t u = +⟨ζ v⟩ᵘᵖ + f v̄ − ∂x(K + g h) + F_u
     ∂t v = −⟨ζ u⟩ᵘᵖ − f ū − ∂y(K + g h) + F_v
-    ∂t h = −∇·(u h̃)                       (h̃ WENO5-reconstructed)
+    ∂t h = −∇·(u h̃)                (h̃ reconstructed by mass_advection)
 
 conservative (prognostics uh, vh, h, stored in ``state.u``/``state.v``):
 
@@ -17,13 +17,19 @@ tracer (both), with U the mass transport:
 
     ∂t A = ( A ∇·U − ∇·(U Ã) ) / h
 
-The vector-invariant vorticity flux is the upwinded WENO with
-VelocityStencil weights: ζ at (f,f) is reconstructed transverse to each
-momentum component with WENO5 candidates, and the nonlinear weights come
-from the averaged smoothness of u and v interpolated to (f,f). The
-conservative momentum flux upwinds WENO5 reconstructions of u = uh/ℑh
-and v = vh/ℑh on symmetric transports. Time stepping is the Le–Moin
-low-storage RK3.
+plus, with a closure, ν∇²(u, v) (or of uh, vh) and κ∇²A, or −ν∇⁴ and
+−κ∇⁴ (:mod:`~swmhd_tpu_torch.physics.diffusion`), added after Coriolis
+and the tracer and before the forcing.
+
+The vector-invariant vorticity flux follows the momentum scheme. WENO5
+upwinds ζ at (f,f) reconstructed transverse to each momentum component
+with WENO5 candidates; its nonlinear weights come from the averaged
+smoothness of u and v interpolated to (f,f) (VelocityStencil, the
+default) or from ζ itself (VorticityStencil). UpwindBiased3 upwinds its
+third-order reconstructions of ζ; Centered2 is the centered form
+ℑy[ζ ℑx v], −ℑx[ζ ℑy u]. The conservative momentum flux upwinds the
+scheme's reconstructions of u = uh/ℑh and v = vh/ℑh on symmetric
+transports. Time stepping is the Le–Moin low-storage RK3.
 """
 
 from __future__ import annotations
@@ -46,6 +52,11 @@ from .state import Clock, State
 VECTOR_INVARIANT = "vector_invariant"
 CONSERVATIVE = "conservative"
 
+# weights of the WENO5 vorticity flux: from the velocities or from ζ
+VELOCITY_STENCIL = "velocity"
+VORTICITY_STENCIL = "vorticity"
+DEFAULT_STENCIL = VELOCITY_STENCIL
+
 # Le & Moin (1991) low-storage RK3 (Oceananigans' :RungeKutta3).
 RK3_GAMMA = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
 RK3_ZETA = (0.0, -17.0 / 60.0, -5.0 / 12.0)
@@ -60,7 +71,8 @@ class ShallowWaterModel:
     momentum_advection: AdvectionScheme = WENO5
     mass_advection: AdvectionScheme = WENO5
     tracer_advection: AdvectionScheme = WENO5
-    closure: object = None
+    vector_invariant_stencil: str = DEFAULT_STENCIL
+    closure: object = None            # LaplacianDiffusion / BiharmonicDiffusion
     forcing: tuple = ()               # ((name, fn), ...) name in u,v,uh,vh,h,A
     # Static linear background γ·y of A: state.A is the perturbation and
     # the tracer tendency gains the discrete source −γ·ℑyᶜ(Vf)/h.
@@ -69,16 +81,13 @@ class ShallowWaterModel:
     def __post_init__(self):
         if self.formulation not in (VECTOR_INVARIANT, CONSERVATIVE):
             raise ValueError(f"unknown formulation {self.formulation!r}")
-        if self.closure is not None:
-            raise NotImplementedError(
-                "closures are not ported yet (ROADMAP.md, queue 1 item 3)")
+        if self.vector_invariant_stencil not in (VELOCITY_STENCIL,
+                                                 VORTICITY_STENCIL):
+            raise ValueError(f"unknown vector_invariant_stencil "
+                             f"{self.vector_invariant_stencil!r}")
         for name in ("momentum_advection", "mass_advection",
                      "tracer_advection"):
             object.__setattr__(self, name, get_scheme(getattr(self, name)))
-        if self.momentum_advection.name != "weno5":
-            raise NotImplementedError(
-                "only WENO5 momentum advection is ported "
-                "(ROADMAP.md, queue 1 item 3)")
         if isinstance(self.forcing, Mapping):
             object.__setattr__(self, "forcing", tuple(self.forcing.items()))
 
@@ -87,9 +96,13 @@ class ShallowWaterModel:
     @property
     def halo(self) -> int:
         """Widest single-operator stencil half-width (WENO5: 3; 2 for the
-        Lorentz chains)."""
-        return max(self.momentum_advection.halo, self.mass_advection.halo,
-                   self.tracer_advection.halo, 2)
+        Lorentz chains; twice the closure's, whose operator composes two
+        differences)."""
+        h = max(self.momentum_advection.halo, self.mass_advection.halo,
+                self.tracer_advection.halo, 2)
+        if self.closure is not None:
+            h = max(h, 2 * self.closure.halo)
+        return h
 
     @property
     def exchange_halo(self) -> int:
@@ -205,7 +218,7 @@ class ShallowWaterModel:
 
         # vorticity flux + Bernoulli gradient
         zeta = op.vorticity_ff(u, v, g)
-        vort_u, vort_v = self._weno_vorticity_flux(u, v, zeta, g)
+        vort_u, vort_v = self._vorticity_flux(u, v, zeta, g)
         K = op.kinetic_energy_cc(u, v, g)
         Gu = vort_u - op.ddx_f(K + gacc * h, g)
         Gv = vort_v - op.ddy_f(K + gacc * h, g)
@@ -214,37 +227,63 @@ class ShallowWaterModel:
         Gv = Gv + self.coriolis.tendency_v(u, g)
 
         GA = self._tracer_tendency(A, h, Uf, Vf, divU)
+        Gu, Gv, GA = self._add_closure(Gu, Gv, GA, u, v, A)
         return Gu, Gv, Gh, GA
 
+    def _add_closure(self, Gu, Gv, GA, u, v, A):
+        """Plus the closure's tendencies of the momentum prognostics (u, v
+        or uh, vh) and the tracer."""
+        c, g = self.closure, self.grid
+        if c is None:
+            return Gu, Gv, GA
+        return (Gu + c.tendency_u(u, g), Gv + c.tendency_v(v, g),
+                GA + c.tendency_c(A, g))
+
+    def _vorticity_flux(self, u, v, zeta, g):
+        """⟨ζ v⟩ᵘᵖ at (f,c) and −⟨ζ u⟩ᵘᵖ at (c,f)."""
+        scheme = self.momentum_advection
+        if scheme.name == "centered2":
+            # centered form: ℑy[ζ · ℑx(v)], −ℑx[ζ · ℑy(u)]
+            vort_u = op.iy_c(zeta * op.ix_f(v, g), g)
+            vort_v = -op.ix_c(zeta * op.iy_f(u, g), g)
+            return vort_u, vort_v
+        if scheme.name == "weno5":
+            return self._weno_vorticity_flux(u, v, zeta, g)
+        # another biased scheme: ζ reconstructed transverse, upwinded on
+        # the interpolated transverse velocity
+        vort_u = upwind_biased_product(op.ixy_fc(v, g),
+                                       *scheme.both_y_c(zeta, g))
+        vort_v = -upwind_biased_product(op.ixy_cf(u, g),
+                                        *scheme.both_x_c(zeta, g))
+        return vort_u, vort_v
+
     def _weno_vorticity_flux(self, u, v, zeta, g):
-        """⟨ζ v⟩ᵘᵖ at (f,c) and −⟨ζ u⟩ᵘᵖ at (c,f), VelocityStencil."""
+        """⟨ζ v⟩ᵘᵖ at (f,c) and −⟨ζ u⟩ᵘᵖ at (c,f) with WENO5 candidates
+        of ζ; weights from the averaged betas of u and v at (f,f)
+        (VelocityStencil) or from ζ's own (VorticityStencil)."""
+        use_velocity = self.vector_invariant_stencil == VELOCITY_STENCIL
         shx = lambda a, n: op.shift_x(a, n, g)
         shy = lambda a, n: op.shift_y(a, n, g)
         u_ff = op.iy_f(u, g)   # u interpolated to (f,f)
         v_ff = op.ix_f(v, g)   # v interpolated to (f,f)
 
-        def avg_betas(a, b, sh):
-            ba = weno_betas_left(a, sh)
-            bb = weno_betas_left(b, sh)
-            return tuple(0.5 * (x + y) for x, y in zip(ba, bb))
+        def flux(sh, transverse):
+            # the center-from-faces reconstruction at j is the face form
+            # of the arrays shifted by one
+            z = sh(zeta, 1)
+            if use_velocity:
+                bu = weno_betas_left(sh(u_ff, 1), sh)
+                bv = weno_betas_left(sh(v_ff, 1), sh)
+                bl = tuple(0.5 * (x + y) for x, y in zip(bu, bv))
+            else:
+                bl = weno_betas_left(z, sh)
+            zl = _weno_combine(weno_candidates_left(z, sh), bl)
+            zr = _weno_combine(weno_candidates_right(z, sh),
+                               shift_betas_left_to_right(bl, sh))
+            return upwind_biased_product(transverse, zl, zr)
 
-        # u-equation: reconstruct ζ along y onto (f,c); the center-from-
-        # faces reconstruction at j is the face form at j+1.
-        zeta_y = shy(zeta, 1)
-        bl = avg_betas(shy(u_ff, 1), shy(v_ff, 1), shy)
-        zl = _weno_combine(weno_candidates_left(zeta_y, shy), bl)
-        zr = _weno_combine(weno_candidates_right(zeta_y, shy),
-                           shift_betas_left_to_right(bl, shy))
-        vort_u = upwind_biased_product(op.ixy_fc(v, g), zl, zr)
-
-        # v-equation: reconstruct ζ along x onto (c,f).
-        zeta_x = shx(zeta, 1)
-        bl = avg_betas(shx(u_ff, 1), shx(v_ff, 1), shx)
-        zl = _weno_combine(weno_candidates_left(zeta_x, shx), bl)
-        zr = _weno_combine(weno_candidates_right(zeta_x, shx),
-                           shift_betas_left_to_right(bl, shx))
-        vort_v = -upwind_biased_product(op.ixy_cf(u, g), zl, zr)
-        return vort_u, vort_v
+        # u-equation along y onto (f,c); v-equation along x onto (c,f)
+        return flux(shy, op.ixy_fc(v, g)), -flux(shx, op.ixy_cf(u, g))
 
     def _tendencies_conservative(self, state):
         g = self.grid
@@ -281,6 +320,7 @@ class ShallowWaterModel:
         Gh = -divU
 
         GA = self._tracer_tendency(A, h, uh, vh, divU)
+        Gu, Gv, GA = self._add_closure(Gu, Gv, GA, uh, vh, A)
         return Gu, Gv, Gh, GA
 
     def _tracer_tendency(self, A, h, Uf, Vf, divU):

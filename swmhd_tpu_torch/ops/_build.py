@@ -29,11 +29,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     # s_in, g_prev, s_out, g_out, tmp, nx, ny, hx, hy, conservative,
-    # mode_x, mode_y, dx, dy, g, f, A_bg_grad_y, dt, gamma_k, zeta_k, stream
-    "swmhd_substage": [_P] * 5 + [_I] * 7 + [_D] * 8 + [_P],
+    # mode_x, mode_y, closure, momentum, mass, tracer, stencil, dx, dy, g,
+    # f, A_bg_grad_y, nu, kappa, dt, gamma_k, zeta_k, stream
+    "swmhd_substage": [_P] * 5 + [_I] * 12 + [_D] * 10 + [_P],
     # s_in, s_out, work, gbuf, tmp, nx, ny, conservative, wall_x, wall_y,
-    # dx, dy, g, f, A_bg_grad_y, dt, n_steps, stream
-    "swmhd_multistep": [_P] * 5 + [_I] * 5 + [_D] * 6 + [_I, _P],
+    # closure, momentum, mass, tracer, stencil, dx, dy, g, f, A_bg_grad_y,
+    # nu, kappa, dt, n_steps, stream
+    "swmhd_multistep": [_P] * 5 + [_I] * 10 + [_D] * 8 + [_I, _P],
 }
 
 

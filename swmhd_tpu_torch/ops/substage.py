@@ -15,15 +15,18 @@ u, v, A.
 
 The kernel covers both formulations (vector-invariant with the jacobian
 Lorentz forcing, conservative with the divergence-form one) on any pair of
-periodic and bounded axes. Dispatch: on a CPU tensor a wrapper runs its
-plain version; on a CUDA tensor it launches the kernel or raises. A
-configuration the kernel does not cover raises ``ValueError`` on CUDA.
-Each wrapper counts its launches in ``<wrapper>.launches`` and, by
-templated branch ``(conservative, mode_x, mode_y)`` with the axis modes
+periodic and bounded axes, with any of the three advection schemes for
+momentum, mass and tracer, either vorticity stencil, and no closure, a
+Laplacian or a biharmonic one. Dispatch: on a CPU tensor a wrapper runs
+its plain version; on a CUDA tensor it launches the kernel or raises. A
+configuration the kernel does not cover (a forcing other than the
+formulation's Lorentz forcing, a grid under 8 points) raises
+``ValueError`` on CUDA. Each wrapper counts its launches in
+``<wrapper>.launches`` and, by :class:`Branch` (the templated axis modes
 :data:`PERIODIC_AXIS`, :data:`BOUNDED_AXIS` and :data:`EXCHANGED_AXIS`
-(:func:`branch_label` names it), in ``<wrapper>.launches_by_branch``;
-each plain version counts its calls in ``<function>.calls``, so a run can
-show which path it took.
+and the runtime switches; :func:`branch_label` names it), in
+``<wrapper>.launches_by_branch``; each plain version counts its calls in
+``<function>.calls``, so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -31,20 +34,30 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..grid import BOUNDED, PERIODIC
 from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
-                                    VECTOR_INVARIANT, run_steps)
+                                    VECTOR_INVARIANT, VELOCITY_STENCIL,
+                                    VORTICITY_STENCIL, run_steps)
 from ..models.state import Clock, State
+from ..physics.diffusion import BiharmonicDiffusion, LaplacianDiffusion
 
-# intermediates between the kernels of one substage, by formulation
+# intermediates between the kernels of one substage, by formulation; a
+# biharmonic closure adds its three inner Laplacians
 N_TMP = {VECTOR_INVARIANT: 12, CONSERVATIVE: 16}
+BIHARMONIC_TMP = 3
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
 # how the kernel reads past the end of an axis (the AxisMode of
 # csrc/substage.cuh): wrap, clamp at a wall, or read the exchanged halo
 PERIODIC_AXIS, BOUNDED_AXIS, EXCHANGED_AXIS = 0, 1, 2
+# the runtime switches of csrc/substage.cuh (Scheme, Closure, Stencil)
+SCHEMES = ("weno5", "upwind3", "centered2")
+CLOSURES = (type(None), LaplacianDiffusion, BiharmonicDiffusion)
+CLOSURE_NAMES = ("none", "laplacian", "biharmonic")
+STENCILS = (VELOCITY_STENCIL, VORTICITY_STENCIL)
 # the Lorentz forcing each formulation's kernel computes in-kernel:
 # (forcing key, tag set by the forcing factory, factory name)
 LORENTZ = {
@@ -99,21 +112,63 @@ def multistep_reference(model, s, dt, n_steps):
 
 # -- kernel wrappers -------------------------------------------------------------
 
-def kernel_params(model):
-    """``(conservative, wall_x, wall_y, dx, dy, g, f, A_bg_grad_y)`` of a
-    model the kernel covers; ``ValueError`` naming what it does not cover
-    otherwise."""
+class Branch(NamedTuple):
+    """What a launch ran: the templated branch (formulation, axis modes)
+    and the runtime switches (closure, scheme of each advection, vorticity
+    stencil), as indices of :data:`CLOSURES`, :data:`SCHEMES` and
+    :data:`STENCILS`; the switches default to the default model's."""
+    conservative: int
+    mode_x: int
+    mode_y: int
+    closure: int = 0
+    momentum: int = 0
+    mass: int = 0
+    tracer: int = 0
+    stencil: int = 0
+
+
+class KernelParams(NamedTuple):
+    """The kernel's arguments for a model, in the entry points' order."""
+    conservative: int
+    wall_x: int
+    wall_y: int
+    closure: int
+    momentum: int
+    mass: int
+    tracer: int
+    stencil: int
+    dx: float
+    dy: float
+    g: float
+    f: float
+    gamma: float
+    nu: float
+    kappa: float
+
+    @property
+    def branch(self) -> Branch:
+        return Branch(*self[:8])
+
+
+def kernel_params(model) -> KernelParams:
+    """The kernel's arguments for a model it covers; ``ValueError`` naming
+    what it does not cover otherwise."""
     g = model.grid
-    if model.closure is not None:
-        raise ValueError("the CUDA substage has no closure "
-                         "(ROADMAP.md, queue 1 item 3)")
     if g.Nx < MIN_POINTS or g.Ny < MIN_POINTS:
         raise ValueError(f"the CUDA substage needs Nx, Ny >= {MIN_POINTS}; "
                          f"got {g.Nx}x{g.Ny}")
+    schemes = []
     for name in ("momentum_advection", "mass_advection", "tracer_advection"):
-        if getattr(model, name).name != "weno5":
-            raise ValueError(f"the CUDA substage needs WENO5 {name} "
-                             f"(ROADMAP.md, queue 1 item 3)")
+        scheme = getattr(model, name).name
+        if scheme not in SCHEMES:
+            raise ValueError(f"the CUDA substage has no {name} {scheme!r}; "
+                             f"it has {', '.join(SCHEMES)}")
+        schemes.append(SCHEMES.index(scheme))
+    closure = model.closure
+    if type(closure) not in CLOSURES:
+        raise ValueError(f"the CUDA substage has no closure "
+                         f"{type(closure).__name__}; it has "
+                         f"LaplacianDiffusion and BiharmonicDiffusion")
     gamma = model.A_background_gradient_y
     key, tag, factory = LORENTZ[model.formulation]
     forcing = dict(model.forcing)
@@ -124,24 +179,45 @@ def kernel_params(model):
                          f"formulation computes exactly its Lorentz forcing "
                          f"({factory} with the model's "
                          f"A_background_gradient_y)")
-    return (int(model.formulation == CONSERVATIVE),
-            int(g.topology_x == BOUNDED), int(g.topology_y == BOUNDED),
-            g.dx, g.dy, float(model.gravitational_acceleration),
-            float(model.coriolis.f), float(gamma))
+    conservative = model.formulation == CONSERVATIVE
+    stencil = STENCILS.index(model.vector_invariant_stencil)
+    if conservative:
+        # it reconstructs no mass and has no vorticity flux: these options
+        # change nothing it computes, so they keep the default's branch
+        schemes[1] = stencil = 0
+    return KernelParams(
+        int(conservative),
+        int(g.topology_x == BOUNDED), int(g.topology_y == BOUNDED),
+        CLOSURES.index(type(closure)), *schemes, stencil,
+        g.dx, g.dy, float(model.gravitational_acceleration),
+        float(model.coriolis.f), float(gamma),
+        float(getattr(closure, "nu", 0.0)),
+        float(getattr(closure, "kappa", 0.0)))
 
 
 def branch_label(branch) -> str:
-    """``(conservative, mode_x, mode_y)`` as ``"<formulation>, <periodic |
-    bounded x | bounded y | bounded xy>[, exchanged x | y | xy]"``."""
-    conservative, mode_x, mode_y = branch
+    """A :class:`Branch` (or its first fields) as ``"<formulation>,
+    <periodic | bounded x | bounded y | bounded xy>[, exchanged x | y |
+    xy]"``, then what differs from the default model: ``laplacian`` or
+    ``biharmonic``, ``<scheme> momentum | mass | tracer``, ``vorticity
+    stencil``."""
+    b = Branch(*branch)
     parts = []
     for mode, word in ((BOUNDED_AXIS, "bounded"),
                        (EXCHANGED_AXIS, "exchanged")):
-        axes = "x" * (mode_x == mode) + "y" * (mode_y == mode)
+        axes = "x" * (b.mode_x == mode) + "y" * (b.mode_y == mode)
         if axes:
             parts.append(f"{word} {axes}")
-    return ", ".join([CONSERVATIVE if conservative else VECTOR_INVARIANT]
-                     + (parts or ["periodic"]))
+    parts = [CONSERVATIVE if b.conservative else VECTOR_INVARIANT,
+             *(parts or ["periodic"])]
+    if b.closure:
+        parts.append(CLOSURE_NAMES[b.closure])
+    for name in ("momentum", "mass", "tracer"):
+        if getattr(b, name):
+            parts.append(f"{SCHEMES[getattr(b, name)]} {name}")
+    if b.stencil:
+        parts.append(f"{STENCILS[b.stencil]} stencil")
+    return ", ".join(parts)
 
 
 def _check_fields(s):
@@ -152,8 +228,14 @@ def _check_fields(s):
         raise ValueError("stacked fields must be contiguous")
 
 
+def n_tmp(model) -> int:
+    """The intermediates of one substage of ``model``."""
+    return (N_TMP[model.formulation]
+            + BIHARMONIC_TMP * isinstance(model.closure, BiharmonicDiffusion))
+
+
 def _intermediates(model, s):
-    return torch.empty((N_TMP[model.formulation],) + tuple(s.shape[1:]),
+    return torch.empty((n_tmp(model),) + tuple(s.shape[1:]),
                        dtype=s.dtype, device=s.device)
 
 
@@ -193,9 +275,10 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     if s.device.type == "cpu":
         s_new, G = substage_reference(model, s, dt, stage, g_prev, halo)
         return s_new, (G if write_G else None)
-    conservative, wall_x, wall_y, *params = kernel_params(model)
-    mode_x = EXCHANGED_AXIS if hx else wall_x
-    mode_y = EXCHANGED_AXIS if hy else wall_y
+    params = kernel_params(model)
+    branch = params.branch._replace(
+        mode_x=EXCHANGED_AXIS if hx else params.wall_x,
+        mode_y=EXCHANGED_AXIS if hy else params.wall_y)
     nx, ny = ((s.shape[1] - 2 * hx, s.shape[2] - 2 * hy) if s.dim() == 3
               else (0, 0))
     if (s.shape[0] != 4 or nx < 1 or ny < 1
@@ -220,10 +303,10 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
-             nx, ny, hx, hy, conservative, mode_x, mode_y, *params,
-             float(dt), RK3_GAMMA[stage], RK3_ZETA[stage], stream)
+             nx, ny, hx, hy, *branch, *params[8:], float(dt),
+             RK3_GAMMA[stage], RK3_ZETA[stage], stream)
     substage.launches += 1
-    substage.launches_by_branch[(conservative, mode_x, mode_y)] += 1
+    substage.launches_by_branch[branch] += 1
     _raise_on(err, "swmhd_substage")
     return s_out, g_out
 
@@ -249,7 +332,7 @@ def multistep(model, s, dt, n_steps):
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
              g.Nx, g.Ny, *params, float(dt), int(n_steps), stream)
     multistep.launches += 1
-    multistep.launches_by_branch[params[:3]] += 1
+    multistep.launches_by_branch[params.branch] += 1
     _raise_on(err, "swmhd_multistep")
     return out
 

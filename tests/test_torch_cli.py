@@ -1,9 +1,11 @@
 """The port's main path end to end on the CPU: ``swmhd_tpu_torch.cli run``
 writes the energy series and a ``final.npz`` that the JAX package restores
-and evaluates to the same energies; the port never imports JAX; and the
-stepper selection never moves a CUDA run to the CPU.
+and evaluates to the same energies, and with a closure the same files as
+the JAX package's CLI; the port never imports JAX; and the stepper
+selection never moves a CUDA run to the CPU.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -85,6 +87,44 @@ def test_cli_conservative_run_energies_match_jax(tmp_path, scenario):
     snaps = FieldTimeSeries(str(tmp_path / "fields"), "u")
     np.testing.assert_allclose(snaps[-1], np.asarray(u), rtol=1e-12,
                                atol=1e-15)
+
+
+def test_cli_closure_run_matches_jax_cli(tmp_path, monkeypatch):
+    """``--nu --kappa --biharmonic``: the port's CLI run and the JAX
+    package's CLI run with the same flags write the same final.npz and
+    energies.csv (within 1e-10)."""
+    from swmhd_tpu import cli as jcli
+    flags = ["--stop-time", "0.05", "--nu", "1e-4", "--kappa", "1e-4",
+             "--biharmonic"]
+    run(tmp_path / "port", *flags)
+    monkeypatch.setenv("SWMHD_COMPILE_CACHE", "")   # no cache under HOME
+    jcli.main(["run", SCENARIO, "--dtype", "float64", "--outdir",
+               str(tmp_path / "jax"), *flags])
+    header, rows = read_csv(tmp_path / "port" / "energies.csv")
+    jheader, jrows = read_csv(tmp_path / "jax" / "energies.csv")
+    assert header == jheader and rows.shape == jrows.shape == (6, 7)
+    np.testing.assert_allclose(rows, jrows, rtol=1e-10, atol=1e-14)
+    with np.load(tmp_path / "port" / "final.npz") as x, \
+            np.load(tmp_path / "jax" / "final.npz") as y:
+        for k in ("h", "u", "v", "A"):
+            np.testing.assert_allclose(x[k], y[k], rtol=1e-10, atol=1e-12,
+                                       err_msg=k)
+        assert int(x["iteration"]) == int(y["iteration"]) == 5
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], None),
+    (["--biharmonic"], None),
+    (["--nu", "1e-3"], ("LaplacianDiffusion", 1e-3, 0.0)),
+    (["--kappa", "2e-3", "--biharmonic"], ("BiharmonicDiffusion", 0.0,
+                                          2e-3))])
+def test_closure_flags(flags, want):
+    """A closure only where --nu or --kappa is nonzero, biharmonic with
+    --biharmonic (the JAX CLI's rule)."""
+    p = argparse.ArgumentParser()
+    cli._add_run_args(p)
+    c = cli.closure_of(p.parse_args([SCENARIO, *flags]))
+    assert (c if c is None else (type(c).__name__, c.nu, c.kappa)) == want
 
 
 def test_cli_resume_continues_the_series(tmp_path):

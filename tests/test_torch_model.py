@@ -1,7 +1,10 @@
 """swmhd_tpu_torch's model == swmhd_tpu's at float64, in both
-formulations: tendencies, RK3 steps, the scenario initial conditions, and
-the frozen 1000-step trajectories ``tests/fixtures/jacobian_64.npz``
-(vector-invariant) and ``divergence_64.npz`` (conservative).
+formulations: tendencies, RK3 steps, the scenario initial conditions, the
+frozen 1000-step trajectories ``tests/fixtures/jacobian_64.npz``
+(vector-invariant) and ``divergence_64.npz`` (conservative), and the
+branches beyond the scenarios' model: Laplacian and biharmonic closures,
+the VorticityStencil, Centered2 and UpwindBiased3 momentum, mass and
+tracer advection (to 1e-10), and the halo widths.
 
 Both packages get the same numpy state (the JAX initial condition, carried
 across with ``convert.state_from_numpy``). States agree to 1e-12 of each
@@ -21,6 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+import swmhd_tpu
+import swmhd_tpu_torch
+from chip_smoke import OPTIONS, initial_fields, option_kwargs
 from swmhd_tpu import scenarios as jscen
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, VECTOR_INVARIANT, CONSERVATIVE,
@@ -205,11 +211,97 @@ def test_frozen_divergence_trajectory_1000_steps():
 
 
 def test_unported_configurations_raise():
+    """Only an unknown formulation or vorticity stencil raises; a closure
+    and Centered2 momentum, which raised before they were ported, build
+    models whose tendencies are JAX's."""
     tg = TGrid.regular(16, 16, (-5, 5), (-5, 5), dtype=torch.float64,
                        device="cpu")
     with pytest.raises(ValueError, match="unknown formulation"):
         TModel(grid=tg, formulation="divergence")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        TModel(grid=tg, formulation=CONSERVATIVE, closure=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        TModel(grid=tg, momentum_advection="centered2")
+    with pytest.raises(ValueError, match="unknown vector_invariant_stencil"):
+        TModel(grid=tg, vector_invariant_stencil="ζ")
+    for formulation, options in ((CONSERVATIVE, "laplacian"),
+                                 (VECTOR_INVARIANT, "centered2 momentum")):
+        jm, js, tm, ts = branch_pair(formulation, ("periodic", "periodic"),
+                                     options, N=16)
+        assert_fields_close(tm.tendencies(ts), jm.tendencies(js),
+                            tol=1e-10, what=options, shared_scale=True)
+
+
+# viscosity of each closure: ν·dt/dx^p of 0.002 (Laplacian) and 0.0002
+# (biharmonic) at 32² and dt = 0.01
+BRANCH_NU = {"laplacian": 2e-3, "biharmonic": 2e-5}
+# (formulation, topology, options): the vorticity stencil and the mass
+# scheme act only in the vector-invariant formulation
+BRANCH_CASES = [(f, t, o) for f in (VECTOR_INVARIANT, CONSERVATIVE)
+                for t in (("periodic", "periodic"), ("bounded", "bounded"))
+                for o in OPTIONS
+                if f == VECTOR_INVARIANT or o != "vorticity stencil"]
+
+
+def branch_pair(formulation, topology, options, N=32):
+    """``(jax model, jax state, port model, port state)`` of
+    tests/test_torch_substage.py's configuration (walled fields where
+    there are walls) with ``options``, an entry of chip_smoke.OPTIONS, or
+    none."""
+    conservative = formulation == CONSERVATIVE
+    gamma = -0.05 if "bounded" in topology else 0.0
+    ext = ((-5.0, 5.0), (-5.0, 5.0))
+    kw = dict(formulation=formulation, A_background_gradient_y=gamma)
+    nu = BRANCH_NU.get(options, 0.0)
+    jkw = option_kwargs(options, swmhd_tpu, nu)
+    tkw = option_kwargs(options, swmhd_tpu_torch, nu)
+    jm = JModel(grid=JGrid.regular(N, N, *ext, topology=topology,
+                                   dtype=jnp.float64),
+                coriolis=JFPlane(1.0),
+                forcing=j_div_forcing(gamma) if conservative
+                else j_forcing(gamma), **kw, **jkw)
+    js = jm.initial_state(**initial_fields(jnp, h_bump=0.05,
+                                           walls="bounded" in topology))
+    tm = TModel(grid=TGrid.regular(N, N, *ext, topology=topology,
+                                   dtype=torch.float64, device="cpu"),
+                coriolis=TFPlane(1.0),
+                forcing=t_div_forcing(gamma) if conservative
+                else t_forcing(gamma), **kw, **tkw)
+    return jm, js, tm, to_torch(js)
+
+
+@pytest.mark.parametrize("formulation,topology,options", BRANCH_CASES,
+                         ids=[f"{f}-{t[0]}-{o}" for f, t, o in BRANCH_CASES])
+def test_branch_tendencies_match_jax(formulation, topology, options):
+    """Each new branch's tendencies equal JAX's within 1e-10 of the
+    largest tendency (the JAX model runs eagerly: no compile per branch),
+    and differ from the default model's by more than 100 times that, so
+    a kernel that ignored the option would fail its comparison."""
+    jm, js, tm, ts = branch_pair(formulation, topology, options)
+    got = tm.tendencies(ts)
+    assert_fields_close(got, jm.tendencies(js), tol=1e-10, what=options,
+                        shared_scale=True)
+    base = branch_pair(formulation, topology, None)[2].tendencies(ts)
+    scale = max(float(getattr(got, k).abs().max()) for k in FIELDS)
+    moved = max(float((getattr(got, k) - getattr(base, k)).abs().max())
+                for k in FIELDS)
+    assert moved > 100 * 1e-10 * scale, (options, moved / scale)
+
+
+@pytest.mark.parametrize("options", [None, "laplacian", "biharmonic",
+                                     "centered2 momentum",
+                                     "upwind3 mass, centered2 tracer"])
+def test_halo_and_exchange_halo_match_jax(options):
+    jm, _, tm, _ = branch_pair(VECTOR_INVARIANT, ("periodic", "periodic"),
+                               options, N=16)
+    assert (tm.halo, tm.exchange_halo) == (jm.halo, jm.exchange_halo)
+    if options == "biharmonic":
+        assert tm.exchange_halo == 7
+
+
+def test_biharmonic_steps_match_jax():
+    """Two RK3 steps with a biharmonic closure on walled grids."""
+    for formulation in (VECTOR_INVARIANT, CONSERVATIVE):
+        jm, js, tm, ts = branch_pair(formulation, ("periodic", "bounded"),
+                                     "biharmonic", N=16)
+        state = js
+        for _ in range(2):
+            state = jm.step(state, 0.01)
+        assert_fields_close(tm.step_fn(0.01, 2)(ts), state, tol=1e-12,
+                            what=formulation)

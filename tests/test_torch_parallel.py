@@ -29,7 +29,9 @@ import pytest
 import torch
 
 import torch_dist_worker as W
-from chip_smoke import bench_model, initial_fields
+import swmhd_tpu
+import swmhd_tpu_torch
+from chip_smoke import OPTIONS, bench_model, initial_fields, option_kwargs
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
                        divergence_lorentz_forcing as jdivforce)
@@ -63,15 +65,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def jax_case(formulation, topo):
-    """The JAX twin of ``torch_dist_worker``'s ``case``."""
+def jax_case(formulation, topo, options=None):
+    """The JAX twin of ``torch_dist_worker``'s ``case``, with ``options``
+    (an entry of chip_smoke.OPTIONS) as the worker runs them."""
     g = JGrid.regular(W.N, W.N, (-5.0, 5.0), (-5.0, 5.0),
                       topology=W.TOPOLOGIES[topo], dtype=jnp.float64)
     gam = W.gamma(topo)
     model = JModel(grid=g, formulation=formulation, coriolis=JFPlane(1.0),
                    forcing=(jdivforce(gam) if formulation == "conservative"
                             else jforce(gam)),
-                   A_background_gradient_y=gam)
+                   A_background_gradient_y=gam,
+                   **option_kwargs(options, swmhd_tpu, W.BIHARMONIC_NU))
     return model, model.initial_state(
         **initial_fields(jnp, h_bump=0.05, walls="B" in topo))
 
@@ -150,6 +154,10 @@ def run(tmp_path_factory):
             if (formulation, topo) not in refs:
                 m, s = cases[(formulation, topo)]
                 refs[(formulation, topo)] = jax_steps(m, s, W.DT, W.STEPS)
+        for formulation, topo, _ in W.BIHARMONIC:
+            m = jax_case(formulation, topo, "biharmonic")[0]
+            refs[("biharmonic", formulation, topo)] = jax_steps(
+                m, cases[(formulation, topo)][1], W.DT, W.STEPS)
         m, s = cases[("vector_invariant", "PP")]
         refs["6 steps"] = jax_steps(m, refs[("vector_invariant", "PP")],
                                     W.DT, W.STEPS)
@@ -194,6 +202,20 @@ def test_fused_step_matches_jax(run, label):
     else:
         want = refs[(label.split("_PP")[0][len("fused_"):], "PP")]
     assert_state_close(work / (label + ".npz"), want)
+
+
+@pytest.mark.parametrize("kind", ["plain", "fused"])
+@pytest.mark.parametrize("formulation,topo,mesh", W.BIHARMONIC,
+                         ids=[W.name("biharmonic", *c) for c in W.BIHARMONIC])
+def test_biharmonic_decomposed_step_matches_jax(run, kind, formulation,
+                                                topo, mesh):
+    """Four ranks, a halo of 7, a biharmonic closure: both decomposed
+    steppers give JAX's single-device step."""
+    work, refs, _ = run
+    t, it = assert_state_close(
+        work / (W.name(f"biharmonic_{kind}", formulation, topo, mesh)
+                + ".npz"), refs[("biharmonic", formulation, topo)])
+    assert it == W.STEPS
 
 
 @pytest.mark.parametrize("stepper", ["plain", "fused"])
@@ -382,6 +404,25 @@ def test_tile_substage_reference_is_the_substage_on_a_tile(formulation, topo,
                     want.abs().max())
 
 
+@pytest.mark.parametrize("formulation", W.FORMULATIONS)
+def test_biharmonic_tile_substage_reference_on_a_halo_of_7(formulation):
+    """With a biharmonic closure the tile substage's plain version on
+    2x2 tiles padded by model.exchange_halo = 7 gives the global
+    substage's values; padded by 2 it does not."""
+    tm, st = bench_model(48, torch.float64, "cpu", formulation, walls=True)
+    tm = dataclasses.replace(tm, **option_kwargs(
+        "biharmonic", swmhd_tpu_torch, W.BIHARMONIC_NU))
+    assert tm.exchange_halo == 7
+    s = K.stack(st)
+    s1, g1 = K.substage_reference(tm, s, W.DT, 0)
+    b = (24, 48, 0, 24)
+    for H, exact in ((7, True), (2, False)):
+        cut = torch.as_tensor(tile_xy(s.numpy(), b, H, H, W.TOPOLOGIES["PP"]))
+        t1, h1 = K.substage(tm, cut, W.DT, 0, None, halo=(H, H))
+        err = float((h1 - g1[:, 24:, :24]).abs().max())
+        assert (err <= 1e-13 * float(g1.abs().max())) == exact, (H, err)
+
+
 def test_tile_substage_rejects_a_padded_wall():
     tm = bench_model(16, torch.float64, "cpu",
                      topology=W.TOPOLOGIES["PB"], gamma=-0.05)[0]
@@ -396,6 +437,10 @@ def test_branch_labels_name_the_axis_modes():
     assert K.branch_label((1, E, B)) == "conservative, bounded y, exchanged x"
     assert K.branch_label((0, E, E)) == "vector_invariant, exchanged xy"
     assert K.branch_label((0, P, P)) == "vector_invariant, periodic"
+    assert K.branch_label((0, E, E, 2)) == \
+        "vector_invariant, exchanged xy, biharmonic"
+    assert K.branch_label(K.Branch(1, P, P, momentum=2, tracer=1)) == \
+        "conservative, periodic, centered2 momentum, upwind3 tracer"
 
 
 def test_meshes_and_what_is_not_ported():
@@ -481,21 +526,29 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("formulation", W.FORMULATIONS)
-@pytest.mark.parametrize("topo,mesh", [("PP", (2, 2)), ("PB", (4, 1)),
-                                       ("PP", (4, 1)), ("PP", (1, 4))])
+@pytest.mark.parametrize("topo,mesh,options", [
+    ("PP", (2, 2), None), ("PB", (4, 1), None), ("PP", (4, 1), None),
+    ("PP", (1, 4), None), ("PP", (2, 2), "biharmonic"),
+    ("PB", (4, 1), "laplacian"),
+    *(("PP", (2, 2), o) for o in OPTIONS[2:])])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_tile_kernel_is_the_substage_kernel_on_a_tile(cuda, formulation,
-                                                     topo, mesh, dtype):
+                                                     topo, mesh, options,
+                                                     dtype):
     """On the card the tile kernel runs the single-device kernel's
     expressions in the same order at every unpadded point: G and the
-    state agree bit for bit; and it agrees with its plain version."""
+    state agree bit for bit; and it agrees with its plain version. The
+    halo is model.exchange_halo (7 with the biharmonic closure)."""
     tm, st = bench_model(64, dtype, cuda, formulation, W.TOPOLOGIES[topo],
                          W.gamma(topo), walls=True)
+    tm = dataclasses.replace(tm, **option_kwargs(
+        options, swmhd_tpu_torch, W.BIHARMONIC_NU if options else 0.0))
     s = K.stack(st)
     s1, g1 = K.substage(tm, s, W.DT, 0)
     px, py = mesh
     nx, ny = 64 // px, 64 // py
-    hx, hy = (6 if px > 1 else 0), (6 if py > 1 else 0)
+    H = tm.exchange_halo
+    hx, hy = (H if px > 1 else 0), (H if py > 1 else 0)
     K.reset_counters()
     for ix in range(px):
         for iy in range(py):
@@ -514,5 +567,6 @@ def test_tile_kernel_is_the_substage_kernel_on_a_tile(cuda, formulation,
     assert K.substage.launches == px * py
     E = K.EXCHANGED_AXIS
     assert set(K.substage.launches_by_branch) == {
-        (int(formulation == "conservative"), E if px > 1 else K.PERIODIC_AXIS,
-         E if py > 1 else K.kernel_params(tm)[2])}
+        K.kernel_params(tm).branch._replace(
+            mode_x=E if px > 1 else K.PERIODIC_AXIS,
+            mode_y=E if py > 1 else K.kernel_params(tm).wall_y)}

@@ -1,8 +1,9 @@
-"""swmhd_tpu_torch Coriolis, both Lorentz forces and their forcing hooks
-== swmhd_tpu's on the same random float64 fields at 32×48, for periodic
-and bounded axes.
+"""swmhd_tpu_torch Coriolis, both Lorentz forces and their forcing hooks,
+the staggered Laplacians and both diffusion closures == swmhd_tpu's on
+the same random float64 fields at 32×48, for periodic and bounded axes.
 
-Tolerance max|Δ| <= 1e-13·max(1, max|ref|): same formulas, same order.
+Tolerance max|Δ| <= 1e-13·max(1, max|ref|), 1e-12 for the Laplacians
+and closures: same formulas, same order.
 """
 
 import jax.numpy as jnp
@@ -13,9 +14,11 @@ import torch
 from swmhd_tpu import Grid as JGrid
 from swmhd_tpu import physics as jphys
 from swmhd_tpu import forcing as jforcing
+from swmhd_tpu.physics import diffusion as jdiff
 from swmhd_tpu_torch import Grid as TGrid
 from swmhd_tpu_torch import physics as tphys
 from swmhd_tpu_torch import forcing as tforcing
+from swmhd_tpu_torch.physics import diffusion as tdiff
 
 torch.set_num_threads(1)
 
@@ -117,3 +120,35 @@ def test_divergence_forcing_hook_matches_jax(gamma):
         assert_close(g_, w_)
     assert tfn.divergence_lorentz_A_bg_grad_y == gamma
     assert not hasattr(tfn, "jacobian_lorentz_A_bg_grad_y")
+
+
+# -- diffusion closures ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("name", ["laplacian_u", "laplacian_v",
+                                  "laplacian_c"])
+def test_laplacians_match_jax(topology, name):
+    jg, tg = twin_grids(topology)
+    a = inputs(6)["u"]
+    assert_close(getattr(tdiff, name)(torch.from_numpy(a), tg),
+                 getattr(jdiff, name)(jnp.asarray(a), jg), tol=1e-12,
+                 what=name)
+
+
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("kind", ["LaplacianDiffusion",
+                                  "BiharmonicDiffusion"])
+def test_closures_match_jax(topology, kind):
+    """ν and κ of each closure on u, v and the tracer; its halo."""
+    jg, tg = twin_grids(topology)
+    f = inputs(7)
+    jc = getattr(jdiff, kind)(nu=2e-3, kappa=3e-3)
+    tc = getattr(tdiff, kind)(nu=2e-3, kappa=3e-3)
+    assert tc.halo == jc.halo == (1 if kind == "LaplacianDiffusion" else 2)
+    for method, key in (("tendency_u", "u"), ("tendency_v", "v"),
+                        ("tendency_c", "A")):
+        got = getattr(tc, method)(torch.from_numpy(f[key]), tg)
+        want = getattr(jc, method)(jnp.asarray(f[key]), jg)
+        assert_close(got, want, tol=1e-12, what=method)
+        assert float(got.abs().max()) > 1e-3, method

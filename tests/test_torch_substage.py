@@ -12,6 +12,8 @@ Tests marked ``cuda`` run the kernel itself and skip without a card:
 ``python -m pytest tests/test_torch_substage.py -m cuda`` on the GPU.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,14 +22,17 @@ import torch
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
                        divergence_lorentz_forcing as jdivforce)
-from swmhd_tpu.ops.fused_step import fused_step_fn, resident_step_fn
+import swmhd_tpu
+from swmhd_tpu.ops.fused_step import (build_fused_calls, fused_step_fn,
+                                      resident_step_fn)
 from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
                              FPlane as TFPlane,
                              jacobian_lorentz_forcing as tforce,
                              divergence_lorentz_forcing as tdivforce)
 from swmhd_tpu_torch.convert import state_from_numpy
+import swmhd_tpu_torch
 from swmhd_tpu_torch.ops import substage as K
-from chip_smoke import initial_fields
+from chip_smoke import OPTIONS, initial_fields, option_kwargs, stable_nu
 
 torch.set_num_threads(1)
 
@@ -52,22 +57,26 @@ def torch_model(N=32, dtype=torch.float64, device="cpu", topology=None,
 
 
 def jax_pair(N=32, formulation="vector_invariant",
-             topology=("periodic", "periodic"), gamma=0.0):
+             topology=("periodic", "periodic"), gamma=0.0, options=None,
+             nu=0.0):
     """The same model and initial state in both packages (the vortex is
-    the transport in the conservative formulation)."""
+    the transport in the conservative formulation), with ``options`` (an
+    entry of chip_smoke.OPTIONS; closures of viscosity ``nu``)."""
     conservative = formulation == "conservative"
     g = JGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
                       topology=topology, dtype=jnp.float64)
     jm = JModel(grid=g, formulation=formulation, coriolis=JFPlane(1.0),
                 forcing=jdivforce(gamma) if conservative else jforce(gamma),
-                A_background_gradient_y=gamma)
+                A_background_gradient_y=gamma,
+                **option_kwargs(options, swmhd_tpu, nu))
     js = jm.initial_state(**ic(jnp, walls="bounded" in topology))
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
                           device="cpu", dtype=torch.float64)
     tm = torch_model(N, topology=topology, formulation=formulation,
                      forcing=tdivforce(gamma) if conservative
                      else tforce(gamma),
-                     A_background_gradient_y=gamma)
+                     A_background_gradient_y=gamma,
+                     **option_kwargs(options, swmhd_tpu_torch, nu))
     return jm, js, tm, ts
 
 
@@ -121,6 +130,23 @@ def test_multistep_reference_matches_resident_kernel_branches(case):
     want = resident_step_fn(jm, 0.01, n_steps=3, interpret=True)(js)
     assert_close(K.multistep_reference(tm, K.stack(ts), 0.01, 3), want,
                  1e-12)
+
+
+def test_substage_reference_matches_windowed_kernel_biharmonic():
+    """One substage of the JAX K1 kernel (interpret mode) with a
+    biharmonic closure at 16² against the plain substage: the new state
+    and G."""
+    jm, js, tm, ts = jax_pair(16, options="biharmonic", nu=2e-5)
+    calls, _, H = build_fused_calls(jm, 0.01, tile_x=8, halo=8,
+                                    interpret=True)
+    pad = lambda f: jnp.concatenate([f[-H:], f, f[:H]], axis=0)
+    out = calls[0](jnp.zeros((1,), jnp.float64),
+                   *(pad(getattr(js, k)) for k in FIELDS))
+    s_new, G = K.substage_reference(tm, K.stack(ts), 0.01, 0)
+    for n, k in enumerate(FIELDS):
+        for got, want in ((s_new[n], out[n][H:-H]), (G[n], out[4 + n])):
+            w = np.asarray(want)
+            assert np.abs(got.numpy() - w).max() <= 1e-12 * np.abs(w).max()
 
 
 @pytest.mark.parametrize("case", sorted(BRANCHES))
@@ -187,13 +213,59 @@ def test_kernel_params_cover_the_branches(case):
     formulation, topology, gamma = RESIDENT_BRANCHES[case]
     _, _, tm, _ = jax_pair(16, formulation, topology, gamma)
     params = K.kernel_params(tm)
-    assert params[:3] == (int(formulation == "conservative"),
-                          int(topology[0] == "bounded"),
-                          int(topology[1] == "bounded"))
-    assert params[3:] == (tm.grid.dx, tm.grid.dy, 9.81, 1.0, gamma)
+    assert params.branch == (int(formulation == "conservative"),
+                             int(topology[0] == "bounded"),
+                             int(topology[1] == "bounded"), 0, 0, 0, 0, 0)
+    assert params[8:] == (tm.grid.dx, tm.grid.dy, 9.81, 1.0, gamma, 0.0,
+                          0.0)
     walls = "x" * (topology[0] == "bounded") + "y" * (topology[1] == "bounded")
     label = f"bounded {walls}" if walls else "periodic"
-    assert K.branch_label(params[:3]) == f"{formulation}, {label}"
+    assert K.branch_label(params.branch) == f"{formulation}, {label}"
+
+
+# the model options and the kernel's runtime switches they set:
+# (closure, momentum, mass, tracer, stencil) and the label's tail
+OPTION_SWITCHES = {
+    "laplacian": ((1, 0, 0, 0, 0), "laplacian"),
+    "biharmonic": ((2, 0, 0, 0, 0), "biharmonic"),
+    "vorticity stencil": ((0, 0, 0, 0, 1), "vorticity stencil"),
+    "centered2 momentum": ((0, 2, 0, 0, 0), "centered2 momentum"),
+    "upwind3 momentum": ((0, 1, 0, 0, 0), "upwind3 momentum"),
+    "upwind3 mass, centered2 tracer": ((0, 0, 1, 2, 0),
+                                       "upwind3 mass, centered2 tracer"),
+    "centered2 mass, upwind3 tracer": ((0, 0, 2, 1, 0),
+                                       "centered2 mass, upwind3 tracer"),
+}
+
+
+@pytest.mark.parametrize("options", OPTIONS)
+def test_kernel_params_take_the_options(options):
+    """Every model option is a runtime switch of the kernel: accepted, with
+    the closure's ν and κ, and named by its branch label."""
+    _, _, tm, _ = jax_pair(16, "vector_invariant", ("periodic", "bounded"),
+                           -0.05, options, nu=1e-4)
+    params = K.kernel_params(tm)
+    switches, tail = OPTION_SWITCHES[options]
+    assert params.branch == (0, 0, 1, *switches)
+    closure = options in ("laplacian", "biharmonic")
+    assert (params.nu, params.kappa) == ((1e-4, 1.5 * 1e-4) if closure
+                                         else (0.0, 0.0))
+    assert K.branch_label(params.branch) == \
+        f"vector_invariant, bounded y, {tail}"
+    assert K.n_tmp(tm) == 12 + 3 * (options == "biharmonic")
+
+
+@pytest.mark.parametrize("options", [o for o in OPTIONS
+                                     if "mass" in o or "stencil" in o])
+def test_conservative_kernel_params_keep_only_used_options(options):
+    """The conservative formulation reconstructs no mass and has no
+    vorticity flux: those options leave its branch the default's, while
+    the tracer's scheme stays."""
+    _, _, tm, _ = jax_pair(16, "conservative", ("periodic", "bounded"),
+                           -0.05, options)
+    closure, momentum, _, tracer, _ = OPTION_SWITCHES[options][0]
+    assert K.kernel_params(tm).branch == (1, 0, 1, closure, momentum, 0,
+                                          tracer, 0)
 
 
 UNSUPPORTED = {
@@ -205,7 +277,8 @@ UNSUPPORTED = {
     "divergence forcing on vector_invariant": dict(forcing=tdivforce()),
     "no Lorentz forcing": dict(forcing=()),
     "background gradient mismatch": dict(A_background_gradient_y=-0.05),
-    "upwind3 mass advection": dict(mass_advection="upwind3"),
+    "a closure of another package": dict(
+        closure=swmhd_tpu.LaplacianDiffusion(nu=1e-3)),
     "grid below 8": dict(N=4),
 }
 
@@ -236,9 +309,8 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
                                        (torch.float32, 2e-5)])
 def test_kernel_matches_plain_on_card(cuda, case, dtype, tol):
-    """G of one substage (relative to the largest G) and 10 RK3 steps
-    (relative to the largest field) at 64² on the card, in every branch,
-    and the rows next to each wall on their own."""
+    """The kernel against the plain version at 64² in every branch of
+    the default model's options."""
     formulation, topology, gamma = RESIDENT_BRANCHES.get(
         case, ("vector_invariant", ("periodic", "periodic"), 0.0))
     conservative = formulation == "conservative"
@@ -247,6 +319,16 @@ def test_kernel_matches_plain_on_card(cuda, case, dtype, tol):
                      forcing=tdivforce(gamma) if conservative
                      else tforce(gamma),
                      A_background_gradient_y=gamma)
+    assert_kernel_matches_plain(tm, tol)
+    assert K.substage.launches == 1 and K.multistep.launches == 1
+
+
+def assert_kernel_matches_plain(tm, tol):
+    """G of one substage (relative to the largest G) and 10 RK3 steps
+    (relative to the largest field) of the 64² model ``tm`` on the card
+    against the plain version, over the grid and over the four rows next
+    to each wall on their own; the launch counters start from 0."""
+    topology = (tm.grid.topology_x, tm.grid.topology_y)
     s = K.stack(tm.initial_state(**ic(torch, walls="bounded" in topology)))
     K.reset_counters()
     _, G = K.substage(tm, s, 0.005, 0)
@@ -265,7 +347,35 @@ def test_kernel_matches_plain_on_card(cuda, case, dtype, tol):
         assert float((G[sl] - G_ref[sl]).abs().max()) \
             <= tol * float(G_ref.abs().max())
         assert float((x[sl] - y[sl]).abs().max()) <= tol * float(y.abs().max())
-    assert K.substage.launches == 1 and K.multistep.launches == 1
+
+
+# (formulation, topology, options) of the kernel-vs-plain test of the
+# new branches on the card
+OPTION_CASES = [(f, t, o) for f in ("vector_invariant", "conservative")
+                for t in (("periodic", "periodic"), ("bounded", "bounded"))
+                for o in OPTIONS
+                if f == "vector_invariant" or o != "vorticity stencil"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("formulation,topology,options", OPTION_CASES,
+                         ids=[f"{f}-{t[0]}-{o}" for f, t, o in OPTION_CASES])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 2e-5)])
+def test_option_kernel_matches_plain_on_card(cuda, formulation, topology,
+                                             options, dtype, tol):
+    """The kernel against the plain version at 64² in each new branch;
+    the closures at ν·dt/dx^p = 0.01."""
+    gamma = -0.05 if "bounded" in topology else 0.0
+    conservative = formulation == "conservative"
+    tm = torch_model(64, dtype, cuda, topology=topology,
+                     formulation=formulation,
+                     forcing=tdivforce(gamma) if conservative
+                     else tforce(gamma), A_background_gradient_y=gamma)
+    tm = dataclasses.replace(tm, **option_kwargs(
+        options, swmhd_tpu_torch, stable_nu(tm.grid, 0.005, options)))
+    assert_kernel_matches_plain(tm, tol)
+    assert set(K.substage.launches_by_branch) == {K.kernel_params(tm).branch}
 
 
 @pytest.mark.cuda

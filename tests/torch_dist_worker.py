@@ -26,6 +26,11 @@ PLAIN = [(f, t, m) for f in FORMULATIONS for t in ("PB", "BB")
 # version on the CPU); the low_B_low_U scenario runs at (4, 1) besides
 FUSED = [(f, "PP", (2, 2)) for f in FORMULATIONS] + [
     ("vector_invariant", "PP", (1, 4))]
+# (formulation, topology key, mesh) with a biharmonic closure, by the
+# plain step and the kernel stepper: the halo grows to 7
+BIHARMONIC = [("vector_invariant", "PP", (2, 2)),
+              ("conservative", "PB", (4, 1))]
+BIHARMONIC_NU = 5e-4       # ν·dt/dx⁴ ≈ 0.004 at 64²
 SCENARIO = "64x64_low_B_low_U"
 SERIES_STEPS = 4
 FIELD_STEPS, FIELD_EVERY = 2 * STEPS, STEPS
@@ -51,9 +56,11 @@ def main():
                       MASTER_ADDR="localhost", MASTER_PORT=port)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
+    import dataclasses
     import torch
     torch.set_num_threads(1)
-    from chip_smoke import bench_model
+    import swmhd_tpu_torch
+    from chip_smoke import bench_model, option_kwargs
     from swmhd_tpu_torch import checkpoint, diagnostics, scenarios
     from swmhd_tpu_torch.convert import state_from_numpy, state_to_numpy
     from swmhd_tpu_torch.io import FieldWriter, ScalarSeriesWriter
@@ -143,6 +150,19 @@ def main():
         assert "py == 1" in str(e), e
     else:
         raise AssertionError("bounded y on a sharded y axis was accepted")
+
+    # -- both steppers with a biharmonic closure, on a halo of 7
+    for formulation, topo, mesh in BIHARMONIC:
+        model, state = case(formulation, topo)
+        model = dataclasses.replace(model, **option_kwargs(
+            "biharmonic", swmhd_tpu_torch, BIHARMONIC_NU))
+        dd = DomainDecomposition(model, make_mesh(shape=mesh))
+        assert dd.halo == 7, dd.halo
+        assert dd.kernel_halo() == tuple(7 if n > 1 else 0 for n in mesh)
+        for kind, fn in (("plain", dd.step_fn), ("fused", dd.fused_step_fn)):
+            out = fn(DT, STEPS)(dd.shard_state(state))
+            save(name(f"biharmonic_{kind}", formulation, topo, mesh),
+                 dd.gather_state(out))
 
     # -- a Simulation with an energy series through both steppers
     model, state = case("vector_invariant", "PP")
