@@ -82,16 +82,32 @@ each printing lines of findings; any failure exits non-zero:
    bound, 300 tile launches a rank). With two cards or more the 2048² run
    repeats with one rank per card over NCCL.
 
+9. the 2-D tile probes (``csrc/tile.cu``): the probe path, the entry
+   points ``swmhd_tpu_torch.probes.exp_dma``, ``exp_dma2`` and
+   ``exp_fused2d`` with their default specs (the window probe bitwise
+   equal to x + 1 for every spec that fits, the shared-memory refusal for
+   exactly the specs over the card's opt-in limit; the wrap probe bitwise
+   in all four cases; the tile tendency at 2048² float32); then each load
+   probe against its plain version (bitwise), the tile tendency over
+   SWEEP_TILES × SWEEP_HALOS × every split at 2048² float32 (2e-5 of each
+   field's scale, or no farther from the float64 G than twice the float32
+   plain G) and at 256² float64 (1e-11), against its plain version and,
+   in the full split, against the whole-grid ``swmhd_substage``'s G; each
+   entry point timed from a CUDA graph of its launches, beside its plain
+   version and, for the load probes, the one PyTorch call that computes
+   the same (``x_padded[HX:HX+N, HY:HY+N] + 1``).
+
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
 runs of phase 6. Phase 8's runs are the decomposed main path: each rank
 zeroes its counters just before its run and reports them just after.
-Comparisons with the plain versions happen outside those windows. The
-last two lines are a JSON object of per-kernel findings (one entry per
-entry point and branch, each with its bound: the larger of the bytes it
-must move over 3.35 TB/s and the plain version's arithmetic, counted on
-the CPU, over 67 TFLOP/s) and the result line ``{"ok": true, "device":
-{...}}``.
+Phase 9's probe runs are the probe path: the tile counters are zeroed
+just before them and read just after. Comparisons with the plain versions
+happen outside those windows. The last two lines are a JSON object of
+per-kernel findings (one entry per entry point and branch, or probe shape,
+each with its bound: the larger of the bytes it must move over 3.35 TB/s
+and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s)
+and the result line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --worker dd <dir>               (under torchrun)
     python3 chip_smoke.py --worker cli <dir> <name> <formulation> [flags]
@@ -818,6 +834,243 @@ def decomposed_cli(K, cli, formulation, tmp, tile_launches, flags=()):
         fail(f"expected 300 tile launches a rank, got {per_rank}")
 
 
+# -- phase 9: the 2-D tile probes --------------------------------------------
+
+PROBE_REPLACES = {"swmhd_window_probe": "benchmarks/exp_dma.py:21",
+                  "swmhd_wrap_probe": "benchmarks/exp_dma2.py:22",
+                  "swmhd_tendency_tile": "benchmarks/exp_fused2d.py:72"}
+TILE_SOURCE = "swmhd_tpu_torch/csrc/tile.cu"
+# the tile tendency's comparison sweep: tile shapes, halos (the least, 3,
+# and the TPU probe's 8), each split; float32 at BENCH_N, float64 at
+# SMOKE_N
+SWEEP_TILES, SWEEP_HALOS = ((32, 32), (16, 64), (64, 16)), (3, 8)
+
+
+def graph_timed(fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed, CUDA events: the device's time without the host's
+    cost of each launch (a 1024² load probe runs for microseconds)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return timed(graph.replay, 1)[0] / reps
+
+
+def tendency_parts(model, st, split):
+    """exp_fused2d.py's ``tendency_parts`` with the port's operators: the
+    fields of G that ``split`` writes, computed without the others."""
+    import torch
+    from swmhd_tpu_torch import operators as op
+    from swmhd_tpu_torch.advection import upwind_biased_product
+    if split == "full":
+        return model.tendencies(st).fields()
+    g, (h, u, v, A) = model.grid, st.fields()
+    if split == "mom":
+        zeta = op.vorticity_ff(u, v, g)
+        vu, vv = model._weno_vorticity_flux(u, v, zeta, g)
+        KB = (op.kinetic_energy_cc(u, v, g)
+              + model.gravitational_acceleration * h)
+        Gu = vu - op.ddx_f(KB, g) + model.coriolis.tendency_u(v, g)
+        Gv = vv - op.ddy_f(KB, g) + model.coriolis.tendency_v(u, g)
+        zero = torch.zeros_like(h)
+        return model._apply_forcing(st, Gu, Gv, zero, zero)[:2]
+    ms = model.mass_advection
+    Uf = upwind_biased_product(u, *ms.both_x_f(h, g))
+    Vf = upwind_biased_product(v, *ms.both_y_f(h, g))
+    divU = op.ddx_c_flux(Uf, g) + op.ddy_c_flux(Vf, g)
+    return -divU, model._tracer_tendency(A, h, Uf, Vf, divU)
+
+
+def split_ops_per_point(split):
+    """Arithmetic per point of :func:`tendency_parts`, float32, counted on
+    the CPU at 64²."""
+    import torch
+    from swmhd_tpu_torch.probes import build
+    model, st = build(64, torch.float32, "cpu")
+    return count_ops(lambda: tendency_parts(model, st, split)) / 64 ** 2
+
+
+def field_errors(a, b):
+    """max |a - b| of each field (stacked) over max |b| of that field."""
+    return [rel_err(x, y) for x, y in zip(a, b)]
+
+
+def g_within(got, plain, g64, bound):
+    """PERF.md §2's rule for G, field by field: ``got`` within ``bound``
+    of the plain version's scale, or (float32 at 2048²) no farther from
+    the float64 G than twice the float32 plain G."""
+    near = field_errors(got, plain)
+    if g64 is None:
+        return max(near) <= bound, max(near)
+    far, plain_far = field_errors(got, g64), field_errors(plain, g64)
+    ok = all(e <= bound or f <= 2 * pf
+             for e, f, pf in zip(near, far, plain_far))
+    return ok, max(near)
+
+
+def tile_sweep(T, K, N, dtype, bound, smi):
+    """The tile tendency over SWEEP_TILES × SWEEP_HALOS × every split at
+    N² against its plain version, and the full split against the
+    whole-grid substage's G; in float32 also against the float64 G.
+    Returns ``{(TX, TY, halo, split): (max abs err vs plain, plain ms)}``."""
+    import torch
+    from swmhd_tpu_torch.models.state import State
+    from swmhd_tpu_torch.probes import build
+    model, st = build(N, dtype, "cuda")
+    s = torch.stack(st.fields())
+    G_sub = K.substage(model, s, BENCH_DT, 0)[1]
+    g64 = None
+    if dtype == torch.float32:
+        model64, _ = build(N, torch.float64, "cuda")
+        g64 = torch.stack(model64.tendencies(State(*s.double())).fields())
+    found = {}
+    for tile in SWEEP_TILES:
+        for halo in SWEEP_HALOS:
+            for split in T.SPLITS:
+                rows = list(T.SPLIT_FIELDS[split])
+                got = T.tendency_tiles(model, s, tile, halo, split)
+                plain_ms, plain = timed(lambda: T.tendency_tiles_reference(
+                    model, s, tile, halo, split), 1)
+                ref64 = None if g64 is None else g64[rows]
+                ok, err = g_within(got, plain, ref64, bound)
+                line = (f"{N}^2 {dtype} tile {tile[0]}x{tile[1]} halo "
+                        f"{halo} {split}: kernel vs plain rel err {err:.2e}")
+                if ref64 is not None:
+                    line += (f", from the f64 G kernel "
+                             f"{max(field_errors(got, ref64)):.2e} / plain "
+                             f"{max(field_errors(plain, ref64)):.2e}")
+                if split == "full":
+                    ok_sub, sub_err = g_within(got, G_sub, g64, bound)
+                    ok &= ok_sub
+                    line += (f"; vs swmhd_substage's G {sub_err:.2e}, "
+                             f"bitwise {bool(torch.equal(got, G_sub))}")
+                say(9, line + f"; bound {bound:g}")
+                if not (finite([got]) and ok):
+                    fail(f"tile tendency disagrees: {line}")
+                found[(*tile, halo, split)] = (
+                    float((got - plain).abs().max()), plain_ms)
+    return found
+
+
+def tiles_phase(smi):
+    """Phase 9; the entries of the kernels line for tile.cu."""
+    import torch
+    from swmhd_tpu_torch.ops import substage as K
+    from swmhd_tpu_torch.ops import tile as T
+    from swmhd_tpu_torch.probes import build, exp_dma, exp_dma2, exp_fused2d
+    limit = T.smem_limit()
+    # the probe path: the three entry points with their default specs,
+    # the counters zeroed just before and read just after
+    T.reset_counters()
+    dma, dma2 = exp_dma.main([]), exp_dma2.main([])
+    fused = exp_fused2d.main([])
+    launched = {f.__name__: dict(f.launches_by_shape)
+                for f in (T.window_probe, T.wrap_probe, T.tendency_tiles)}
+    plain = (T.window_probe_reference.calls + T.wrap_probe_reference.calls
+             + T.tendency_tiles_reference.calls)
+    say(9, f"probe path launches: {launched}; plain calls {plain}; "
+           f"opt-in shared memory per block {limit} B")
+    if plain:
+        fail(f"plain versions ran {plain} times on the probe path")
+    dma_specs = [tuple(int(v) for v in r["spec"].split(",")) for r in dma]
+    for spec, r in zip(dma_specs, dma):
+        # a window over the limit is refused, and only such a window
+        if T.window_smem_bytes(*spec[:4]) > limit:
+            ok = (not r["ok"] and r["error"] == "ValueError"
+                  and "shared memory" in r["why"])
+        else:
+            ok = (r["ok"] and r["bitwise"]
+                  and launched["window_probe"].get(spec))
+        if not ok:
+            fail(f"window probe {spec}: {r}")
+    for r in dma2:
+        if not (r["ok"] and r["bitwise"]
+                and launched["wrap_probe"].get(r["spec"])):
+            fail(f"wrap probe {r['spec']}: {r}")
+    for r in fused:
+        TX, TY, H, split = r["spec"].split(",")
+        key = (int(TX), int(TY), int(H), split)
+        if not (r["ok"] and launched["tendency_tiles"].get(key)):
+            fail(f"tile tendency probe {r['spec']}: {r}")
+
+    # outside the counted window: timing, bounds and the sweep
+    entries = []
+
+    def entry(name, shape, launches, err, ms, plain_ms, nbytes, ops,
+              library_ms):
+        bound_ms, bound_by = least_time(nbytes, ops)
+        entries.append({
+            "name": f"{name} [{shape}]", "route": "cuda",
+            "source": TILE_SOURCE, "replaces": PROBE_REPLACES[name],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+        say(9, f"{name} [{shape}] on {smi}: {ms:.4f} ms (CUDA graph), plain "
+               f"{plain_ms:.4f} ms, library "
+               + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+               + f"; bound {bound_ms:.4g} ms ({bound_by}); launches "
+               f"{launches}; max abs err {err:.3g}")
+
+    N = 1024
+    x = exp_dma.ramp(N, "cuda")
+    for spec in dma_specs:
+        TX, TY, HX, HY, load = spec
+        if not launched["window_probe"].get(spec):
+            continue
+        xp = T.wrap_pad(x, HX, HY).contiguous()
+        out = T.window_probe(xp, *spec)
+        plain_ms, ref = timed(lambda: T.window_probe_reference(xp, *spec), 3)
+        if not (torch.equal(out, ref) and torch.equal(out, x + 1.0)):
+            fail(f"window probe {spec} differs from its plain version")
+        entry("swmhd_window_probe",
+              f"{TX}x{TY}, halo {HX}x{HY}, {T.LOADS[load]}",
+              launched["window_probe"][spec], 0.0,
+              graph_timed(lambda: T.window_probe(xp, *spec), 50), plain_ms,
+              4 * (xp.numel() + N * N), N * N,
+              graph_timed(lambda: xp[HX:HX + N, HY:HY + N] + 1.0, 50))
+    xp = T.wrap_pad(x, T.WRAP_H, 0).contiguous()
+    H = T.WRAP_H
+    for case in T.WRAP_CASES:
+        out = T.wrap_probe(xp, case)
+        plain_ms, ref = timed(lambda: T.wrap_probe_reference(xp, case), 3)
+        if not (torch.equal(out, ref) and torch.equal(out, x + 1.0)):
+            fail(f"wrap probe {case} differs from its plain version")
+        entry("swmhd_wrap_probe", case, launched["wrap_probe"][case], 0.0,
+              graph_timed(lambda: T.wrap_probe(xp, case), 50), plain_ms,
+              4 * (xp.numel() + N * N), N * N,
+              graph_timed(lambda: xp[H:H + N] + 1.0, 50))
+
+    f32 = tile_sweep(T, K, BENCH_N, torch.float32, F32_BOUND, smi)
+    tile_sweep(T, K, SMOKE_N, torch.float64, F64_BOUND, smi)
+    model, st = build(BENCH_N, torch.float32, "cuda")
+    s = torch.stack(st.fields())
+    ops = {split: split_ops_per_point(split) for split in T.SPLITS}
+    pts = BENCH_N * BENCH_N
+    for r in fused:
+        TX, TY, H, split = r["spec"].split(",")
+        key = (int(TX), int(TY), int(H), split)
+        if key not in f32:
+            fail(f"the probe's spec {r['spec']} is outside the sweep "
+                 f"(SWMHD_PROBE set?)")
+        n_out = len(T.SPLIT_FIELDS[split])
+        entry("swmhd_tendency_tile", f"{TX}x{TY}, halo {H}, {split}",
+              launched["tendency_tiles"][key], f32[key][0],
+              graph_timed(lambda: T.tendency_tiles(model, s, key[:2], key[2],
+                                                   split), 20),
+              f32[key][1], 4 * (4 + n_out) * pts, ops[split] * pts, None)
+    say(9, "float32 operations per point of the plain tendency parts: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ops.items()))
+    return entries
+
+
 def main():
     try:
         import torch
@@ -839,6 +1092,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # 1 -------------------------------------------------------------------
+    t_start = time.perf_counter()
     nvcc = command_output([_build._nvcc(), "--version"]).splitlines()[-1]
     smi = command_output(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"]).splitlines()[0]
@@ -1260,6 +1514,12 @@ def main():
     say(8, "decomposed main-path launches by branch: " + json.dumps(
         {K.branch_label(b): n for b, n in tile_launches.items()}))
 
+    # 9 -------------------------------------------------------------------
+    t9 = time.perf_counter()
+    tile_entries = tiles_phase(smi)
+    say(9, f"phase 9 took {time.perf_counter() - t9:.1f} s; the script "
+           f"{time.perf_counter() - t_start:.1f} s so far")
+
     if "jax" in sys.modules:
         fail("jax was imported")
     ops = {}              # (branch, per) -> operations per point
@@ -1285,6 +1545,7 @@ def main():
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None})
+    kernels += tile_entries
     say("bounds", "float32 operations per point of the plain versions "
         "(substage 0 / RK3 step): " + "; ".join(
             f"[{K.branch_label(b)}] {per} {n:.1f}"

@@ -58,49 +58,6 @@ enum Tmp {
 static_assert(kNumTmp == 12 && kNumTmpBiharmonic == 15,
               "N_TMP of ops/substage.py");
 
-// WENO5 reconstruction of ζ onto the flux point from windows z[k], uf[k],
-// vf[k] = value at offset k - 2 (k = 0..5) along the reconstruction axis:
-// candidates from ζ, weights from the averaged betas of ℑu and ℑv at
-// (f,f) (velocity; uf, vf are read only then) or from ζ's own. At a
-// bounded axis' last point (last) the right betas are the left ones: the
-// reference's shift of the betas is clamped.
-template <typename T>
-__device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
-                                               const T* vf, bool velocity,
-                                               bool last, T& zl, T& zr) {
-  T b0, b1, b2, r0, r1, r2;   // left betas at this face and at the next
-  if (velocity) {
-    T ua0, ua1, ua2, va0, va1, va2, ub0, ub1, ub2, vb0, vb1, vb2;
-    betas_left(uf[0], uf[1], uf[2], uf[3], uf[4], ua0, ua1, ua2);
-    betas_left(vf[0], vf[1], vf[2], vf[3], vf[4], va0, va1, va2);
-    if (last) {
-      ub0 = ua0; ub1 = ua1; ub2 = ua2;
-      vb0 = va0; vb1 = va1; vb2 = va2;
-    } else {
-      betas_left(uf[1], uf[2], uf[3], uf[4], uf[5], ub0, ub1, ub2);
-      betas_left(vf[1], vf[2], vf[3], vf[4], vf[5], vb0, vb1, vb2);
-    }
-    b0 = T(0.5) * (ua0 + va0);
-    b1 = T(0.5) * (ua1 + va1);
-    b2 = T(0.5) * (ua2 + va2);
-    r0 = T(0.5) * (ub0 + vb0);
-    r1 = T(0.5) * (ub1 + vb1);
-    r2 = T(0.5) * (ub2 + vb2);
-  } else {
-    betas_left(z[0], z[1], z[2], z[3], z[4], b0, b1, b2);
-    if (last) {
-      r0 = b0; r1 = b1; r2 = b2;
-    } else {
-      betas_left(z[1], z[2], z[3], z[4], z[5], r0, r1, r2);
-    }
-  }
-  T p0, p1, p2;
-  cands_left(z[0], z[1], z[2], z[3], z[4], p0, p1, p2);
-  zl = weno_combine(p0, p1, p2, b0, b1, b2);
-  cands_right(z[1], z[2], z[3], z[4], z[5], p0, p1, p2);
-  zr = weno_combine(p0, p1, p2, r2, r1, r0);
-}
-
 // (left, right) of ζ on the flux point at (i, j) along axis A, the
 // reconstruction axis, of n points at index q of it. WENO5 reconstructs
 // the shifted arrays ζ, ℑu, ℑv at the face form (windows shifted, then

@@ -27,15 +27,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+BOTH = ("f32", "f64")
+# name -> (argtypes, the suffixes it is defined with; () for the bare name)
 _SIGNATURES = {
     # s_in, g_prev, s_out, g_out, tmp, nx, ny, hx, hy, conservative,
     # mode_x, mode_y, closure, momentum, mass, tracer, stencil, dx, dy, g,
     # f, A_bg_grad_y, nu, kappa, dt, gamma_k, zeta_k, stream
-    "swmhd_substage": [_P] * 5 + [_I] * 12 + [_D] * 10 + [_P],
+    "swmhd_substage": ([_P] * 5 + [_I] * 12 + [_D] * 10 + [_P], BOTH),
     # s_in, s_out, work, gbuf, tmp, nx, ny, conservative, wall_x, wall_y,
     # closure, momentum, mass, tracer, stencil, dx, dy, g, f, A_bg_grad_y,
     # nu, kappa, dt, n_steps, stream
-    "swmhd_multistep": [_P] * 5 + [_I] * 10 + [_D] * 8 + [_I, _P],
+    "swmhd_multistep": ([_P] * 5 + [_I] * 10 + [_D] * 8 + [_I, _P], BOTH),
+    # (tile.cu) the card's opt-in shared memory per block
+    "swmhd_smem_limit": ([], ()),
+    # x_padded, out, nx, ny, tx, ty, hx, hy, async, stream
+    "swmhd_window_probe": ([_P] * 2 + [_I] * 7 + [_P], ("f32",)),
+    # x_padded, out, n, m, tx, h, case, stream
+    "swmhd_wrap_probe": ([_P] * 2 + [_I] * 5 + [_P], ("f32",)),
+    # s, out, nx, ny, tx, ty, halo, split, dx, dy, g, f, stream
+    "swmhd_tendency_tile": ([_P] * 2 + [_I] * 6 + [_D] * 4 + [_P], BOTH),
 }
 
 
@@ -47,14 +57,14 @@ class Library:
         self.build_seconds = seconds
         self.log = log
         self._lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
-                fn = getattr(self._lib, f"{name}_{suffix}")
+        for name, (argtypes, suffixes) in _SIGNATURES.items():
+            for symbol in ([f"{name}_{s}" for s in suffixes] or [name]):
+                fn = getattr(self._lib, symbol)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
 
-    def fn(self, name: str, suffix: str):
-        return getattr(self._lib, f"{name}_{suffix}")
+    def fn(self, name: str, suffix: str = ""):
+        return getattr(self._lib, f"{name}_{suffix}" if suffix else name)
 
 
 _LOADED = {}

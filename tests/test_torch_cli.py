@@ -163,7 +163,9 @@ def test_port_never_imports_jax():
             "swmhd_tpu_torch.simulation, swmhd_tpu_torch.io, "
             "swmhd_tpu_torch.io.readers, swmhd_tpu_torch.ops.substage, "
             "swmhd_tpu_torch.ops._build, swmhd_tpu_torch.parallel.multihost, "
-            "swmhd_tpu_torch.parallel.decomposition; "
+            "swmhd_tpu_torch.parallel.decomposition, swmhd_tpu_torch.ops.tile, "
+            "swmhd_tpu_torch.probes.exp_dma, swmhd_tpu_torch.probes.exp_dma2, "
+            "swmhd_tpu_torch.probes.exp_fused2d; "
             "bad = [m for m in sys.modules if m in ('jax', 'swmhd_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'swmhd_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
