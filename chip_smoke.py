@@ -87,15 +87,24 @@ each printing lines of findings; any failure exits non-zero:
    ``exp_fused2d`` with their default specs (the window probe bitwise
    equal to x + 1 for every spec that fits, the shared-memory refusal for
    exactly the specs over the card's opt-in limit; the wrap probe bitwise
-   in all four cases; the tile tendency at 2048² float32); then each load
-   probe against its plain version (bitwise), the tile tendency over
+   in all four cases; every default spec and case through the load
+   probes' "tma" branch; the tile tendency at 2048² float32), and the
+   load probes on inputs TMA cannot describe (UNALIGNED_SPECS, a base 4
+   bytes off 16), which must take the "cp.async" branch (one block a
+   tile) and be bitwise; then each load probe's spec and case through
+   the "tma" branch at every P of ``ops.tile.LOAD_P`` the shape allows,
+   through the "cp.async" branch and as the library call, bitwise against
+   x + 1 and the plain version and timed in turns, the default plan and
+   the library call also with a cold L2; the tile tendency over
    SWEEP_TILES × SWEEP_HALOS × every split at 2048² float32 (2e-5 of each
    field's scale, or no farther from the float64 G than twice the float32
    plain G) and at 256² float64 (1e-11), against its plain version and,
    in the full split, against the whole-grid ``swmhd_substage``'s G; each
    entry point timed from a CUDA graph of its launches, beside its plain
    version and, for the load probes, the one PyTorch call that computes
-   the same (``x_padded[HX:HX+N, HY:HY+N] + 1``).
+   the same (``x_padded[HX:HX+N, HY:HY+N] + 1``). The kernels line has
+   one entry a load-probe spec or case for its default plan and one for
+   each "cp.async" launch of the probe path, timed on its own 64² input.
 
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
@@ -844,6 +853,9 @@ TILE_SOURCE = "swmhd_tpu_torch/csrc/tile.cu"
 # and the TPU probe's 8), each split; float32 at BENCH_N, float64 at
 # SMOKE_N
 SWEEP_TILES, SWEEP_HALOS = ((32, 32), (16, 64), (64, 16)), (3, 8)
+# window-probe specs at 64² whose 66-float rows TMA cannot describe: the
+# cp.async branch on the probe path
+UNALIGNED_SPECS = "32,32,8,1,1;32,32,8,1,0"
 
 
 def graph_timed(fn, reps):
@@ -960,6 +972,159 @@ def tile_sweep(T, K, N, dtype, bound, smi):
     return found
 
 
+def off_16_bytes(t):
+    """A contiguous copy of ``t`` whose base is 4 bytes past a 16-byte
+    boundary: an input TMA cannot describe."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def cold_graph_timed(fn, scratch, reps=20):
+    """Mean ms of ``fn`` with the L2 cache cold: a CUDA graph of ``reps``
+    × (``scratch.zero_()``, ``fn()``) less one of ``reps`` ×
+    ``scratch.zero_()`` alone; ``scratch`` (over twice the 50 MB L2)
+    evicts ``fn``'s input between launches."""
+    both = graph_timed(lambda: (scratch.zero_(), fn()), reps)
+    return both - graph_timed(scratch.zero_, reps)
+
+
+def load_runs(T, x, specs, wrap_input):
+    """``(name, wrapper, key, rest, label, padded input, plain version)``
+    of each window spec of ``specs`` and each wrap case on ``x``, the wrap
+    probe's input ``wrap_input`` of ``x`` padded by WRAP_H rows."""
+    runs = [("swmhd_window_probe", T.window_probe, spec[:4], spec[4:],
+             f"{spec[0]}x{spec[1]}, halo {spec[2]}x{spec[3]}, "
+             f"{T.LOADS[spec[4]]}", T.wrap_pad(x, *spec[2:4]).contiguous(),
+             lambda xp, spec=spec: T.window_probe_reference(xp, *spec))
+            for spec in specs]
+    xp = wrap_input(T.wrap_pad(x, T.WRAP_H, 0).contiguous())
+    runs += [("swmhd_wrap_probe", T.wrap_probe, case, (), case, xp,
+              lambda xp, case=case: T.wrap_probe_reference(xp, case))
+             for case in T.WRAP_CASES]
+    return runs
+
+
+def probe_calls(T, probe, key, rest, xp, plans):
+    """One call a plan of ``plans``, and ``library``: the one PyTorch call
+    that computes the same, ``x_padded[HX:HX+N, HY:HY+N] + 1``."""
+    h, w = (T.WRAP_H, 0) if isinstance(key, str) else key[2:4]
+    n, m = xp.shape[0] - 2 * h, xp.shape[1] - 2 * w
+    calls = {k: (lambda plan=plan: call_probe(probe, xp, key, rest, plan))
+             for k, plan in plans.items()}
+    calls["library"] = lambda: xp[h:h + n, w:w + m] + 1.0
+    return calls
+
+
+def checked_in_turns(name, label, calls, reference, xp, x):
+    """Each call of ``calls`` bitwise x + 1 and equal to the plain
+    version, then timed from a CUDA graph of 50 in two rounds, the second
+    in reverse order. Returns (plain ms, {call: [ms, ms]})."""
+    import torch
+    plain_ms, ref = timed(lambda: reference(xp), 3)
+    for k, fn in calls.items():
+        out = fn()
+        if not (torch.equal(out, ref) and torch.equal(out, x + 1.0)):
+            fail(f"{name} [{label}] {k} differs from x + 1 or from its "
+                 f"plain version")
+    order = list(calls)
+    ms = {k: [] for k in order}
+    for keys in (order, order[::-1]):
+        for k in keys:
+            ms[k].append(graph_timed(calls[k], 50))
+    return plain_ms, ms
+
+
+def mean_of(ms):
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def load_probe_entries(T, exp_dma, dma_specs, tma_launched, launched, entry,
+                       smi):
+    """Each load probe's default spec or case at 1024²: the "tma" kernel
+    at every P of LOAD_P the shape allows, the "cp.async" kernel and the
+    library call, each output bitwise x + 1 and equal to the plain
+    version, timed in turns; the default plan and the library call also
+    with a cold L2. One kernels entry a spec or case for the default plan,
+    with its launches in ``tma_launched`` (by shape, the default specs'
+    run, all through "tma"). Then each "cp.async" launch of the probe path
+    (UNALIGNED_SPECS and the four cases on a base off 16 bytes, at 64²)
+    timed on its own input beside the library call: one entry each, with
+    its launches (``launched`` less ``tma_launched``). Bound: the bytes of
+    the interior read and the output written."""
+    import torch
+    N = 1024
+    x = exp_dma.ramp(N, "cuda")
+    scratch = torch.empty(32 << 20, device="cuda")        # 128 MB
+    specs = [s for s in dma_specs if tma_launched["window_probe"].get(s)]
+    for name, probe, key, rest, label, xp, reference in load_runs(
+            T, x, specs, lambda t: t):
+        plans = {}
+        for P in T.LOAD_P:
+            try:        # every P the shape allows
+                plan = T.load_plan(tuple(xp.shape), key, P)
+            except ValueError:
+                continue
+            plans[plan_label(plan)] = plan
+        plan = T.load_plan(tuple(xp.shape), key)
+        default = plan_label(plan)
+        plans["cp.async"] = T.load_plan(tuple(xp.shape), key,
+                                        branch="cp.async")
+        calls = probe_calls(T, probe, key, rest, xp, plans)
+        plain_ms, ms = checked_in_turns(name, label, calls, reference, xp, x)
+        mean = mean_of(ms)
+        cold = {k: cold_graph_timed(calls[k], scratch)
+                for k in (default, "library")}
+        nbytes = 8 * N * N
+        bound_ms, _ = least_time(nbytes, N * N)
+        say(9, f"{name} [{label}] on {smi}, ms (CUDA graph of 50; rounds "
+               f"1 / 2; tma P=p boxes a block x rows x columns): "
+               + "; ".join(f"{k} {v[0]:.6f} / {v[1]:.6f}"
+                           for k, v in ms.items())
+               + f"; cold L2: {default} {cold[default]:.6f}, library "
+               f"{cold['library']:.6f}; bound {bound_ms:.6f} (bytes); "
+               f"default {default}; default x bound "
+               f"{mean[default] / bound_ms:.3f}, x library "
+               f"{mean[default] / mean['library']:.3f}, cp.async x bound "
+               f"{mean['cp.async'] / bound_ms:.3f}; grid {plan.grid}")
+        shape = key if isinstance(key, str) else (*key, *rest)
+        entry(name, label, tma_launched[probe.__name__][shape], 0.0,
+              mean[default], plain_ms, nbytes, N * N, mean["library"])
+    n = 64
+    x = exp_dma.ramp(n, "cuda")
+    specs = [tuple(int(v) for v in s.split(","))
+             for s in UNALIGNED_SPECS.split(";")]
+    for name, probe, key, rest, label, xp, reference in load_runs(
+            T, x, specs, off_16_bytes):
+        plans = {"cp.async": T.load_plan(tuple(xp.shape), key,
+                                         branch="cp.async")}
+        calls = probe_calls(T, probe, key, rest, xp, plans)
+        plain_ms, ms = checked_in_turns(name, label, calls, reference, xp, x)
+        mean = mean_of(ms)
+        shape = key if isinstance(key, str) else (*key, *rest)
+        why = ("base off 16 B" if isinstance(key, str)
+               else f"{xp.shape[1]}-float rows")
+        entry(name, f"{label}, {n}^2, {why}, cp.async branch",
+              launched[probe.__name__][shape]
+              - tma_launched[probe.__name__].get(shape, 0), 0.0,
+              mean["cp.async"], plain_ms, 8 * n * n, n * n, mean["library"])
+
+
+def plan_label(plan):
+    """'tma P=p n x rows x columns' of a "tma" load plan."""
+    return (f"tma P={plan.p} {plan.nr * plan.kc}x{plan.box[0]}x"
+            f"{plan.box[1]}")
+
+
+def call_probe(probe, xp, key, rest, plan):
+    """One launch of a load probe's wrapper with ``plan``."""
+    if isinstance(key, str):
+        return probe(xp, key, plan=plan)
+    return probe(xp, *key, *rest, plan=plan)
+
+
 def tiles_phase(smi):
     """Phase 9; the entries of the kernels line for tile.cu."""
     import torch
@@ -968,19 +1133,44 @@ def tiles_phase(smi):
     from swmhd_tpu_torch.probes import build, exp_dma, exp_dma2, exp_fused2d
     limit = T.smem_limit()
     # the probe path: the three entry points with their default specs,
-    # the counters zeroed just before and read just after
+    # then the load probes on inputs TMA cannot describe; the counters
+    # zeroed just before and read just after
     T.reset_counters()
     dma, dma2 = exp_dma.main([]), exp_dma2.main([])
+    defaults = {f.__name__: dict(f.launches_by_branch)
+                for f in (T.window_probe, T.wrap_probe)}
+    tma_launched = {f.__name__: dict(f.launches_by_shape)
+                    for f in (T.window_probe, T.wrap_probe)}
+    unaligned = exp_dma.main(["--n", "64", "--spec", UNALIGNED_SPECS])
+    x64 = exp_dma.ramp(64, "cuda")
+    off = [T.wrap_probe(off_16_bytes(T.wrap_pad(x64, T.WRAP_H, 0)), case)
+           for case in T.WRAP_CASES]
     fused = exp_fused2d.main([])
     launched = {f.__name__: dict(f.launches_by_shape)
                 for f in (T.window_probe, T.wrap_probe, T.tendency_tiles)}
+    by_branch = {f.__name__: dict(f.launches_by_branch)
+                 for f in (T.window_probe, T.wrap_probe)}
     plain = (T.window_probe_reference.calls + T.wrap_probe_reference.calls
              + T.tendency_tiles_reference.calls)
-    say(9, f"probe path launches: {launched}; plain calls {plain}; "
-           f"opt-in shared memory per block {limit} B")
+    say(9, f"probe path launches: {launched}; load probes by branch: "
+           f"default specs {defaults}, all {by_branch}; plain calls "
+           f"{plain}; opt-in shared memory per block {limit} B")
     if plain:
         fail(f"plain versions ran {plain} times on the probe path")
     dma_specs = [tuple(int(v) for v in r["spec"].split(",")) for r in dma]
+    fits = sum(T.window_smem_bytes(*spec[:4]) <= limit for spec in dma_specs)
+    if defaults != {"window_probe": {"tma": fits},
+                    "wrap_probe": {"tma": len(T.WRAP_CASES)}}:
+        fail(f"a default spec or case did not take the tma branch: "
+             f"{defaults}")
+    if not (all(r["ok"] and r["bitwise"] for r in unaligned)
+            and all(torch.equal(o, x64 + 1.0) for o in off)):
+        fail(f"the cp.async branch is wrong on unaligned inputs: "
+             f"{unaligned}")
+    if (by_branch["window_probe"].get("cp.async") != len(unaligned)
+            or by_branch["wrap_probe"].get("cp.async") != len(off)):
+        fail(f"unaligned inputs did not take the cp.async branch: "
+             f"{by_branch}")
     for spec, r in zip(dma_specs, dma):
         # a window over the limit is refused, and only such a window
         if T.window_smem_bytes(*spec[:4]) > limit:
@@ -1019,34 +1209,8 @@ def tiles_phase(smi):
                + f"; bound {bound_ms:.4g} ms ({bound_by}); launches "
                f"{launches}; max abs err {err:.3g}")
 
-    N = 1024
-    x = exp_dma.ramp(N, "cuda")
-    for spec in dma_specs:
-        TX, TY, HX, HY, load = spec
-        if not launched["window_probe"].get(spec):
-            continue
-        xp = T.wrap_pad(x, HX, HY).contiguous()
-        out = T.window_probe(xp, *spec)
-        plain_ms, ref = timed(lambda: T.window_probe_reference(xp, *spec), 3)
-        if not (torch.equal(out, ref) and torch.equal(out, x + 1.0)):
-            fail(f"window probe {spec} differs from its plain version")
-        entry("swmhd_window_probe",
-              f"{TX}x{TY}, halo {HX}x{HY}, {T.LOADS[load]}",
-              launched["window_probe"][spec], 0.0,
-              graph_timed(lambda: T.window_probe(xp, *spec), 50), plain_ms,
-              4 * (xp.numel() + N * N), N * N,
-              graph_timed(lambda: xp[HX:HX + N, HY:HY + N] + 1.0, 50))
-    xp = T.wrap_pad(x, T.WRAP_H, 0).contiguous()
-    H = T.WRAP_H
-    for case in T.WRAP_CASES:
-        out = T.wrap_probe(xp, case)
-        plain_ms, ref = timed(lambda: T.wrap_probe_reference(xp, case), 3)
-        if not (torch.equal(out, ref) and torch.equal(out, x + 1.0)):
-            fail(f"wrap probe {case} differs from its plain version")
-        entry("swmhd_wrap_probe", case, launched["wrap_probe"][case], 0.0,
-              graph_timed(lambda: T.wrap_probe(xp, case), 50), plain_ms,
-              4 * (xp.numel() + N * N), N * N,
-              graph_timed(lambda: xp[H:H + N] + 1.0, 50))
+    load_probe_entries(T, exp_dma, dma_specs, tma_launched, launched, entry,
+                       smi)
 
     f32 = tile_sweep(T, K, BENCH_N, torch.float32, F32_BOUND, smi)
     tile_sweep(T, K, SMOKE_N, torch.float64, F64_BOUND, smi)

@@ -40,10 +40,12 @@ _SIGNATURES = {
     "swmhd_multistep": ([_P] * 5 + [_I] * 10 + [_D] * 8 + [_I, _P], BOTH),
     # (tile.cu) the card's opt-in shared memory per block
     "swmhd_smem_limit": ([], ()),
-    # x_padded, out, nx, ny, tx, ty, hx, hy, async, stream
-    "swmhd_window_probe": ([_P] * 2 + [_I] * 7 + [_P], ("f32",)),
-    # x_padded, out, n, m, tx, h, case, stream
-    "swmhd_wrap_probe": ([_P] * 2 + [_I] * 5 + [_P], ("f32",)),
+    # x_padded, out, nx, ny, tx, ty, hx, hy, async, branch, p, box_rows,
+    # box_cols, stream
+    "swmhd_window_probe": ([_P] * 2 + [_I] * 11 + [_P], ("f32",)),
+    # x_padded, out, n, m, tx, h, case, branch, p, box_rows, box_cols,
+    # stream
+    "swmhd_wrap_probe": ([_P] * 2 + [_I] * 9 + [_P], ("f32",)),
     # s, out, nx, ny, tx, ty, halo, split, dx, dy, g, f, stream
     "swmhd_tendency_tile": ([_P] * 2 + [_I] * 6 + [_D] * 4 + [_P], BOTH),
 }

@@ -16,14 +16,19 @@ Counterparts of the three Pallas probes of ``benchmarks/``:
   split names (:data:`SPLITS`).
 
 Dispatch: on a CPU tensor a wrapper runs its plain version; on a CUDA
-tensor it launches the kernel or raises. A window over the card's opt-in
-shared memory per block raises ``ValueError`` naming both sizes (the
-counterpart of the Mosaic refusals the JAX probes printed as FAILED); a
+tensor it launches the kernel or raises. The load probes launch the
+:class:`LoadPlan` that :func:`load_plan` makes from the input's shape:
+branch ``"tma"`` (boxes of at most 256 × 256 dealt among P blocks a tile)
+where TMA can describe the input, else ``"cp.async"`` (one block a tile).
+A window over the card's opt-in shared memory per block raises
+``ValueError`` naming both sizes (the counterpart of the Mosaic refusals
+the JAX probes printed as FAILED), whatever the plan's P; a
 model other than the probe's configuration, tiles that do not divide the
 grid and a halo under :data:`TILE_RADIUS` raise ``ValueError`` on either
 device. Each wrapper counts its launches in ``<wrapper>.launches`` and by
-shape in ``<wrapper>.launches_by_shape``; each plain version counts its
-calls in ``<function>.calls``.
+shape in ``<wrapper>.launches_by_shape``, the load probes also by branch
+in ``<wrapper>.launches_by_branch``; each plain version counts its calls
+in ``<function>.calls``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,16 @@ LOADS = {0: "plain", 1: "async"}
 WRAP_CASES = ("window", "dst3d", "src8", "when")
 WRAP_TX, WRAP_H = 32, 8
 SMEM_REFUSED = -2           # tile.cu kSmemRefused
+# the load probes' branches (tile.cu LoadBranch): "tma", boxes dealt among
+# P blocks a tile, loaded by TMA (load 1) or through registers (load 0);
+# "cp.async", one block a tile staging its whole window, for inputs TMA
+# cannot describe (a base off 16 bytes, a row pitch off 16 bytes)
+BRANCHES = ("tma", "cp.async")
+BOX_MAX = 256               # a TMA box's largest extent along a dimension
+LOAD_P = (1, 2, 4)          # the blocks a tile's window may be dealt among
+# the P each load probe takes by default and the wrap probe's box width:
+# the fastest on an H100 (PERF.md §6, chip_smoke.py phase 9)
+WINDOW_P, WRAP_P, WRAP_BOX_COLS = 4, 4, 64
 
 
 def window_smem_bytes(TX, TY, HX, HY) -> int:
@@ -82,6 +97,164 @@ def wrap_pad(a, hx, hy):
     return a
 
 
+# -- launch plans of the load probes ------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LoadPlan:
+    """How one launch of a load probe stages its windows (tile.cu
+    ``BoxPlan``). The input is ``shape`` (padded rows × ``pitch``), the
+    output ``n × m``; tile ``(i, j)``'s window is padded rows ``i·tx`` …
+    ``i·tx + tx + 2hx``, columns ``j·ty`` … ``j·ty + ty + 2hy`` (the wrap
+    probe: ``ty = m``, ``hy = 0``). Block ``(bx, by) = (j·pc + qc, i·pr +
+    qr)`` takes row band ``qr`` of ``pr`` of the tile (``tx / pr``
+    interior rows and ``hx`` halo rows on each side) and run ``qc`` of
+    ``pc`` of its column boxes: ``nr × kc`` boxes of ``box = (rows,
+    cols)``, each in ``128``-byte aligned shared memory after one 8-byte
+    barrier a box. ``halo`` (the wrap probe's src8 and when) first loads
+    ``hx`` rows into the top of each column's box. A "tma" block of the
+    window probe writes its interior by 16-byte stores from its threads;
+    one of the wrap probe, whose boxes' interior rows are dense, adds 1 in
+    place and writes each box's by a TMA store."""
+    shape: tuple
+    spec: object            # (TX, TY, HX, HY) or a case of WRAP_CASES
+    branch: str
+    p: int
+    box: tuple
+    grid: tuple             # blocks along x (columns) and y (rows)
+    smem_bytes: int
+    n: int
+    m: int
+    tx: int
+    ty: int
+    hx: int
+    hy: int
+    pr: int
+    pc: int
+    nr: int
+    kc: int
+    halo: str               # "", "src8" or "when"
+
+    def block(self, bx, by):
+        """``(boxes, halo_boxes, interior)`` of block ``(bx, by)``:
+        boxes and halo boxes as ``(row0, col0, rows, cols)`` of the padded
+        input (halo box ``k`` lands in the top rows of box ``k·nr``), the
+        interior it writes as ``(row0, col0, rows, cols)`` of the
+        output."""
+        i, qr = divmod(by, self.pr)
+        j, qc = divmod(bx, self.pc)
+        br, bc = self.box
+        band = self.tx // self.pr
+        row0 = i * self.tx + qr * band
+        col0 = j * self.ty + qc * self.kc * bc
+        boxes = [(row0 + a * br, col0 + k * bc, br, bc)
+                 for k in range(self.kc) for a in range(self.nr)]
+        hrow = self.n - self.hx if self.halo == "when" and i == 0 \
+            else i * self.tx
+        halo = ([(hrow, col0 + k * bc, self.hx, bc) for k in range(self.kc)]
+                if self.halo else [])
+        lo = max(col0, j * self.ty + self.hy)
+        hi = min(col0 + self.kc * bc, (j + 1) * self.ty + self.hy)
+        return boxes, halo, (row0, lo - self.hy, band, hi - lo)
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def _count(total, least, ok, step=1):
+    """The smallest multiple of ``step`` at least ``least`` that divides
+    ``total`` into parts for which ``ok(part)``; None if there is none."""
+    for c in range(_round_up(max(least, 1), step), total + 1, step):
+        if total % c == 0 and ok(total // c):
+            return c
+    return None
+
+
+def load_plan(shape, spec, P=None, *, branch=None, aligned=True):
+    """The :class:`LoadPlan` of a load probe on a padded input of
+    ``shape``: the window probe for ``spec = (TX, TY, HX, HY[, load])``,
+    the wrap probe for a case of :data:`WRAP_CASES`.
+
+    ``branch`` defaults to ``"tma"`` where TMA can describe the input (an
+    ``aligned`` base, a row pitch and a tile width of a multiple of 16
+    bytes), else ``"cp.async"``; ``"cp.async"`` may be asked for any
+    input. ``P`` (of :data:`LOAD_P`; ``"tma"`` only) deals a tile's window
+    among P blocks: the window probe's by row band, the wrap probe's by
+    runs of column boxes. It defaults to
+    :data:`WINDOW_P` or :data:`WRAP_P`, or the largest P below that the
+    shape allows. Boxes are the fewest that cut a block's part into equal
+    ones of at most :data:`BOX_MAX` rows and columns, columns a multiple
+    of 4 (the wrap probe's :data:`WRAP_BOX_COLS` wide where they fit).
+    Raises ``ValueError`` for a shape or P that does not fit."""
+    wrap = isinstance(spec, str)
+    if wrap:
+        n, m = _wrap_dims(shape, spec)
+        tx, ty, hx, hy = WRAP_TX, m, WRAP_H, 0
+        halo = spec if spec in ("src8", "when") else ""
+    else:
+        spec = tuple(spec[:4])
+        tx, ty, hx, hy = spec
+        n, m = _window_dims(shape, tx, ty, hx, hy)
+        halo = ""
+    pitch, py = shape[1], ty + 2 * hy
+    # (a tile width of a multiple of 4 makes an even hy follow from pitch)
+    describable = aligned and pitch % 4 == 0 and ty % 4 == 0
+    branch = branch or ("tma" if describable else "cp.async")
+    if branch not in BRANCHES:
+        raise ValueError(f"unknown branch {branch!r}; the branches are "
+                         f"{', '.join(BRANCHES)}")
+    common = dict(shape=tuple(shape), spec=spec, branch=branch, n=n, m=m,
+                  tx=tx, ty=ty, hx=hx, hy=hy, halo=halo)
+    if branch == "cp.async":
+        if P not in (None, 1):
+            raise ValueError("the cp.async branch takes one block a tile "
+                             "and its whole window: P 1")
+        px = tx + 2 * hx
+        return LoadPlan(**common, p=1, box=(px, py),
+                        grid=(m // ty, n // tx), smem_bytes=4 * px * py,
+                        pr=1, pc=1, nr=1, kc=1)
+    if not describable:
+        raise ValueError(f"TMA cannot describe the input {tuple(shape)} "
+                         f"(aligned base {aligned}, tile width {ty}, column "
+                         f"halo {hy}): its rows and boxes must start on 16 "
+                         f"bytes")
+
+    def boxes(P):
+        """(br, bc, nr, kc) at P, or None."""
+        if P not in LOAD_P or (not wrap and tx % P):
+            return None
+        rows = (tx if wrap else tx // P) + 2 * hx
+        nr = _count(rows, -(-rows // BOX_MAX), lambda r: True)
+        step = P if wrap else 1
+        if wrap and py % WRAP_BOX_COLS == 0 \
+                and (py // WRAP_BOX_COLS) % step == 0:
+            nc = py // WRAP_BOX_COLS
+        else:
+            nc = _count(py, -(-py // BOX_MAX),
+                        lambda c: c % 4 == 0 and c <= BOX_MAX, step)
+        if nc is None or (halo and nr != 1):
+            return None
+        return rows // nr, py // nc, nr, nc // step
+
+    if P is None:
+        P = WRAP_P if wrap else WINDOW_P
+        P = next((q for q in sorted(LOAD_P, reverse=True)
+                  if q <= P and boxes(q) is not None), P)
+    found = boxes(P)
+    if found is None:
+        raise ValueError(f"P = {P} (of {LOAD_P}) does not deal the "
+                         f"{tx + 2 * hx}x{py} windows of {tuple(shape)} "
+                         f"into boxes of at most {BOX_MAX}")
+    br, bc, nr, kc = found
+    nbox = nr * kc
+    pr, pc = (1, P) if wrap else (P, 1)
+    return LoadPlan(**common, p=P, box=(br, bc),
+                    grid=(m // ty * pc, n // tx * pr),
+                    smem_bytes=_round_up(8 * nbox, 128)
+                    + nbox * _round_up(4 * br * bc, 128),
+                    pr=pr, pc=pc, nr=nr, kc=kc)
+
+
 # -- plain versions -----------------------------------------------------------
 
 def window_probe_reference(x_padded, TX, TY, HX, HY, load=1):
@@ -103,7 +276,7 @@ def wrap_probe_reference(x_padded, case):
     """Each row tile's window of ``x_padded`` staged as ``case`` stages it,
     its interior rows + 1 written."""
     wrap_probe_reference.calls += 1
-    N, M = _wrap_shape(x_padded, case)
+    N, M = _wrap_dims(tuple(x_padded.shape), case)
     tx, h = WRAP_TX, WRAP_H
     out = torch.empty((N, M), dtype=x_padded.dtype, device=x_padded.device)
     buf = torch.empty((tx + 2 * h, M), dtype=x_padded.dtype,
@@ -148,29 +321,33 @@ def tendency_tiles_reference(model, s, tile=(32, 32), halo=TILE_RADIUS,
 
 # -- checks -------------------------------------------------------------------
 
-def _window_shape(x_padded, TX, TY, HX, HY, load):
-    if x_padded.dim() != 2 or min(TX, TY) < 1 or min(HX, HY) < 0:
+def _window_dims(shape, TX, TY, HX, HY):
+    if len(shape) != 2 or min(TX, TY) < 1 or min(HX, HY) < 0:
         raise ValueError(f"a 2-D padded array and positive tiles; got "
-                         f"{tuple(x_padded.shape)}, tile ({TX}, {TY}), halo "
+                         f"{tuple(shape)}, tile ({TX}, {TY}), halo "
                          f"({HX}, {HY})")
-    N, M = x_padded.shape[0] - 2 * HX, x_padded.shape[1] - 2 * HY
+    N, M = shape[0] - 2 * HX, shape[1] - 2 * HY
     if N < 1 or M < 1 or N % TX or M % TY:
         raise ValueError(f"tiles ({TX}, {TY}) do not divide the {N}x{M} "
-                         f"array inside the padded {tuple(x_padded.shape)}")
-    if load not in LOADS:
-        raise ValueError(f"load is 1 (async) or 0 (plain), not {load!r}")
+                         f"array inside the padded {tuple(shape)}")
     return N, M
 
 
-def _wrap_shape(x_padded, case):
+def _window_shape(x_padded, TX, TY, HX, HY, load):
+    if load not in LOADS:
+        raise ValueError(f"load is 1 (async) or 0 (plain), not {load!r}")
+    return _window_dims(tuple(x_padded.shape), TX, TY, HX, HY)
+
+
+def _wrap_dims(shape, case):
     if case not in WRAP_CASES:
         raise ValueError(f"unknown case {case!r}; the cases are "
                          f"{', '.join(WRAP_CASES)}")
-    N = x_padded.shape[0] - 2 * WRAP_H if x_padded.dim() == 2 else 0
+    N = shape[0] - 2 * WRAP_H if len(shape) == 2 else 0
     if N < WRAP_H or N % WRAP_TX:
         raise ValueError(f"rows of {WRAP_TX} do not divide the array inside "
-                         f"the row-padded {tuple(x_padded.shape)}")
-    return N, x_padded.shape[1]
+                         f"the row-padded {tuple(shape)}")
+    return N, shape[1]
 
 
 def _check_tiles(model, s, tile, halo, split):
@@ -239,39 +416,59 @@ def _check_input(t, dtypes=(torch.float32,)):
         raise ValueError("the input must be contiguous")
 
 
-def window_probe(x_padded, TX, TY, HX, HY, load=1):
+def _plan_for(x_padded, spec, plan):
+    """``plan``, checked against the input, or the default plan."""
+    if plan is None:
+        return load_plan(tuple(x_padded.shape), spec,
+                         aligned=x_padded.data_ptr() % 16 == 0)
+    if plan.shape != tuple(x_padded.shape) or plan.spec != spec:
+        raise ValueError(f"the plan is for {plan.spec} on {plan.shape}, not "
+                         f"{spec} on {tuple(x_padded.shape)}")
+    return plan
+
+
+def window_probe(x_padded, TX, TY, HX, HY, load=1, plan=None):
     """The interior of each ``(TX, TY)`` tile of the ``(N + 2HX, M +
     2HY)`` wrap-padded float32 array, + 1, from a window staged in shared
-    memory by asynchronous copies (``load`` 1) or through registers (0)."""
+    memory by asynchronous copies (``load`` 1) or through registers (0),
+    as ``plan`` (a :func:`load_plan` of this input; by default the
+    shape's) stages it."""
     N, M = _window_shape(x_padded, TX, TY, HX, HY, load)
     if x_padded.device.type == "cpu":
         return window_probe_reference(x_padded, TX, TY, HX, HY, load)
     _check_input(x_padded)
+    plan = _plan_for(x_padded, (TX, TY, HX, HY), plan)
     out = torch.empty((N, M), dtype=x_padded.dtype, device=x_padded.device)
     err = _lib().fn("swmhd_window_probe", "f32")(
         x_padded.data_ptr(), out.data_ptr(), N, M, TX, TY, HX, HY, load,
-        _stream(x_padded))
+        BRANCHES.index(plan.branch), plan.p, *plan.box, _stream(x_padded))
     _raise_on(err, "swmhd_window_probe", window_smem_bytes(TX, TY, HX, HY))
     window_probe.launches += 1
     window_probe.launches_by_shape[(TX, TY, HX, HY, load)] += 1
+    window_probe.launches_by_branch[plan.branch] += 1
     return out
 
 
-def wrap_probe(x_padded, case):
+def wrap_probe(x_padded, case, plan=None):
     """Rows of :data:`WRAP_TX` of the ``(N + 2·WRAP_H, M)`` row-padded
     float32 array, + 1, from a 48-row window staged in shared memory as
-    ``case`` (one of :data:`WRAP_CASES`) copies it."""
-    N, M = _wrap_shape(x_padded, case)
+    ``case`` (one of :data:`WRAP_CASES`) copies it, dealt among blocks as
+    ``plan`` (a :func:`load_plan` of this input; by default the shape's)
+    says."""
+    N, M = _wrap_dims(tuple(x_padded.shape), case)
     if x_padded.device.type == "cpu":
         return wrap_probe_reference(x_padded, case)
     _check_input(x_padded)
+    plan = _plan_for(x_padded, case, plan)
     out = torch.empty((N, M), dtype=x_padded.dtype, device=x_padded.device)
     err = _lib().fn("swmhd_wrap_probe", "f32")(
         x_padded.data_ptr(), out.data_ptr(), N, M, WRAP_TX, WRAP_H,
-        WRAP_CASES.index(case), _stream(x_padded))
+        WRAP_CASES.index(case), BRANCHES.index(plan.branch), plan.p,
+        *plan.box, _stream(x_padded))
     _raise_on(err, "swmhd_wrap_probe", wrap_smem_bytes(M))
     wrap_probe.launches += 1
     wrap_probe.launches_by_shape[case] += 1
+    wrap_probe.launches_by_branch[plan.branch] += 1
     return out
 
 
@@ -303,6 +500,8 @@ def reset_counters():
     for f in (window_probe, wrap_probe, tendency_tiles):
         f.launches = 0
         f.launches_by_shape = collections.Counter()
+    for f in (window_probe, wrap_probe):
+        f.launches_by_branch = collections.Counter()
     for f in (window_probe_reference, wrap_probe_reference,
               tendency_tiles_reference):
         f.calls = 0

@@ -9,7 +9,9 @@ plain version against a loop over window-sized models; ``probes.build``
 against ``bench.build``; the plain window and wrap loads against the JAX
 probes' own arithmetic (wrap-pad ``concatenate``, crop, + 1) for every
 default spec and case; the refusals; the CPU dispatch; the probe entry
-points' lines.
+points' lines; the load probes' launch plans (``load_plan``: box limits,
+exact cover of windows and output, shared memory, branch by shape) and a
+box-by-box emulation of them against the JAX probes' arithmetic.
 
 Tests marked ``cuda`` run the kernels of ``csrc/tile.cu`` and skip without
 a card: ``python -m pytest tests/test_torch_tile.py -m cuda`` on the GPU.
@@ -178,6 +180,179 @@ def test_wrap_probe_reference_matches_jax_probe(case):
     got = T.wrap_probe_reference(T.wrap_pad(x, T.WRAP_H, 0), case)
     np.testing.assert_array_equal(got.numpy(), jax_wrap_probe(N, case))
     assert torch.equal(got, x + 1.0)
+
+
+# -- the load probes' launch plans (ops.tile.load_plan) ----------------------
+
+SMEM_OPTIN = 232448            # an H100's opt-in shared memory per block
+UNALIGNED = (32, 32, 8, 1)     # N = 64, HY = 1: 66-float rows, 264 B
+PLAN_CASES = ([(s, P) for s in exp_dma.DEFAULT_SPECS.split(";")
+               for P in T.LOAD_P]
+              + [(c, P) for c in T.WRAP_CASES for P in T.LOAD_P]
+              + [("32,32,8,1,1", None)])
+
+
+def plan_input(spec):
+    """(N, padded shape, spec or case, TX, TY, HX, HY) of a plan case."""
+    if spec in T.WRAP_CASES:
+        return 1024, (1024 + 2 * T.WRAP_H, 1024), spec, T.WRAP_TX, 1024, \
+            T.WRAP_H, 0
+    TX, TY, HX, HY, _ = (int(v) for v in spec.split(","))
+    N = 64 if (TX, TY, HX, HY) == UNALIGNED else 1024
+    return N, (N + 2 * HX, N + 2 * HY), (TX, TY, HX, HY), TX, TY, HX, HY
+
+
+@pytest.mark.parametrize("spec,P", PLAN_CASES)
+def test_load_plan_tiles_windows_and_output(spec, P):
+    """Boxes within TMA's limits; each block's boxes cover its part of a
+    tile's window exactly once and the parts make up the window; the
+    interiors cover the output exactly once; the branch follows the
+    shape; shared memory within an H100's per block."""
+    N, shape, key, TX, TY, HX, HY = plan_input(spec)
+    plan = T.load_plan(shape, key, P)
+    assert plan.branch == ("cp.async" if key == UNALIGNED else "tma")
+    assert plan.p == (P or 1)
+    cover = torch.zeros(N, N, dtype=torch.int32)
+    windows = {}
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            boxes, halo, (r0, c0, rows, cols) = plan.block(bx, by)
+            cover[r0:r0 + rows, c0:c0 + cols] += 1
+            for br, bc in {b[2:] for b in boxes}:
+                assert (br, bc) == plan.box
+                if plan.branch == "tma":
+                    assert br <= T.BOX_MAX and bc <= T.BOX_MAX
+                    assert (4 * bc) % 16 == 0
+            # the block's boxes: a rectangle of the padded input, once
+            lo_r, lo_c = min(b[0] for b in boxes), min(b[1] for b in boxes)
+            hi_r = max(b[0] + b[2] for b in boxes)
+            hi_c = max(b[1] + b[3] for b in boxes)
+            part = torch.zeros(hi_r - lo_r, hi_c - lo_c, dtype=torch.int32)
+            for br0, bc0, br, bc in boxes:
+                part[br0 - lo_r:br0 - lo_r + br, bc0 - lo_c:bc0 - lo_c + bc] \
+                    += 1
+            assert bool((part == 1).all())
+            # it holds the block's interior with its halo rows around it
+            assert (lo_r, hi_r) == (r0, r0 + rows + 2 * HX)
+            assert lo_c <= c0 + HY and c0 + HY + cols <= hi_c
+            for hr0, hc0, hr, hc in halo:
+                assert hr == HX and hc == plan.box[1]
+                assert hr0 == (N - HX if key == "when" and r0 == 0 else r0)
+            # the parts of tile (i, j) make up its window
+            i, j = r0 // TX, c0 // TY
+            w = windows.setdefault((i, j), torch.zeros(
+                TX + 2 * HX, TY + 2 * HY, dtype=torch.int32))
+            assert lo_r >= i * TX and lo_c >= j * TY
+            assert hi_r <= i * TX + w.shape[0] and hi_c <= j * TY + w.shape[1]
+            w[lo_r - i * TX:hi_r - i * TX, lo_c - j * TY:hi_c - j * TY] = 1
+    assert bool((cover == 1).all())
+    assert len(windows) == (N // TX) * (N // TY)
+    assert all(bool((w == 1).all()) for w in windows.values())
+    nbox = plan.nr * plan.kc
+    if plan.branch == "tma":
+        assert plan.smem_bytes == (-(-8 * nbox // 128) * 128
+                                   + nbox * -(-4 * plan.box[0] * plan.box[1]
+                                              // 128) * 128)
+    else:
+        assert plan.smem_bytes == T.window_smem_bytes(TX, TY, HX, HY)
+    if T.window_smem_bytes(TX, TY, HX, HY) <= SMEM_OPTIN:
+        assert plan.smem_bytes <= SMEM_OPTIN
+
+
+def emulate_plan(plan, x_padded):
+    """What the kernels do with ``plan``, box by box, by slicing: each
+    block's boxes copied out of the input (the halo boxes first, into the
+    top of their box), then the interior each box holds written + 1."""
+    out = torch.full((plan.n, plan.m), float("nan"))
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            boxes, halo, (r0, c0, rows, cols) = plan.block(bx, by)
+            bufs = [torch.full(plan.box, float("nan")) for _ in boxes]
+            for k, (hr0, hc0, hr, hc) in enumerate(halo):
+                bufs[k * plan.nr][:hr] = x_padded[hr0:hr0 + hr, hc0:hc0 + hc]
+            for buf, (br0, bc0, br, bc) in zip(bufs, boxes):
+                buf[:] = x_padded[br0:br0 + br, bc0:bc0 + bc]
+                # the box's part of the interior, in padded coordinates
+                ir0, ir1 = max(br0, r0 + plan.hx), min(br0 + br,
+                                                        r0 + plan.hx + rows)
+                ic0 = max(bc0, c0 + plan.hy)
+                ic1 = min(bc0 + bc, c0 + plan.hy + cols)
+                if ir0 < ir1 and ic0 < ic1:
+                    out[ir0 - plan.hx:ir1 - plan.hx,
+                        ic0 - plan.hy:ic1 - plan.hy] = \
+                        buf[ir0 - br0:ir1 - br0, ic0 - bc0:ic1 - bc0] + 1.0
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_probe(key, N):
+    """The JAX probe's arithmetic for a spec or case, as numpy."""
+    if key in T.WRAP_CASES:
+        return jax_wrap_probe(N, key)
+    return jax_window_probe(N, *key)
+
+
+@pytest.mark.parametrize("spec,P", PLAN_CASES)
+def test_load_plan_emulation_matches_jax_probe(spec, P):
+    """The plan applied box by box gives the ramp + 1 bit for bit, what
+    the JAX probe computes (for the unaligned spec the ramp + 1 alone:
+    the JAX probe's N is 1024)."""
+    N, shape, key, TX, TY, HX, HY = plan_input(spec)
+    x = exp_dma.ramp(N, "cpu")
+    got = emulate_plan(T.load_plan(shape, key, P), T.wrap_pad(x, HX, HY))
+    assert torch.equal(got, x + 1.0)
+    if N == 1024:
+        np.testing.assert_array_equal(got.numpy(), jax_probe(key, N))
+
+
+@pytest.mark.parametrize("spec", [s for s in exp_dma.DEFAULT_SPECS.split(";")
+                                  if s.split(",")[4] == "1"])
+def test_load_plan_cp_async_branch_on_request(spec):
+    """The cp.async branch, asked for on a shape TMA describes: one
+    block a tile, its whole window one box, and the same output."""
+    N, shape, key, TX, TY, HX, HY = plan_input(spec)
+    plan = T.load_plan(shape, key, branch="cp.async")
+    assert (plan.branch, plan.p, plan.grid) == ("cp.async", 1,
+                                                (N // TY, N // TX))
+    assert plan.box == (TX + 2 * HX, TY + 2 * HY)
+    assert plan.smem_bytes == T.window_smem_bytes(TX, TY, HX, HY)
+    x = exp_dma.ramp(N, "cpu")
+    assert torch.equal(emulate_plan(plan, T.wrap_pad(x, HX, HY)), x + 1.0)
+
+
+WINDOW_INPUT = ((1040, 1040), (128, 128, 8, 8))
+PLAN_REFUSALS = {
+    "P 3": (*WINDOW_INPUT, dict(P=3)),
+    "P 4 on tiles of 2 rows": ((66, 64), (2, 64, 1, 0), dict(P=4)),
+    "tma on a 66-float row": ((80, 66), (32, 32, 8, 1), dict(branch="tma")),
+    "tma on an unaligned base": (*WINDOW_INPUT,
+                                 dict(branch="tma", aligned=False)),
+    "unknown branch": (*WINDOW_INPUT, dict(branch="bulk")),
+    "P 2 on the cp.async branch": (*WINDOW_INPUT,
+                                   dict(P=2, branch="cp.async")),
+    "P 2 on the wrap probe's cp.async branch": (
+        (1040, 1024), "src8", dict(P=2, branch="cp.async")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_REFUSALS))
+def test_load_plan_refusals(case):
+    shape, spec, kwargs = PLAN_REFUSALS[case]
+    with pytest.raises(ValueError):
+        T.load_plan(shape, spec, **kwargs)
+
+
+def test_load_plan_default_p_and_misaligned_base():
+    """The wrappers' default P, reduced where the shape allows no more;
+    a base off 16 bytes takes the cp.async branch."""
+    plan = T.load_plan(*WINDOW_INPUT)
+    assert (plan.p, plan.box) == (T.WINDOW_P, (48, 144))
+    plan = T.load_plan((1040, 1024), "src8")
+    assert (plan.p, plan.box) == (T.WRAP_P, (48, T.WRAP_BOX_COLS))
+    assert plan.kc == 1024 // T.WRAP_BOX_COLS // T.WRAP_P
+    assert T.load_plan((66, 64), (2, 64, 1, 0)).p == min(T.WINDOW_P, 2)
+    plan = T.load_plan((1040, 1024), "when", aligned=False)
+    assert (plan.branch, plan.p, plan.grid) == ("cp.async", 1, (1, 32))
 
 
 REFUSED = {
@@ -350,3 +525,76 @@ def test_tile_kernel_refuses_a_window_over_the_limit(cuda):
     s = torch.stack(st.fields())
     with pytest.raises(ValueError, match="opt-in limit"):
         T.tendency_tiles(model, s, (64, 64), 8, "full")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", T.LOAD_P)
+@pytest.mark.parametrize("spec", exp_dma.DEFAULT_SPECS.split(";"))
+def test_window_kernel_tma_on_card(cuda, spec, P):
+    TX, TY, HX, HY, load = (int(v) for v in spec.split(","))
+    x = exp_dma.ramp(1024, cuda)
+    xp = T.wrap_pad(x, HX, HY).contiguous()
+    plan = T.load_plan(tuple(xp.shape), (TX, TY, HX, HY), P)
+    T.reset_counters()
+    if T.window_smem_bytes(TX, TY, HX, HY) > SMEM_OPTIN:
+        # refused whatever P: the question is whether one block holds
+        # the window
+        with pytest.raises(ValueError, match="shared memory"):
+            T.window_probe(xp, TX, TY, HX, HY, load, plan)
+        assert T.window_probe.launches == 0
+        return
+    got = T.window_probe(xp, TX, TY, HX, HY, load, plan)
+    assert torch.equal(got, x + 1.0)
+    assert T.window_probe.launches_by_branch == {"tma": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", T.LOAD_P)
+@pytest.mark.parametrize("case", T.WRAP_CASES)
+def test_wrap_kernel_tma_on_card(cuda, case, P):
+    x = exp_dma.ramp(1024, cuda)
+    xp = T.wrap_pad(x, T.WRAP_H, 0).contiguous()
+    T.reset_counters()
+    got = T.wrap_probe(xp, case, T.load_plan(tuple(xp.shape), case, P))
+    assert torch.equal(got, x + 1.0)
+    assert T.wrap_probe.launches_by_branch == {"tma": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load", (1, 0))
+def test_unaligned_window_takes_cp_async_on_card(cuda, load):
+    TX, TY, HX, HY = UNALIGNED
+    x = exp_dma.ramp(64, cuda)
+    T.reset_counters()
+    got = T.window_probe(T.wrap_pad(x, HX, HY).contiguous(), TX, TY, HX, HY,
+                         load)
+    assert torch.equal(got, x + 1.0)
+    assert T.window_probe.launches_by_branch == {"cp.async": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", T.WRAP_CASES)
+def test_misaligned_base_wrap_takes_cp_async_on_card(cuda, case):
+    """A contiguous input 4 bytes off a 16-byte boundary."""
+    x = exp_dma.ramp(1024, cuda)
+    xp = T.wrap_pad(x, T.WRAP_H, 0)
+    flat = torch.empty(xp.numel() + 1, device=cuda)
+    off = flat[1:].view(xp.shape)
+    off.copy_(xp)
+    T.reset_counters()
+    assert torch.equal(T.wrap_probe(off, case), x + 1.0)
+    assert T.wrap_probe.launches_by_branch == {"cp.async": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [s for s in exp_dma.DEFAULT_SPECS.split(";")
+                                  if s != "128,1024,8,0,1"])
+def test_window_kernel_cp_async_branch_on_card(cuda, spec):
+    TX, TY, HX, HY, load = (int(v) for v in spec.split(","))
+    x = exp_dma.ramp(1024, cuda)
+    xp = T.wrap_pad(x, HX, HY).contiguous()
+    plan = T.load_plan(tuple(xp.shape), (TX, TY, HX, HY), branch="cp.async")
+    T.reset_counters()
+    assert torch.equal(T.window_probe(xp, TX, TY, HX, HY, load, plan),
+                       x + 1.0)
+    assert T.window_probe.launches_by_branch == {"cp.async": 1}
