@@ -68,7 +68,12 @@ each printing lines of findings; any failure exits non-zero:
    float32 plain G; the 128² 4×1 tile also with the biharmonic closure
    of the decomposed CLI run, halo 7), where it is timed against the
    plain version and the whole-domain substage on a grid of the tile's
-   size;
+   size; then one substage of the 2048² grid and one of a tile of its 2×2
+   mesh under torch.profiler, each formulation: a vector-invariant
+   substage must launch exactly one CUDA kernel, the tile kernel
+   (``vi_substage``); and the vector-invariant substage at 2048² in f32
+   and f64, without and with a biharmonic closure, timed at each tile
+   shape the wrapper's rule chooses from;
 8. the decomposed main path, four ranks sharing the one card over gloo
    (``torch.distributed.run``, halo slabs staged through host memory):
    the 2048² configuration in both formulations, 20 steps through
@@ -115,7 +120,11 @@ just before them and read just after. Comparisons with the plain versions
 happen outside those windows. The last two lines are a JSON object of
 per-kernel findings (one entry per entry point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
-and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s)
+and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s;
+a substage entry also names its design: ``"tile"`` for the
+vector-invariant kernel over 2-D tiles, with its tile shape, shared
+memory bytes a block, registers a thread and resident blocks an SM from
+the CUDA runtime, ``"three kernels"`` for the conservative substage)
 and the result line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --worker dd <dir>               (under torchrun)
@@ -125,12 +134,15 @@ run one rank of phase 8's runs and write its report to ``<dir>``.
 
     python3 chip_smoke.py --worker time <root>
 
-times the default model (no closure, WENO5 everywhere) of the
-``swmhd_tpu_torch`` under ``<root>`` (this checkout, or an unpacked
-archive of another commit) at phase 6's and 7's shapes: five 20-step
-multistep calls at 2048² and five runs of 20 tile substages (2048² in 2×2
-tiles), each formulation, float32; prints one JSON line. Run it for two
-trees in turns in one process group on one card to compare them.
+times the ``swmhd_tpu_torch`` under ``<root>`` (this checkout, or an
+unpacked archive of another commit) at phase 6's and 7's shapes, each
+formulation, float32, five rounds of each: the default model's 20-step
+multistep call at 2048², its substage there (a CUDA graph of 20), 20 tile
+substages of 2048² in 2×2 tiles, the biharmonic model's 20-step call;
+``128x128_low_B_low_U``'s substage and one tile of its 4×1 mesh (100
+calls, with the host's cost and as a CUDA graph); prints one JSON line.
+Run it for two trees in turns in one process group on one card to
+compare them.
 """
 
 import json
@@ -193,7 +205,7 @@ SCHEME_RUNS = [
             "tracer_advection": "centered2"}),
     (CONS, {"momentum_advection": "centered2",
             "tracer_advection": "upwind3"})]
-SOURCES = {VI: "swmhd_tpu_torch/csrc/vector_invariant.cu",
+SOURCES = {VI: "swmhd_tpu_torch/csrc/vi_tile.cuh",
            CONS: "swmhd_tpu_torch/csrc/conservative.cu"}
 REPLACES = {"swmhd_substage": "swmhd_tpu/ops/fused_step.py:176",
             "swmhd_multistep": "swmhd_tpu/ops/fused_step.py:458"}
@@ -659,6 +671,7 @@ def other_calls(K):
 def time_default(K, root):
     """The ``--worker time`` report of the package under ``root``."""
     import torch
+    from swmhd_tpu_torch import scenarios
     from swmhd_tpu_torch.ops import _build
     lib = _build.load()
     report = {"root": root, "build_s": lib.build_seconds,
@@ -670,13 +683,129 @@ def time_default(K, root):
         run20(state)
         report[f"multistep_{formulation}_ms_step"] = [
             timed(lambda: run20(state), 1)[0] / DD_STEPS for _ in range(5)]
+        s = K.stack(state)
+        report[f"substage_{formulation}_ms"] = [
+            graph_timed(lambda: K.substage(model, s, BENCH_DT, 0), 20)
+            for _ in range(5)]
         tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
-        p = cut_tile(K.stack(state), tiles[0], *halo)
+        p = cut_tile(s, tiles[0], *halo)
         K.substage(model, p, BENCH_DT, 0, halo=halo)
         report[f"tile_{formulation}_ms"] = [
             timed(lambda: K.substage(model, p, BENCH_DT, 0, halo=halo),
                   20)[0] for _ in range(5)]
+        # the biharmonic step (with a series for the warm-up, as phase 6)
+        bih = with_options(model, "biharmonic", BENCH_DT)
+        stepper = K.KernelStepper(bih)
+        stepper.step_fn(BENCH_DT, 1, lambda st: {"mass": st.h.sum()})(state)
+        run20 = stepper.step_fn(BENCH_DT, DD_STEPS)
+        report[f"multistep_{formulation}_biharmonic_ms_step"] = [
+            timed(lambda: run20(state), 1)[0] / DD_STEPS for _ in range(5)]
+        del s, p, state
+        # 128x128_low_B_low_U (walls in y): the substage, and one tile of
+        # the decomposed CLI run's 4x1 mesh; host-inclusive (CUDA events
+        # around the calls) and device time (a CUDA graph of the calls)
+        model, state, sc = scenarios.build("128x128_low_B_low_U",
+                                           formulation, dtype=torch.float32,
+                                           device="cuda")
+        s = K.stack(state)
+        tiles, halo = tile_layout(128, 128, (4, 1), model.exchange_halo)
+        p = cut_tile(s, tiles[0], *halo)
+        for name, fn in (
+                ("walled128", lambda: K.substage(model, s, sc.dt, 0)),
+                ("tile128", lambda: K.substage(model, p, sc.dt, 0,
+                                               halo=halo))):
+            fn()
+            report[f"{name}_{formulation}_ms"] = [
+                timed(fn, 100)[0] for _ in range(5)]
+            report[f"{name}_{formulation}_graph_ms"] = [
+                graph_timed(fn, 100) for _ in range(5)]
     print(json.dumps(report), flush=True)
+
+
+def design(K, branch, shape):
+    """The kernels-line fields of a substage branch's design: for the
+    vector-invariant kernel over 2-D tiles, its tile shape on ``shape``
+    (the wrapper's rule, float32), shared memory bytes a block, registers
+    a thread and resident blocks an SM from the CUDA runtime."""
+    import torch
+    b = K.Branch(*branch)
+    if b.conservative:
+        return {"design": "three kernels"}
+    tile = K.vi_tile_shape(*shape, torch.float32, b.closure == 2)
+    smem, regs, blocks = K.vi_tile_info(torch.float32, b, tile[0])
+    return {"design": "tile", "tile": list(tile), "smem_bytes": smem,
+            "registers": regs, "blocks_per_sm": blocks}
+
+
+def cuda_kernels_of(fn):
+    """Names of the CUDA kernels that one call of ``fn`` launched, from a
+    torch.profiler trace of it (after a call outside the trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def profile_substages(K, dev, smi):
+    """One vector-invariant substage on the whole 2048² grid and one on a
+    tile of its 2×2 mesh under torch.profiler: each must have launched
+    exactly one CUDA kernel, the tile kernel; the conservative substage's
+    kernels are printed beside them."""
+    import torch
+    for formulation in (VI, CONS):
+        model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
+        s = K.stack(state)
+        tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
+        p = cut_tile(s, tiles[0], *halo)
+        for label, fn in (
+                ("whole grid", lambda: K.substage(model, s, BENCH_DT, 0)),
+                ("tile", lambda: K.substage(model, p, BENCH_DT, 0,
+                                            halo=halo))):
+            names = cuda_kernels_of(fn)
+            say("profile", f"{formulation} substage, {label}, on {smi}: "
+                f"{len(names)} CUDA kernel(s): "
+                + "; ".join(n.split(">(")[0] + ">" if ">(" in n else n
+                            for n in names))
+            if formulation == VI and (len(names) != 1
+                                      or "vi_substage" not in names[0]):
+                fail(f"the vector-invariant substage ({label}) launched "
+                     f"{names}, not the one tile kernel")
+        del s, p, state
+
+
+def tile_shape_sweep(K, dev, smi):
+    """The vector-invariant substage at 2048² (f32 and f64, without and
+    with a biharmonic closure) over each tile shape of VI_TILE_X, from a
+    CUDA graph of 20 launches: the times behind the wrapper's rule,
+    printed beside the shape it picks."""
+    import torch
+    for dtype in (torch.float32, torch.float64):
+        for options in (None, "biharmonic"):
+            model, state = bench_model(BENCH_N, dtype, dev, VI)
+            model = with_options(model, options, BENCH_DT)
+            s = K.stack(state)
+            b = K.kernel_params(model).branch
+            rule = K.vi_tile_shape(BENCH_N, BENCH_N, dtype, bool(options))
+            parts = []
+            for tx in K.VI_TILE_X:
+                tile = (tx, K.VI_TILE_Y)
+                smem, regs, blocks = K.vi_tile_info(dtype, b, tx)
+                ms = graph_timed(lambda: K.substage(model, s, BENCH_DT, 0,
+                                                    tile=tile), 20)
+                parts.append(f"{tx}x{K.VI_TILE_Y} {ms:.4f} ms ({smem} B, "
+                             f"{regs} registers, {blocks} blocks an SM)")
+            say("tiles", f"vector_invariant substage {BENCH_N}^2 {dtype} "
+                f"{options or ''} on {smi} by tile shape: "
+                + "; ".join(parts) + f"; the rule takes {rule[0]}x{rule[1]}")
+            del s, state
 
 
 def worker(args):
@@ -1433,10 +1562,11 @@ def main():
         timings[K.kernel_params(model).branch] = {
             "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
                                    nbytes=48 * pts, points=pts,
-                                   per="substage"),
+                                   per="substage",
+                                   shape=(BENCH_N, BENCH_N)),
             "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
                                     nbytes=32 * pts / steps, points=pts,
-                                    per="step")}
+                                    per="step", shape=(BENCH_N, BENCH_N))}
     for formulation, kw, model, state, dt, ms_step in walled:
         s = K.stack(state)
         b = K.kernel_params(model).branch
@@ -1460,10 +1590,12 @@ def main():
                f"{sub_ms:.4f} ms, plain {sub_plain_ms:.4f} ms")
         timings[b] = {
             "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
-                                   nbytes=48 * n, points=n, per="substage"),
+                                   nbytes=48 * n, points=n, per="substage",
+                                   shape=(model.grid.Nx, model.grid.Ny)),
             "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
                                     nbytes=32 * n / 100, points=n,
-                                    per="step")}
+                                    per="step",
+                                    shape=(model.grid.Nx, model.grid.Ny))}
 
     # the 128² periodic CLI configuration per step, without and with the
     # biharmonic closure of the CLI run, checked against the plain version
@@ -1652,8 +1784,11 @@ def main():
             timings[b] = {"swmhd_substage": dict(
                 ms=ms, plain_ms=plain_ms,
                 nbytes=4 * (4 * p.shape[1] * p.shape[2] + 8 * nx * ny),
-                points=nx * ny, per="substage")}
+                points=nx * ny, per="substage", shape=(nx, ny))}
         del main_tiles, p, got, want, got64, want64
+
+    profile_substages(K, dev, smi)
+    tile_shape_sweep(K, dev, smi)
 
     # 8 -------------------------------------------------------------------
     tile_launches = {}    # branch -> launches over all ranks of phase 8
@@ -1708,7 +1843,11 @@ def main():
                                 errors[b][name == "swmhd_multistep"]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None})
+                "library_ms": None, **design(K, b, t["shape"])})
+            say("kernels", f"{kernels[-1]['name']} at {t['shape']}: "
+                + json.dumps({k: v for k, v in kernels[-1].items()
+                              if k not in ("name", "route", "source",
+                                           "replaces", "library_ms")}))
     kernels += tile_entries
     say("bounds", "float32 operations per point of the plain versions "
         "(substage 0 / RK3 step): " + "; ".join(

@@ -1,10 +1,12 @@
 // One Le–Moin RK3 substage of the shallow-water MHD model, in either
 // formulation and for any pair of periodic/bounded axes, with any of the
 // model's advection schemes, vorticity stencils and closures, written by
-// hand for Hopper (sm_90a): the entry points. The tendencies are in
-// vector_invariant.cu (vorticity flux, jacobian Lorentz force) and
-// conservative.cu (flux-form momentum, divergence-form Lorentz force);
-// shared pieces (reconstructions, Laplacians) in substage.cuh.
+// hand for Hopper (sm_90a): the entry points. The vector-invariant
+// substage (vorticity flux, jacobian Lorentz force) is one kernel over 2-D
+// tiles in vi_tile.cuh, instantiated in vector_invariant.cu (float) and
+// vector_invariant_f64.cu (double); the conservative one (flux-form
+// momentum, divergence-form Lorentz force) is conservative.cu; shared
+// pieces (reconstructions, Laplacians) in substage.cuh.
 //
 // Replaces three Pallas TPU kernels:
 //   - build_fused_calls / fused_step_fn of swmhd_tpu/ops/fused_step.py
@@ -22,44 +24,30 @@
 // TPU's full-row windows, 8-row halo and 128-lane rules are alignment rules
 // of that compiler, not of the scheme.
 //
-// What bounds it on this card. One vector-invariant substage costs about
-// 1074 flop per point in fp32 on the CUDA cores (the analytic count in
-// PERFORMANCE.md), against the bytes this first cut moves through device
-// memory per point: the first kernel reads the 4 state fields and writes 12
-// intermediates, the second reads them, the state and G_prev and writes the
-// state and G, about 44 words (176 B in fp32) per point and substage when
-// neighbour reads hit L1/L2. That is about 6 flop/B, under the card's fp32
-// balance of about 20 flop/B (67 TFLOP/s over 3.35 TB/s), so the split is
-// bound by memory traffic by design. The conservative substage moves 16
-// intermediates through three kernels, about 52 words per point; a
-// biharmonic closure adds three more intermediates to either (a write and
-// about one read each). Fusing the
-// kernels into one shared-memory tile with a halo of 6 moves only the
-// state, G_prev, the new state and G (16 words per point) and is the
-// performance work that follows this cut.
+// What bounds it on this card. One substage costs about 1100 fp32
+// operations per point on the CUDA cores against 16 words of state,
+// G_prev, new state and G that it must move: operations. The
+// vector-invariant kernel keeps its intermediates in shared memory over
+// 2-D tiles (vi_tile.cuh says how). The conservative substage is still
+// three kernels passing 16 intermediates through device memory (about 52
+// words a point, 19 with a biharmonic closure's three inner Laplacians),
+// blocks of 32 threads along y (the contiguous axis) by 8 along x; moving
+// it onto the tile machinery of vi_tile.cuh is the work that follows.
 //
-// Design. Kernels pass intermediates through device memory; no shared
-// memory; blocks of 32 threads along y (the contiguous axis) by 8 along x,
-// so a warp reads 32 neighbouring words. Each kernel is templated on the
-// value type and on each axis' mode (substage.cuh), so the periodic code
-// carries no wall logic; neighbour reads wrap (periodic), clamp (bounded)
-// or go into the halo (exchanged). The advection schemes, the vorticity
-// stencil and the closure are fields of Params, the same for every thread
-// of a launch, so a branch on them never diverges a warp. The
-// conservative kernels read them at run time for every model. The
-// vector-invariant ones are also templated on Opt: the default model (no
-// closure, WENO5, VelocityStencil) runs the kernels without it, where
-// those fields are constants, any other model the kernels with it (112
-// kernels in all); read at run time in every model, they took more
-// registers in the update kernel and made the default step 12% longer on
-// the card, where the conservative step got 24% shorter (PERF.md). A
-// Laplacian closure reads the state's neighbours in the update kernel; a
-// biharmonic one stores the three inner Laplacians in the first kernel
-// and takes the outer ones in the update kernel. Expressions keep the
-// operation order of the PyTorch version. A tile matches the whole-grid
-// kernel bit for bit as long as nvcc contracts multiplies and adds into
-// fmas alike in both instantiations. The card's tile tests check that;
-// nvcc's -fmad=false would enforce it, at +2.7% on the conservative step.
+// Each kernel is templated on the value type and on each axis' mode
+// (substage.cuh), so the periodic code carries no wall logic; neighbour
+// reads wrap (periodic), clamp (bounded) or go into the halo (exchanged).
+// The advection schemes, the vorticity stencil and the closure are fields
+// of Params, the same for every thread of a launch, so a branch on them
+// never diverges a warp. The conservative kernels read them at run time
+// for every model. The vector-invariant kernel is also templated on Opt:
+// the default model (no closure, WENO5, VelocityStencil) runs it without,
+// where those fields are constants, any other model with it; read at run
+// time in every model, they had made the default step 12% longer on the
+// card (PERF.md). Expressions keep the operation order of the PyTorch
+// version. A tile matches the whole-grid kernel bit for bit as long as
+// nvcc contracts multiplies and adds into fmas alike in both
+// instantiations; the card's tile tests check that.
 //
 // swmhd_multistep runs its substages as a loop of launches on the caller's
 // stream, with ping-pong buffers the caller allocates: this stands in for
@@ -68,15 +56,14 @@
 // state in distributed shared memory, is later work to be measured
 // against this loop.
 //
-// With a halo, swmhd_substage runs the same pair (or triple) of kernels on
-// a tile padded by (hx, hy) cells, each padded axis in the exchanged mode
-// (substage.cuh): the first kernels run over the padded tile, the update
-// over the unpadded one, so every unpadded point runs the expressions of
-// the whole-domain substage in the same order and matches it bit for bit. Its bound
-// is the substage's: the first kernels run on (nx + 2hx)(ny + 2hy) points,
-// a 2.4% overhead on a 1024² tile with a halo of 6. The TPU kernel's 8-row
+// With a halo, swmhd_substage runs the same kernels on a tile padded by
+// (hx, hy) cells, each padded axis in the exchanged mode (substage.cuh):
+// every unpadded point runs the expressions of the whole-domain substage
+// in the same order and matches it bit for bit. The TPU kernel's 8-row
 // halo and 128-lane y pad were alignment rules of that compiler; here any
-// halo of at least the composed radius, 6, works.
+// halo of at least the composed radius (3 vector-invariant, 4
+// conservative) works; the decomposition pads by the model's
+// exchange_halo, 6 (7 with a biharmonic closure).
 //
 // Each entry point returns cudaGetLastError() after its launches.
 
@@ -116,7 +103,7 @@ constexpr double kRkZeta[3] = {0.0, -17.0 / 60.0, -5.0 / 12.0};
 template <typename T>
 cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
                              const Params<T>& p, int conservative, double dt,
-                             int n_steps, cudaStream_t stream) {
+                             int n_steps, int tile_x, cudaStream_t stream) {
   const size_t n4 = 4 * static_cast<size_t>(p.nx) * p.ny;
   const int total = 3 * n_steps;
   const T* src = in;
@@ -125,7 +112,8 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
     T* dst = ((total - 1 - m) % 2 == 0) ? out : work;
     const Launch<T> a{src, stage == 0 ? nullptr : gbuf + (stage - 1) * n4,
                       dst, stage == 2 ? nullptr : gbuf + stage * n4, tmp, p,
-                      T(dt), T(kRkGamma[stage]), T(kRkZeta[stage]), stream};
+                      T(dt), T(kRkGamma[stage]), T(kRkZeta[stage]), tile_x,
+                      stream};
     const cudaError_t err = launch_substage<T>(a, conservative);
     if (err != cudaSuccess) return err;
     src = dst;
@@ -137,34 +125,40 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf, T* tmp,
 }  // namespace swmhd
 
 // closure, momentum, mass, tracer, stencil: the Closure, Scheme and
-// Stencil ids of substage.cuh; nu, kappa: the closure's diffusivities.
+// Stencil ids of substage.cuh; tile_x: the rows of the vector-invariant
+// kernel's tiles (ops/substage.py vi_tile_shape; the conservative kernels
+// ignore it); nu, kappa: the closure's diffusivities. tmp: the
+// conservative kernels' intermediates (null for the vector-invariant
+// formulation).
 #define SWMHD_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int swmhd_substage_##SUFFIX(                                    \
       const T* s_in, const T* g_prev, T* s_out, T* g_out, T* tmp, int nx,    \
       int ny, int hx, int hy, int conservative, int mode_x, int mode_y,      \
       int closure, int momentum, int mass, int tracer, int stencil,          \
-      double dx, double dy, double g, double f, double gam_bg, double nu,    \
-      double kappa, double dt, double gk, double zk, void* stream) {         \
+      int tile_x, double dx, double dy, double g, double f, double gam_bg,   \
+      double nu, double kappa, double dt, double gk, double zk,              \
+      void* stream) {                                                        \
     const swmhd::Launch<T> a{                                                \
         s_in, g_prev, s_out, g_out, tmp,                                     \
         swmhd::make_params<T>(nx, ny, hx, hy, mode_x, mode_y, closure,       \
                               momentum, mass, tracer, stencil, dx, dy, g, f, \
                               gam_bg, nu, kappa),                            \
-        T(dt), T(gk), T(zk), static_cast<cudaStream_t>(stream)};             \
+        T(dt), T(gk), T(zk), tile_x, static_cast<cudaStream_t>(stream)};     \
     return static_cast<int>(swmhd::launch_substage<T>(a, conservative));     \
   }                                                                          \
   extern "C" int swmhd_multistep_##SUFFIX(                                   \
       const T* s_in, T* s_out, T* work, T* gbuf, T* tmp, int nx, int ny,     \
       int conservative, int wall_x, int wall_y, int closure, int momentum,   \
-      int mass, int tracer, int stencil, double dx, double dy, double g,     \
-      double f, double gam_bg, double nu, double kappa, double dt,           \
+      int mass, int tracer, int stencil, int tile_x, double dx, double dy,   \
+      double g, double f, double gam_bg, double nu, double kappa, double dt, \
       int n_steps, void* stream) {                                           \
     return static_cast<int>(swmhd::launch_multistep<T>(                      \
         s_in, s_out, work, gbuf, tmp,                                        \
         swmhd::make_params<T>(nx, ny, 0, 0, wall_x, wall_y, closure,         \
                               momentum, mass, tracer, stencil, dx, dy, g, f, \
                               gam_bg, nu, kappa),                            \
-        conservative, dt, n_steps, static_cast<cudaStream_t>(stream)));      \
+        conservative, dt, n_steps, tile_x,                                   \
+        static_cast<cudaStream_t>(stream)));                                 \
   }
 
 SWMHD_ENTRY_POINTS(float, f32)

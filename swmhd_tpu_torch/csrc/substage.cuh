@@ -1,9 +1,9 @@
-// Shared pieces of the RK3 substage kernels (substage.cu,
-// vector_invariant.cu, conservative.cu) and of the 2-D tile tendency
-// (tile.cu): parameters, the index maps of periodic, bounded and exchanged
-// axes, the WENO5-Z / third-order biased / centered reconstructions with
-// their near-wall degradation, the WENO5 vorticity reconstruction, and the
-// staggered Laplacians of the diffusion closures.
+// Shared pieces of the RK3 substage kernels (substage.cu, vi_tile.cuh,
+// conservative.cu) and of the 2-D tile tendency (tile.cu): parameters,
+// the index maps of periodic, bounded and exchanged axes, the WENO5-Z /
+// third-order biased / centered reconstructions with their near-wall
+// degradation, the WENO5 vorticity reconstruction, and the staggered
+// Laplacians of the diffusion closures.
 //
 // Layout: every field is (Nx, Ny) row-major, index i*Ny + j, i along x.
 // Face i is the left edge of cell i. On a tile of a domain decomposition
@@ -57,8 +57,9 @@ struct Params {
 };
 
 // One substage: input state, G_prev (null in substage 0), outputs (g_out
-// may be null), the intermediates buffer, the step and the Le–Moin
-// coefficients (γ_k, ζ_k).
+// may be null), the intermediates buffer (the conservative kernels'; null
+// for the vector-invariant one), the step and the Le–Moin coefficients
+// (γ_k, ζ_k), and the rows of the vector-invariant kernel's tiles.
 template <typename T>
 struct Launch {
   const T* s_in;
@@ -68,6 +69,7 @@ struct Launch {
   T* tmp;
   Params<T> p;
   T dt, gk, zk;
+  int tile_x;
   cudaStream_t stream;
 };
 
@@ -183,20 +185,32 @@ __device__ __forceinline__ void betas_left(T cm3, T cm2, T cm1, T c0, T cp1,
        + T(0.25) * sq(T(3) * cm1 - T(4) * c0 + cp1);
 }
 
-template <typename T>
-__device__ __forceinline__ void cands_left(T cm3, T cm2, T cm1, T c0, T cp1,
-                                           T& p0, T& p1, T& p2) {
-  p0 = (T(2) * cm3 - T(7) * cm2 + T(11) * cm1) / T(6);
-  p1 = (-cm2 + T(5) * cm1 + T(2) * c0) / T(6);
-  p2 = (T(2) * cm1 + T(5) * c0 - cp1) / T(6);
+// x / 6, or x · (1/6) with Recip (the vector-invariant tile kernel: an
+// IEEE division by a constant is a subroutine call on the card, and the
+// product stays within the kernels' bounds; PERF.md §6).
+template <bool Recip, typename T>
+__device__ __forceinline__ T over6(T x) {
+  if constexpr (Recip) {
+    return x * T(1.0 / 6.0);
+  } else {
+    return x / T(6);
+  }
 }
 
-template <typename T>
+template <bool Recip = false, typename T>
+__device__ __forceinline__ void cands_left(T cm3, T cm2, T cm1, T c0, T cp1,
+                                           T& p0, T& p1, T& p2) {
+  p0 = over6<Recip>(T(2) * cm3 - T(7) * cm2 + T(11) * cm1);
+  p1 = over6<Recip>(-cm2 + T(5) * cm1 + T(2) * c0);
+  p2 = over6<Recip>(T(2) * cm1 + T(5) * c0 - cp1);
+}
+
+template <bool Recip = false, typename T>
 __device__ __forceinline__ void cands_right(T cm2, T cm1, T c0, T cp1, T cp2,
                                             T& p0, T& p1, T& p2) {
-  p0 = (T(2) * cp2 - T(7) * cp1 + T(11) * c0) / T(6);
-  p1 = (-cp1 + T(5) * c0 + T(2) * cm1) / T(6);
-  p2 = (T(2) * c0 + T(5) * cm1 - cm2) / T(6);
+  p0 = over6<Recip>(T(2) * cp2 - T(7) * cp1 + T(11) * c0);
+  p1 = over6<Recip>(-cp1 + T(5) * c0 + T(2) * cm1);
+  p2 = over6<Recip>(T(2) * c0 + T(5) * cm1 - cm2);
 }
 
 // WENO-Z weights in the divide-free rational form, eps = 1e-8, linear
@@ -230,14 +244,14 @@ __device__ __forceinline__ T weno_combine(T p0, T p1, T p2,
 
 // (left, right) WENO5 values at face i from c[k] = c(i + k - 3), k = 0..5;
 // the right betas are the left betas of face i+1, mirrored.
-template <typename T>
+template <bool Recip = false, typename T>
 __device__ __forceinline__ void weno_pair(const T* c, T& left, T& right) {
   T b0, b1, b2, r0, r1, r2, p0, p1, p2;
   betas_left(c[0], c[1], c[2], c[3], c[4], b0, b1, b2);
-  cands_left(c[0], c[1], c[2], c[3], c[4], p0, p1, p2);
+  cands_left<Recip>(c[0], c[1], c[2], c[3], c[4], p0, p1, p2);
   left = weno_combine(p0, p1, p2, b0, b1, b2);
   betas_left(c[1], c[2], c[3], c[4], c[5], r0, r1, r2);
-  cands_right(c[1], c[2], c[3], c[4], c[5], p0, p1, p2);
+  cands_right<Recip>(c[1], c[2], c[3], c[4], c[5], p0, p1, p2);
   right = weno_combine(p0, p1, p2, r2, r1, r0);
 }
 
@@ -247,7 +261,7 @@ __device__ __forceinline__ void weno_pair(const T* c, T& left, T& right) {
 // (f,f) (velocity; uf, vf are read only then) or from ζ's own. At a
 // bounded axis' last point (last) the right betas are the left ones: the
 // reference's shift of the betas is clamped.
-template <typename T>
+template <bool Recip = false, typename T>
 __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
                                                const T* vf, bool velocity,
                                                bool last, T& zl, T& zr) {
@@ -278,9 +292,9 @@ __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
     }
   }
   T p0, p1, p2;
-  cands_left(z[0], z[1], z[2], z[3], z[4], p0, p1, p2);
+  cands_left<Recip>(z[0], z[1], z[2], z[3], z[4], p0, p1, p2);
   zl = weno_combine(p0, p1, p2, b0, b1, b2);
-  cands_right(z[1], z[2], z[3], z[4], z[5], p0, p1, p2);
+  cands_right<Recip>(z[1], z[2], z[3], z[4], z[5], p0, p1, p2);
   zr = weno_combine(p0, p1, p2, r2, r1, r0);
 }
 
@@ -294,11 +308,11 @@ __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
 // stencil needs no clamped read, so the window is exact there.
 
 // UpwindBiased3 (left, right) at face q.
-template <bool Wall, typename T>
+template <bool Wall, bool Recip = false, typename T>
 __device__ __forceinline__ void upwind3_pair(const T* c, int q, int n,
                                              T& left, T& right) {
-  left = (T(2) * c[3] + T(5) * c[2] - c[1]) / T(6);
-  right = (-c[4] + T(5) * c[3] + T(2) * c[2]) / T(6);
+  left = over6<Recip>(T(2) * c[3] + T(5) * c[2] - c[1]);
+  right = over6<Recip>(-c[4] + T(5) * c[3] + T(2) * c[2]);
   if constexpr (Wall) {
     if (q < 2) left = c[2];
     if (q < 1 || q > n - 2) right = c[3];
@@ -306,16 +320,16 @@ __device__ __forceinline__ void upwind3_pair(const T* c, int q, int n,
 }
 
 // WENO5 (left, right) at face q.
-template <bool Wall, typename T>
+template <bool Wall, bool Recip = false, typename T>
 __device__ __forceinline__ void weno5_pair(const T* c, int q, int n,
                                            T& left, T& right) {
-  weno_pair(c, left, right);
+  weno_pair<Recip>(c, left, right);
   if constexpr (Wall) {
     const bool deg_left = q < 3 || q > n - 2;
     const bool deg_right = q < 2 || q > n - 3;
     if (deg_left || deg_right) {
       T l3, r3;
-      upwind3_pair<Wall>(c, q, n, l3, r3);
+      upwind3_pair<Wall, Recip>(c, q, n, l3, r3);
       if (deg_left) left = l3;
       if (deg_right) right = r3;
     }
@@ -324,15 +338,15 @@ __device__ __forceinline__ void weno5_pair(const T* c, int q, int n,
 
 // (left, right) of scheme s at face q from the window c[k] = c(q + k - 3).
 // Centered2 is unbiased: both are ℑᶠc = (c[q] + c[q-1])/2.
-template <bool Wall, typename T>
+template <bool Wall, bool Recip = false, typename T>
 __device__ __forceinline__ void face_pair(int s, const T* c, int q, int n,
                                           T& left, T& right) {
   if (s == kCentered2) {
     left = right = T(0.5) * (c[3] + c[2]);
   } else if (s == kUpwind3) {
-    upwind3_pair<Wall>(c, q, n, left, right);
+    upwind3_pair<Wall, Recip>(c, q, n, left, right);
   } else {
-    weno5_pair<Wall>(c, q, n, left, right);
+    weno5_pair<Wall, Recip>(c, q, n, left, right);
   }
 }
 
@@ -352,23 +366,38 @@ __device__ __forceinline__ void center_pair(int s, const T* c, T c_i, int q,
 
 // -- Laplacians of the closures ------------------------------------------------
 //
-// ∂ᶠ(∂ᶜ a) (Face) or ∂ᶜ(∂ᶠ a) along one axis at index i of n points, from
-// rd(k), the value of a at index k, and the spacing d. The inner
+// ∂ᶠ(∂ᶜ a) (Face) or ∂ᶜ(∂ᶠ a) along one axis at index i, from rd(k),
+// the value of a at index k, shift(k, m), the index k shifted by m, and
+// the spacing d (with Recip its reciprocal, multiplied by). The inner
 // difference is an array of its own, so the outer one reads it at the
 // shifted index: at a wall, the clamped index (∂ᶠ(∂ᶜ a) is 0 at face 0,
 // ∂ᶜ(∂ᶠ a) at the last center).
+template <bool Face, bool Recip = false, typename T, typename R, typename S>
+__device__ __forceinline__ T second_difference_by(const R& rd,
+                                                  const S& shift, int i,
+                                                  T d) {
+  auto by = [d](T x) {
+    if constexpr (Recip) {
+      return x * d;
+    } else {
+      return x / d;
+    }
+  };
+  if constexpr (Face) {
+    const int im = shift(i, -1);
+    return by(by(rd(shift(i, 1)) - rd(i)) - by(rd(shift(im, 1)) - rd(im)));
+  } else {
+    const int ip = shift(i, 1);
+    return by(by(rd(ip) - rd(shift(ip, -1))) - by(rd(i) - rd(shift(i, -1))));
+  }
+}
+
+// The same on an axis of n points in mode A (sh<A>).
 template <Axis A, bool Face, typename T, typename R>
 __device__ __forceinline__ T second_difference(const R& rd, int i, int n,
                                                T d) {
-  if constexpr (Face) {
-    const int im = sh<A>(i, -1, n);
-    return ((rd(sh<A>(i, 1, n)) - rd(i)) / d
-            - (rd(sh<A>(im, 1, n)) - rd(im)) / d) / d;
-  } else {
-    const int ip = sh<A>(i, 1, n);
-    return ((rd(ip) - rd(sh<A>(ip, -1, n))) / d
-            - (rd(i) - rd(sh<A>(i, -1, n))) / d) / d;
-  }
+  return second_difference_by<Face>(
+      rd, [n](int k, int m) { return sh<A>(k, m, n); }, i, d);
 }
 
 // ∇²a at (i, j); FX, FY: a lies on faces along x, y (u: (f,c) is <true,

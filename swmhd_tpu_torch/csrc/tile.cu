@@ -44,9 +44,10 @@
 //     (__pipeline_memcpy_async, 16 B a copy where rows are 16-byte
 //     aligned, else one element) or through registers, waits, writes.
 // The tile tendency reads 4 words and writes 4 (full split) per point
-// and does about 1000 fp32 operations per point: operations, like the
-// two-kernel substage of vector_invariant.cu, which moves its 12
-// intermediates through device memory. Here they stay in shared memory.
+// and does about 1000 fp32 operations per point: operations. Its 12
+// intermediates stay in shared memory, as they do in the substage kernel
+// that grew out of this probe (vi_tile.cuh, which adds the walls, the
+// model's options and the Le–Moin update).
 //
 // Design of the tile tendency. One block of kTileThreads threads per
 // (TX, TY) tile of the unpadded (4, Nx, Ny) state:
@@ -54,14 +55,14 @@
 //      memory with cp.async from wrapped indices (the periodic wrap at
 //      load time, the point of exp_dma2.py's "when" case), so no padded
 //      copy of the state is made;
-//   2. face_fluxes' intermediates (vector_invariant.cu) go to shared
+//   2. the 12 intermediates (the reference's derived arrays) go to shared
 //      memory over the (TX+6, TY+6) box, each only at the points a tile
 //      point reads it (the regions in point_fluxes);
-//   3. after __syncthreads(), G at each tile point as tendency_update
-//      computes it, without the Le–Moin update, for the split's fields.
+//   3. after __syncthreads(), G at each tile point, without the Le–Moin
+//      update, for the split's fields.
 // The composed read radius of the tendency is 3 (kTileRadius); a halo
 // below it is refused, a wider one is loaded and not read. Expressions
-// keep the operation order of vector_invariant.cu.
+// keep the operation order of the plain version (and of vi_tile.cuh).
 //
 // Each entry point returns cudaGetLastError() after its launch, or
 // kSmemRefused, or cudaErrorInvalidValue for arguments it does not take.
@@ -71,6 +72,7 @@
 #include <cstdint>
 
 #include "substage.cuh"
+#include "tile.cuh"
 #include "tma.cuh"
 
 namespace swmhd {
@@ -79,14 +81,6 @@ namespace {
 constexpr int kTileThreads = 256;
 constexpr int kSmemRefused = -2;   // ops/tile.py SMEM_REFUSED
 constexpr int kTileRadius = 3;     // composed radius of the VI tendency
-
-int smem_optin_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return limit;
-}
 
 // kSmemRefused for a window over the opt-in limit; else raises the
 // kernel's dynamic shared memory limit to `bytes`.
@@ -124,13 +118,6 @@ __device__ void copy_block(float* dst, int ds, const float* src, size_t ss,
       *d = *s;
     }
   }
-}
-
-// Waits for this thread's cp.async copies, then for the block's.
-__device__ __forceinline__ void wait_copies() {
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
 }
 
 // -- K4 and K5: the load probes ----------------------------------------------
@@ -426,7 +413,7 @@ int launch_box_probe(const float* x, float* out, int rows, const BoxPlan& p,
 // v, A), the momentum part (u, v) or the mass and tracer part (h, A).
 enum Split : int { kFull = 0, kMom = 1, kMassTracer = 2 };
 
-// face_fluxes' intermediates (vector_invariant.cu Tmp), in its order; a
+// The intermediates, in the order of the reference's tendency; a
 // split keeps the run of them it reads: mass and tracer the first four,
 // momentum the last eight.
 enum TileTmp : int {
@@ -473,7 +460,7 @@ __device__ __forceinline__ bool within(int q, int lo, int hi) {
 
 // The intermediates at (a, b) of the box that a tile point reads (the
 // read offsets of point_tendency, through the regions below), computed
-// as face_fluxes computes them on a periodic grid with no background
+// as the substage computes them on a periodic grid with no background
 // gradient. State reads stay within 3 of the tile.
 template <typename T, int S>
 __device__ void point_fluxes(const TileSmem<T, S>& m, int a, int b, int tx,
@@ -542,7 +529,7 @@ __device__ void point_fluxes(const TileSmem<T, S>& m, int a, int b, int tx,
   }
 }
 
-// G of the split at tile point (a, b), as tendency_update computes it for
+// G of the split at tile point (a, b), as the substage computes it for
 // the default model on a periodic grid, written to out (the split's
 // fields, each (nx, ny)) at o.
 template <typename T, int S>

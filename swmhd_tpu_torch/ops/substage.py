@@ -13,7 +13,15 @@ launches counted under the branches with an exchanged axis. The
 prognostics travel stacked as one ``(4, Nx, Ny)`` tensor in the order h,
 u, v, A.
 
-The kernel covers both formulations (vector-invariant with the jacobian
+The vector-invariant substage is one kernel over 2-D tiles of ``(TX,
+VI_TILE_Y)`` points with its intermediates in shared memory; the wrapper
+picks TX (:func:`vi_tile_shape`) and allocates no intermediates for it.
+Its plain emulation tile by tile is
+:func:`swmhd_tpu_torch.ops.vi_tile.substage_tiles_reference`. The
+conservative substage is three kernels passing intermediates through
+device memory.
+
+The kernels cover both formulations (vector-invariant with the jacobian
 Lorentz forcing, conservative with the divergence-form one) on any pair of
 periodic and bounded axes, with any of the three advection schemes for
 momentum, mass and tracer, either vorticity stencil, and no closure, a
@@ -32,8 +40,10 @@ and the runtime switches; :func:`branch_label` names it), in
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -45,10 +55,23 @@ from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
 from ..models.state import Clock, State
 from ..physics.diffusion import BiharmonicDiffusion, LaplacianDiffusion
 
-# intermediates between the kernels of one substage, by formulation; a
-# biharmonic closure adds its three inner Laplacians
-N_TMP = {VECTOR_INVARIANT: 12, CONSERVATIVE: 16}
+# intermediates between the kernels of one conservative substage; a
+# biharmonic closure adds its three inner Laplacians. The
+# vector-invariant substage is one kernel over 2-D tiles whose
+# intermediates stay in shared memory (csrc/vi_tile.cuh).
+N_TMP = {CONSERVATIVE: 16}
 BIHARMONIC_TMP = 3
+# the vector-invariant tile kernel: tiles of (TX, VI_TILE_Y) points, TX
+# one of VI_TILE_X; the state windows and the intermediates span the
+# tile and VI_RADIUS cells around it (the composed read radius); the box
+# holds VI_BOX_ARRAYS intermediates at a time, VI_BIHARMONIC_ARRAYS more
+# with a biharmonic closure (csrc/vi_tile.cuh vi_smem_bytes)
+VI_TILE_Y, VI_TILE_X, VI_RADIUS = 32, (32, 16, 8), 3
+VI_MAX_TILE_X = 64          # the most rows a tile may have (kViMaxTileX)
+VI_BOX_ARRAYS, VI_BIHARMONIC_ARRAYS = 8, 2
+# the rule's targets on an H100: opt-in shared memory a block, and two
+# blocks for each of its 132 SMs
+SMEM_OPTIN, MIN_BLOCKS = 232448, 2 * 132
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
 # how the kernel reads past the end of an axis (the AxisMode of
 # csrc/substage.cuh): wrap, clamp at a wall, or read the exchanged halo
@@ -229,14 +252,42 @@ def _check_fields(s):
 
 
 def n_tmp(model) -> int:
-    """The intermediates of one substage of ``model``."""
-    return (N_TMP[model.formulation]
+    """The intermediates of one substage of ``model`` in device memory:
+    none for the vector-invariant tile kernel."""
+    if model.formulation != CONSERVATIVE:
+        return 0
+    return (N_TMP[CONSERVATIVE]
             + BIHARMONIC_TMP * isinstance(model.closure, BiharmonicDiffusion))
 
 
 def _intermediates(model, s):
-    return torch.empty((n_tmp(model),) + tuple(s.shape[1:]),
-                       dtype=s.dtype, device=s.device)
+    n = n_tmp(model)
+    return (torch.empty((n,) + tuple(s.shape[1:]), dtype=s.dtype,
+                        device=s.device) if n else None)
+
+
+def vi_smem_bytes(dtype, tile_x, biharmonic=False) -> int:
+    """Shared memory a block of the vector-invariant tile kernel takes:
+    the four state windows and the box's intermediates, each (tile_x +
+    2·VI_RADIUS) × (VI_TILE_Y + 2·VI_RADIUS) values."""
+    box = (tile_x + 2 * VI_RADIUS) * (VI_TILE_Y + 2 * VI_RADIUS)
+    arrays = 4 + VI_BOX_ARRAYS + VI_BIHARMONIC_ARRAYS * bool(biharmonic)
+    return dtype.itemsize * box * arrays
+
+
+@functools.lru_cache(maxsize=None)
+def vi_tile_shape(nx, ny, dtype, biharmonic=False):
+    """``(TX, VI_TILE_Y)`` of the vector-invariant tile kernel on an
+    unpadded ``nx × ny`` output: among the TX of VI_TILE_X whose block
+    leaves room for two on an SM's shared memory, the largest that still
+    makes MIN_BLOCKS blocks, else the smallest. Cached: every substage
+    call asks."""
+    fits = [t for t in VI_TILE_X
+            if 2 * vi_smem_bytes(dtype, t, biharmonic) <= SMEM_OPTIN]
+    for t in fits:
+        if math.ceil(nx / t) * math.ceil(ny / VI_TILE_Y) >= MIN_BLOCKS:
+            return t, VI_TILE_Y
+    return fits[-1], VI_TILE_Y
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,8 +306,40 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _tile_x(model, nx, ny, dtype, tile):
+    """The rows of the vector-invariant kernel's tiles: ``tile``'s, which
+    must have VI_TILE_Y columns, or the rule's (0 for the conservative
+    kernels, which take none)."""
+    if model.formulation == CONSERVATIVE:
+        return 0
+    if tile is None:
+        tile = vi_tile_shape(nx, ny, dtype,
+                             isinstance(model.closure, BiharmonicDiffusion))
+    if tile[1] != VI_TILE_Y or not 1 <= tile[0] <= VI_MAX_TILE_X:
+        raise ValueError(f"the vector-invariant kernel's tiles are "
+                         f"(1..{VI_MAX_TILE_X}, {VI_TILE_Y}); got {tile}")
+    return int(tile[0])
+
+
+def vi_tile_info(dtype, branch, tile_x):
+    """``(shared memory bytes a block, registers a thread, resident blocks
+    an SM)`` of the vector-invariant tile kernel that a launch of
+    :class:`Branch` ``branch`` with tiles of ``tile_x`` rows takes, from
+    the CUDA runtime (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    b = Branch(*branch)
+    opt = any(b[3:])        # a switch off the default model's
+    biharmonic = CLOSURES[b.closure] is BiharmonicDiffusion
+    out = (ctypes.c_int * 3)()
+    err = _lib_fn("swmhd_vi_tile_info", dtype)(
+        b.mode_x, b.mode_y, int(opt), int(tile_x), int(biharmonic),
+        ctypes.addressof(out))
+    _raise_on(err, "swmhd_vi_tile_info")
+    return tuple(out)
+
+
 def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
-             halo=(0, 0)):
+             halo=(0, 0), tile=None):
     """One Le–Moin substage on stacked fields ``s``; returns ``(s_new,
     G)`` with ``G`` None unless ``write_G``.
 
@@ -265,7 +348,8 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     nx + 2hx, ny + 2hy)``; ``g_prev`` and the results are ``(4, nx, ny)``.
     A padded axis must be periodic in ``model`` and is read from the halo
     (the exchanged axis mode); an axis with no pad is the whole domain's
-    and wraps or walls."""
+    and wraps or walls. ``tile``: the vector-invariant kernel's ``(TX,
+    VI_TILE_Y)`` blocks, by default :func:`vi_tile_shape`'s."""
     hx, hy = halo
     g = model.grid
     for h, topo, name in ((hx, g.topology_x, "x"), (hy, g.topology_y, "y")):
@@ -297,13 +381,14 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
                                or not g_prev.is_contiguous()):
         raise ValueError(f"G_prev must be a contiguous {shape} tensor like "
                          f"the stacked fields")
+    tile_x = _tile_x(model, nx, ny, s.dtype, tile)
     s_out = torch.empty(shape, dtype=s.dtype, device=s.device)
     g_out = torch.empty_like(s_out) if write_G else None
     tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
-             nx, ny, hx, hy, *branch, *params[8:], float(dt),
+             nx, ny, hx, hy, *branch, tile_x, *params[8:], float(dt),
              RK3_GAMMA[stage], RK3_ZETA[stage], stream)
     substage.launches += 1
     substage.launches_by_branch[branch] += 1
@@ -330,7 +415,9 @@ def multistep(model, s, dt, n_steps):
     fn = _lib_fn("swmhd_multistep", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
-             g.Nx, g.Ny, *params, float(dt), int(n_steps), stream)
+             g.Nx, g.Ny, *params[:8], _tile_x(model, g.Nx, g.Ny, s.dtype,
+                                              None),
+             *params[8:], float(dt), int(n_steps), stream)
     multistep.launches += 1
     multistep.launches_by_branch[params.branch] += 1
     _raise_on(err, "swmhd_multistep")

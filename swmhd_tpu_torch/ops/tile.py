@@ -48,7 +48,7 @@ TILE_RADIUS = 3
 # writes, in the order h, u, v, A
 SPLITS = ("full", "mom", "mt")
 SPLIT_FIELDS = {"full": (0, 1, 2, 3), "mom": (1, 2), "mt": (0, 3)}
-# face_fluxes' intermediates each split keeps in shared memory
+# the tendency's intermediates each split keeps in shared memory
 N_TILE_TMP = {"full": 12, "mom": 8, "mt": 4}
 # exp_dma.py's fifth spec field: 1 asynchronous copies, 0 loads through
 # registers
