@@ -71,9 +71,7 @@ each printing lines of findings; any failure exits non-zero:
    size; then one substage of the 2048² grid and one of a tile of its 2×2
    mesh under torch.profiler, each formulation: a vector-invariant
    substage must launch exactly one CUDA kernel, the tile kernel
-   (``vi_substage``); and the vector-invariant substage at 2048² in f32
-   and f64, without and with a biharmonic closure, timed at each tile
-   shape the wrapper's rule chooses from;
+   (``vi_substage``);
 8. the decomposed main path, four ranks sharing the one card over gloo
    (``torch.distributed.run``, halo slabs staged through host memory):
    the 2048² configuration in both formulations, 20 steps through
@@ -725,13 +723,14 @@ def time_default(K, root):
 def design(K, branch, shape):
     """The kernels-line fields of a substage branch's design: for the
     vector-invariant kernel over 2-D tiles, its tile shape on ``shape``
-    (the wrapper's rule, float32), shared memory bytes a block, registers
+    (the wrapper's rule on card 0, float32), shared memory bytes a block, registers
     a thread and resident blocks an SM from the CUDA runtime."""
     import torch
     b = K.Branch(*branch)
     if b.conservative:
         return {"design": "three kernels"}
-    tile = K.vi_tile_shape(*shape, torch.float32, b.closure == 2)
+    tile = K.vi_tile_shape(*shape, torch.float32, b.closure == 2,
+                           *K.card_limits(0))
     smem, regs, blocks = K.vi_tile_info(torch.float32, b, tile[0])
     return {"design": "tile", "tile": list(tile), "smem_bytes": smem,
             "registers": regs, "blocks_per_sm": blocks}
@@ -779,33 +778,6 @@ def profile_substages(K, dev, smi):
                 fail(f"the vector-invariant substage ({label}) launched "
                      f"{names}, not the one tile kernel")
         del s, p, state
-
-
-def tile_shape_sweep(K, dev, smi):
-    """The vector-invariant substage at 2048² (f32 and f64, without and
-    with a biharmonic closure) over each tile shape of VI_TILE_X, from a
-    CUDA graph of 20 launches: the times behind the wrapper's rule,
-    printed beside the shape it picks."""
-    import torch
-    for dtype in (torch.float32, torch.float64):
-        for options in (None, "biharmonic"):
-            model, state = bench_model(BENCH_N, dtype, dev, VI)
-            model = with_options(model, options, BENCH_DT)
-            s = K.stack(state)
-            b = K.kernel_params(model).branch
-            rule = K.vi_tile_shape(BENCH_N, BENCH_N, dtype, bool(options))
-            parts = []
-            for tx in K.VI_TILE_X:
-                tile = (tx, K.VI_TILE_Y)
-                smem, regs, blocks = K.vi_tile_info(dtype, b, tx)
-                ms = graph_timed(lambda: K.substage(model, s, BENCH_DT, 0,
-                                                    tile=tile), 20)
-                parts.append(f"{tx}x{K.VI_TILE_Y} {ms:.4f} ms ({smem} B, "
-                             f"{regs} registers, {blocks} blocks an SM)")
-            say("tiles", f"vector_invariant substage {BENCH_N}^2 {dtype} "
-                f"{options or ''} on {smi} by tile shape: "
-                + "; ".join(parts) + f"; the rule takes {rule[0]}x{rule[1]}")
-            del s, state
 
 
 def worker(args):
@@ -1788,7 +1760,6 @@ def main():
         del main_tiles, p, got, want, got64, want64
 
     profile_substages(K, dev, smi)
-    tile_shape_sweep(K, dev, smi)
 
     # 8 -------------------------------------------------------------------
     tile_launches = {}    # branch -> launches over all ranks of phase 8

@@ -256,8 +256,9 @@ flux_update(const T* __restrict__ s, const T* __restrict__ tmp,
                           g_out, dt, gk, zk);
 }
 
+template <typename T>
 struct Run {
-  template <typename T, Axis X, Axis Y>
+  template <Axis X, Axis Y>
   static cudaError_t go(const Launch<T>& a) {
     const dim3 block = block_dims();
     const dim3 grid = grid_dims(a.p.nx, a.p.ny);
@@ -273,13 +274,14 @@ struct Run {
         a.s_in, a.tmp, a.g_prev, a.s_out, a.g_out, a.p, a.dt, a.gk, a.zk);
     return cudaGetLastError();
   }
+  static cudaError_t none() { return cudaErrorInvalidValue; }
 };
 
 }  // namespace
 
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a) {
-  return dispatch_axes<Run>(a);
+  return on_axes<Run<T>>(a.p.mode_x, a.p.mode_y, a);
 }
 
 template cudaError_t launch_conservative<float>(const Launch<float>&);

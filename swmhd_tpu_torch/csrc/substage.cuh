@@ -80,24 +80,25 @@ cudaError_t launch_vector_invariant(const Launch<T>& a);
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a);
 
-// R::go<T, X, Y>(a) for the launch's pair of axis modes: each periodic /
+// R::go<X, Y>(args...) for a launch's pair of axis modes: each periodic /
 // bounded pair on a whole domain, and on a tile an exchanged x with a
 // periodic, bounded or exchanged y, or a periodic x with an exchanged y (a
-// mesh of one tile along x). Only a periodic axis is ever cut into tiles.
-template <typename R, typename T>
-cudaError_t dispatch_axes(const Launch<T>& a) {
+// mesh of one tile along x); R::none() for a pair no launch takes. Only a
+// periodic axis is ever cut into tiles.
+template <typename R, typename... Args>
+auto on_axes(int mode_x, int mode_y, const Args&... args) {
   constexpr Axis P = Axis::kPeriodic, B = Axis::kBounded,
                  E = Axis::kExchanged;
-  switch (a.p.mode_x * 3 + a.p.mode_y) {
-    case 0: return R::template go<T, P, P>(a);
-    case 1: return R::template go<T, P, B>(a);
-    case 2: return R::template go<T, P, E>(a);
-    case 3: return R::template go<T, B, P>(a);
-    case 4: return R::template go<T, B, B>(a);
-    case 6: return R::template go<T, E, P>(a);
-    case 7: return R::template go<T, E, B>(a);
-    case 8: return R::template go<T, E, E>(a);
-    default: return cudaErrorInvalidValue;
+  switch (mode_x * 3 + mode_y) {
+    case 0: return R::template go<P, P>(args...);
+    case 1: return R::template go<P, B>(args...);
+    case 2: return R::template go<P, E>(args...);
+    case 3: return R::template go<B, P>(args...);
+    case 4: return R::template go<B, B>(args...);
+    case 6: return R::template go<E, P>(args...);
+    case 7: return R::template go<E, B>(args...);
+    case 8: return R::template go<E, E>(args...);
+    default: return R::none();
   }
 }
 

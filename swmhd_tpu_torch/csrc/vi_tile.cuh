@@ -491,21 +491,16 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
 // The kernel of a launch's axis modes, or null for a pair no launch takes
 // (a bounded axis is never exchanged).
 template <typename T, bool Opt>
-auto vi_kernel(int mode_x, int mode_y)
-    -> decltype(&vi_substage<T, Axis::kPeriodic, Axis::kPeriodic, Opt>) {
-  constexpr Axis P = Axis::kPeriodic, B = Axis::kBounded,
-                 E = Axis::kExchanged;
-  switch (mode_x * 3 + mode_y) {
-    case 0: return &vi_substage<T, P, P, Opt>;
-    case 1: return &vi_substage<T, P, B, Opt>;
-    case 2: return &vi_substage<T, P, E, Opt>;
-    case 3: return &vi_substage<T, B, P, Opt>;
-    case 4: return &vi_substage<T, B, B, Opt>;
-    case 6: return &vi_substage<T, E, P, Opt>;
-    case 7: return &vi_substage<T, E, B, Opt>;
-    case 8: return &vi_substage<T, E, E, Opt>;
-    default: return nullptr;
-  }
+struct ViKernel {
+  using Fn = decltype(&vi_substage<T, Axis::kPeriodic, Axis::kPeriodic, Opt>);
+  template <Axis X, Axis Y>
+  static Fn go() { return &vi_substage<T, X, Y, Opt>; }
+  static Fn none() { return nullptr; }
+};
+
+template <typename T, bool Opt>
+auto vi_kernel(int mode_x, int mode_y) {
+  return on_axes<ViKernel<T, Opt>>(mode_x, mode_y);
 }
 
 // Whether a model runs the Opt instantiation.
@@ -547,7 +542,7 @@ const void* vi_ready(int mode_x, int mode_y, bool opt, int tile_x,
 }
 
 template <typename T>
-cudaError_t launch_vi_tile(const Launch<T>& a) {
+cudaError_t launch_vector_invariant(const Launch<T>& a) {
   const Params<T>& p = a.p;
   const bool opt = vi_opt(p);
   const int tx = a.tile_x;
@@ -566,11 +561,6 @@ cudaError_t launch_vi_tile(const Launch<T>& a) {
                   const_cast<T**>(&a.s_out), const_cast<T**>(&a.g_out),
                   &pp, &tile_x, &dt, &gk, &zk};
   return cudaLaunchKernel(k, grid, dim3(kViThreads), args, bytes, a.stream);
-}
-
-template <typename T>
-cudaError_t launch_vector_invariant(const Launch<T>& a) {
-  return launch_vi_tile<T>(a);
 }
 
 // out[0] shared memory bytes a block, out[1] registers a thread, out[2]

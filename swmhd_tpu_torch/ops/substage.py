@@ -69,9 +69,6 @@ BIHARMONIC_TMP = 3
 VI_TILE_Y, VI_TILE_X, VI_RADIUS = 32, (32, 16, 8), 3
 VI_MAX_TILE_X = 64          # the most rows a tile may have (kViMaxTileX)
 VI_BOX_ARRAYS, VI_BIHARMONIC_ARRAYS = 8, 2
-# the rule's targets on an H100: opt-in shared memory a block, and two
-# blocks for each of its 132 SMs
-SMEM_OPTIN, MIN_BLOCKS = 232448, 2 * 132
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
 # how the kernel reads past the end of an axis (the AxisMode of
 # csrc/substage.cuh): wrap, clamp at a wall, or read the exchanged halo
@@ -276,16 +273,17 @@ def vi_smem_bytes(dtype, tile_x, biharmonic=False) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def vi_tile_shape(nx, ny, dtype, biharmonic=False):
+def vi_tile_shape(nx, ny, dtype, biharmonic, smem_limit, sms):
     """``(TX, VI_TILE_Y)`` of the vector-invariant tile kernel on an
-    unpadded ``nx × ny`` output: among the TX of VI_TILE_X whose block
-    leaves room for two on an SM's shared memory, the largest that still
-    makes MIN_BLOCKS blocks, else the smallest. Cached: every substage
-    call asks."""
+    unpadded ``nx × ny`` output, on a card of ``sms`` SMs whose opt-in
+    shared memory a block is ``smem_limit`` bytes (:func:`card_limits`):
+    among the TX of VI_TILE_X whose block leaves room for two in that
+    limit, the largest that still makes two blocks an SM, else the
+    smallest. Cached: every substage call asks."""
     fits = [t for t in VI_TILE_X
-            if 2 * vi_smem_bytes(dtype, t, biharmonic) <= SMEM_OPTIN]
+            if 2 * vi_smem_bytes(dtype, t, biharmonic) <= smem_limit]
     for t in fits:
-        if math.ceil(nx / t) * math.ceil(ny / VI_TILE_Y) >= MIN_BLOCKS:
+        if math.ceil(nx / t) * math.ceil(ny / VI_TILE_Y) >= 2 * sms:
             return t, VI_TILE_Y
     return fits[-1], VI_TILE_Y
 
@@ -306,19 +304,28 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _tile_x(model, nx, ny, dtype, tile):
-    """The rows of the vector-invariant kernel's tiles: ``tile``'s, which
-    must have VI_TILE_Y columns, or the rule's (0 for the conservative
-    kernels, which take none)."""
+@functools.lru_cache(maxsize=None)
+def card_limits(index):
+    """``(opt-in shared memory bytes a block, SMs)`` of CUDA card
+    ``index``: the limit the kernels refuse a tile over
+    (``swmhd_smem_limit``) and the runtime's SM count."""
+    from . import _build
+    with torch.cuda.device(index):
+        limit = _build.load().fn("swmhd_smem_limit")()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return limit, sms
+
+
+def _tile_x(model, nx, ny, s):
+    """The rows of the vector-invariant kernel's tiles on an unpadded ``nx
+    × ny`` output of the stacked fields ``s`` (a CUDA tensor), by
+    :func:`vi_tile_shape` on its card; 0 for the conservative kernels,
+    which take none."""
     if model.formulation == CONSERVATIVE:
         return 0
-    if tile is None:
-        tile = vi_tile_shape(nx, ny, dtype,
-                             isinstance(model.closure, BiharmonicDiffusion))
-    if tile[1] != VI_TILE_Y or not 1 <= tile[0] <= VI_MAX_TILE_X:
-        raise ValueError(f"the vector-invariant kernel's tiles are "
-                         f"(1..{VI_MAX_TILE_X}, {VI_TILE_Y}); got {tile}")
-    return int(tile[0])
+    return vi_tile_shape(nx, ny, s.dtype,
+                         isinstance(model.closure, BiharmonicDiffusion),
+                         *card_limits(s.device.index))[0]
 
 
 def vi_tile_info(dtype, branch, tile_x):
@@ -339,7 +346,7 @@ def vi_tile_info(dtype, branch, tile_x):
 
 
 def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
-             halo=(0, 0), tile=None):
+             halo=(0, 0)):
     """One Le–Moin substage on stacked fields ``s``; returns ``(s_new,
     G)`` with ``G`` None unless ``write_G``.
 
@@ -348,8 +355,8 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     nx + 2hx, ny + 2hy)``; ``g_prev`` and the results are ``(4, nx, ny)``.
     A padded axis must be periodic in ``model`` and is read from the halo
     (the exchanged axis mode); an axis with no pad is the whole domain's
-    and wraps or walls. ``tile``: the vector-invariant kernel's ``(TX,
-    VI_TILE_Y)`` blocks, by default :func:`vi_tile_shape`'s."""
+    and wraps or walls. The vector-invariant kernel's tiles are
+    :func:`vi_tile_shape`'s."""
     hx, hy = halo
     g = model.grid
     for h, topo, name in ((hx, g.topology_x, "x"), (hy, g.topology_y, "y")):
@@ -381,7 +388,7 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
                                or not g_prev.is_contiguous()):
         raise ValueError(f"G_prev must be a contiguous {shape} tensor like "
                          f"the stacked fields")
-    tile_x = _tile_x(model, nx, ny, s.dtype, tile)
+    tile_x = _tile_x(model, nx, ny, s)
     s_out = torch.empty(shape, dtype=s.dtype, device=s.device)
     g_out = torch.empty_like(s_out) if write_G else None
     tmp = _intermediates(model, s)
@@ -415,8 +422,7 @@ def multistep(model, s, dt, n_steps):
     fn = _lib_fn("swmhd_multistep", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
-             g.Nx, g.Ny, *params[:8], _tile_x(model, g.Nx, g.Ny, s.dtype,
-                                              None),
+             g.Nx, g.Ny, *params[:8], _tile_x(model, g.Nx, g.Ny, s),
              *params[8:], float(dt), int(n_steps), stream)
     multistep.launches += 1
     multistep.launches_by_branch[params.branch] += 1

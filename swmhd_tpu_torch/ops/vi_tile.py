@@ -22,10 +22,10 @@ regions and in the kernel's order of operations:
   outside the regions would show in G.
 
 Held to :func:`~swmhd_tpu_torch.ops.substage.substage_reference` and to
-the JAX package by ``tests/test_torch_vi_tile.py``. The kernel matches
-this module's arithmetic bit for bit in a host build of
-``csrc/vi_tile.cuh`` (g++ with the CUDA runtime shimmed, 256 threads a
-block meeting at a barrier).
+the JAX package by ``tests/test_torch_vi_tile.py``. A host build of
+``csrc/vi_tile.cuh`` (g++ with stand-in CUDA headers, 256 threads a block
+meeting at a barrier, shared memory filled with NaN) matches this
+module's arithmetic bit for bit: ``tests/test_torch_vi_tile_host.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch
 from ..models.shallow_water import RK3_GAMMA, RK3_ZETA
 from .. import advection
 from .substage import (BOUNDED_AXIS, EXCHANGED_AXIS, PERIODIC_AXIS,
-                       VI_RADIUS, _crop, kernel_params, vi_tile_shape)
+                       VI_RADIUS, VI_TILE_X, VI_TILE_Y, _crop,
+                       kernel_params)
 
 R = VI_RADIUS
 WENO5, UPWIND3, CENTERED2 = 0, 1, 2          # csrc/substage.cuh Scheme
@@ -370,12 +371,12 @@ def _vorticity_recon(p, load, m, q, wall):
 
 
 def substage_tiles_reference(model, s, dt, stage, g_prev=None, halo=(0, 0),
-                             tile=None):
+                             tile=(VI_TILE_X[0], VI_TILE_Y)):
     """Substage ``stage`` of the vector-invariant model on stacked fields
     ``s`` (padded by ``halo`` on exchanged axes, as for
     :func:`~swmhd_tpu_torch.ops.substage.substage`) computed tile by tile
     as the kernel computes it: ``(s_new, G)``, unpadded. ``tile`` is the
-    kernel's ``(TX, TY)``, by default the wrapper's rule
+    kernel's ``(TX, TY)``; the wrapper picks it by grid and card
     (:func:`~swmhd_tpu_torch.ops.substage.vi_tile_shape`)."""
     substage_tiles_reference.calls += 1
     p = kernel_params(model)
@@ -387,7 +388,7 @@ def substage_tiles_reference(model, s, dt, stage, g_prev=None, halo=(0, 0),
     mx, my = NX - 2 * hx, NY - 2 * hy
     modes = (EXCHANGED_AXIS if hx else p.wall_x,
              EXCHANGED_AXIS if hy else p.wall_y)
-    TX, TY = tile or vi_tile_shape(mx, my, s.dtype, p.closure == BIHARMONIC)
+    TX, TY = tile
     G = s.new_empty((4, mx, my))
     for ti in range(math.ceil(mx / TX)):
         for tj in range(math.ceil(my / TY)):

@@ -8,7 +8,9 @@ regions the kernel computes, NaN elsewhere and past the walls) against
 (``model.tendencies`` and the Le–Moin update), to 1e-12 of each compared
 array's scale, at 32² and 48×32, for every pair of axis modes, on halo
 tiles cut from the whole grid, and with model options; and the wrapper's
-tile-shape rule (``vi_tile_shape``, ``vi_smem_bytes``).
+tile-shape rule (``vi_tile_shape``, ``vi_smem_bytes``). The kernel's own
+logic is held to the emulation on the CPU by a host build:
+``tests/test_torch_vi_tile_host.py``.
 
 Tests marked ``cuda`` run the kernel and skip without a card:
 ``python -m pytest tests/test_torch_vi_tile.py -m cuda`` on the GPU.
@@ -48,14 +50,16 @@ TOPOLOGIES = {"periodic": ("periodic", "periodic"),
 
 
 def pair(NX, NY, topology, options=None, dtype=torch.float64,
-         device="cpu", seed=0):
+         device="cpu", seed=0, extent=L):
     """The same vector-invariant model in both packages (A background
-    gradient -0.05 where an axis is bounded) and one state: chip_smoke's
-    wall-reaching fields plus seeded numpy noise of 1e-3, as numpy."""
+    gradient -0.05 where an axis is bounded) on the square of side
+    ``extent`` and one state: chip_smoke's wall-reaching fields plus
+    seeded numpy noise of 1e-3, as numpy."""
     gamma = -0.05 if "bounded" in topology else 0.0
     rng = np.random.default_rng(seed)
-    jg = JGrid.regular(NX, NY, (-L / 2, L / 2), (-L / 2, L / 2),
-                       topology=topology, dtype=jnp.float64)
+    box = (-extent / 2, extent / 2)
+    jg = JGrid.regular(NX, NY, box, box, topology=topology,
+                       dtype=jnp.float64)
     nu = stable_nu(jg, DT, options)
     jm = JModel(grid=jg, coriolis=JFPlane(1.0), forcing=jforce(gamma),
                 A_background_gradient_y=gamma,
@@ -68,8 +72,8 @@ def pair(NX, NY, topology, options=None, dtype=torch.float64,
     js = jm.initial_state(**{k: (lambda x, y, a=noisy[k]: jnp.asarray(a))
                              for k in FIELDS})
     fields = {k: np.asarray(getattr(js, k)) for k in FIELDS}
-    tg = TGrid.regular(NX, NY, (-L / 2, L / 2), (-L / 2, L / 2),
-                       topology=topology, dtype=dtype, device=device)
+    tg = TGrid.regular(NX, NY, box, box, topology=topology, dtype=dtype,
+                       device=device)
     tm = TModel(grid=tg, coriolis=TFPlane(1.0), forcing=tforce(gamma),
                 A_background_gradient_y=gamma,
                 **option_kwargs(options, swmhd_tpu_torch, nu))
@@ -193,19 +197,22 @@ def test_smem_bytes_follow_the_kernel_layout():
 SHAPES = [(8, 8), (16, 48), (32, 32), (40, 24), (64, 64), (128, 128),
           (32, 128), (256, 256), (512, 512), (1024, 1024), (1024, 2048),
           (2048, 2048), (4096, 4096)]
+# an H100: opt-in shared memory a block (bytes) and SMs
+H100 = (232448, 132)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("biharmonic", [False, True])
 def test_tile_rule_covers_the_grid_and_fits(dtype, biharmonic):
-    """The rule's tiles cover every grid (ragged edges included), leave
-    room for two blocks an SM, take 32×32 f32 tiles at 2048² and enough
-    blocks for two an SM wherever a grid allows."""
+    """The rule's tiles on an H100 cover every grid (ragged edges
+    included), leave room for two blocks an SM, take 32×32 f32 tiles at
+    2048² and enough blocks for two an SM wherever a grid allows."""
+    limit, sms = H100
     for nx, ny in SHAPES:
-        tx, ty = K.vi_tile_shape(nx, ny, dtype, biharmonic)
+        tx, ty = K.vi_tile_shape(nx, ny, dtype, biharmonic, *H100)
         assert ty == K.VI_TILE_Y and tx in K.VI_TILE_X
         bytes_ = K.vi_smem_bytes(dtype, tx, biharmonic)
-        assert 2 * bytes_ <= K.SMEM_OPTIN <= 232448
+        assert 2 * bytes_ <= limit
         blocks = math.ceil(nx / tx) * math.ceil(ny / ty)
         assert blocks * tx * ty >= nx * ny
         covered = np.zeros((nx, ny), bool)
@@ -213,22 +220,30 @@ def test_tile_rule_covers_the_grid_and_fits(dtype, biharmonic):
             for j in range(0, ny, ty):
                 covered[i:i + tx, j:j + ty] = True
         assert covered.all()
-        if blocks < K.MIN_BLOCKS:
+        if blocks < 2 * sms:
             assert tx == min(t for t in K.VI_TILE_X
                              if 2 * K.vi_smem_bytes(dtype, t, biharmonic)
-                             <= K.SMEM_OPTIN)
-    assert K.vi_tile_shape(2048, 2048, torch.float32) == (32, 32)
-    assert K.vi_tile_shape(2048, 2048, torch.float64) == (16, 32)
-    assert K.vi_tile_shape(128, 128, torch.float32) == (8, 32)
+                             <= limit)
+    assert K.vi_tile_shape(2048, 2048, torch.float32, False, *H100) \
+        == (32, 32)
+    assert K.vi_tile_shape(2048, 2048, torch.float64, False, *H100) \
+        == (16, 32)
+    assert K.vi_tile_shape(128, 128, torch.float32, False, *H100) == (8, 32)
 
 
-def test_tiles_must_have_the_kernel_columns():
-    _, tm, _ = pair(16, 16, TOPOLOGIES["periodic"])
-    with pytest.raises(ValueError):
-        K._tile_x(tm, 16, 16, torch.float32, (8, 16))
-    with pytest.raises(ValueError):
-        K._tile_x(tm, 16, 16, torch.float32, (65, 32))
-    assert K._tile_x(tm, 16, 16, torch.float32, None) == 8
+def test_tile_rule_follows_the_card():
+    """The rule reads the card: less shared memory a block rules out the
+    tiles that would not fit twice, more SMs take smaller tiles; the
+    conservative kernels take no tile rows."""
+    f32 = torch.float32
+    assert K.vi_tile_shape(2048, 2048, f32, False, 100_000, 132) == (16, 32)
+    assert K.vi_tile_shape(2048, 2048, f32, False, 232448, 2100) == (16, 32)
+    assert K.vi_tile_shape(2048, 2048, f32, False, 232448, 9000) == (8, 32)
+    _, tm, fields = pair(16, 16, TOPOLOGIES["periodic"])
+    cons = dataclasses.replace(
+        tm, formulation="conservative",
+        forcing=swmhd_tpu_torch.divergence_lorentz_forcing())
+    assert K._tile_x(cons, 16, 16, stacked(fields)) == 0
 
 
 # -- on the card -------------------------------------------------------------
@@ -244,23 +259,40 @@ CARD_CASES = [("periodic", None), ("bounded xy", None),
               ("bounded y", "biharmonic"), ("bounded x", "upwind3 momentum"),
               ("bounded xy", "centered2 momentum"),
               ("periodic", "vorticity stencil")]
+# (grid, domain side): grids on which the rule takes each tile row count
+# on an H100, ragged where it can be; the side keeps the spacing near the
+# 72×64 grid's on [-5, 5]², as f32 G loses digits with 1/dx
+CARD_GRIDS = {8: (76, 64, 10.0), 16: (400, 400, 60.0), 32: (600, 600, 90.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", CARD_GRIDS)
+def test_card_grids_reach_each_tile_shape(rows, dtype):
+    """The grids of the card cases take 8, 16 and 32 rows on an H100 (f64
+    tiles fit twice only up to 16 rows)."""
+    nx, ny, _ = CARD_GRIDS[rows]
+    for biharmonic in (False, True):
+        assert K.vi_tile_shape(nx, ny, dtype, biharmonic, *H100) == (
+            min(rows, 16 if dtype == torch.float64 else 32), K.VI_TILE_Y)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("topo,options", CARD_CASES)
-@pytest.mark.parametrize("tile", [(8, 32), (16, 32), (32, 32)])
+@pytest.mark.parametrize("rows", CARD_GRIDS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
                                        (torch.float32, 2e-5)])
-def test_tile_kernel_matches_plain_on_card(cuda, topo, options, tile, dtype,
+def test_tile_kernel_matches_plain_on_card(cuda, topo, options, rows, dtype,
                                            tol):
-    """The kernel on a 72×64 grid (ragged in x) at each tile shape against
-    its plain version, G and the new state of substages 0 and 1, one
-    launch each."""
-    _, tm, fields = pair(72, 64, TOPOLOGIES[topo], options, dtype, cuda)
+    """The kernel on the grid of ``rows`` (the rule's tile shape there)
+    against its plain version, G and the new state of substages 0 and 1,
+    one launch each."""
+    nx, ny, extent = CARD_GRIDS[rows]
+    _, tm, fields = pair(nx, ny, TOPOLOGIES[topo], options, dtype, cuda,
+                         extent=extent)
     s = stacked(fields, dtype, cuda)
     K.reset_counters()
-    s1, G = K.substage(tm, s, DT, 0, tile=tile)
-    s2, _ = K.substage(tm, s1, DT, 1, G, tile=tile)
+    s1, G = K.substage(tm, s, DT, 0)
+    s2, _ = K.substage(tm, s1, DT, 1, G)
     p1, pG = K.substage_reference(tm, s, DT, 0)
     p2, _ = K.substage_reference(tm, p1, DT, 1, pG)
     torch.cuda.synchronize()
@@ -305,12 +337,16 @@ def test_tile_kernel_info_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_tile_kernel_refuses_too_much_shared_memory_on_card(cuda):
+def test_tile_kernel_refuses_too_much_shared_memory_on_card(cuda,
+                                                            monkeypatch):
     """64×32 f64 tiles with a biharmonic closure take 297,920 B a block,
-    over the card's opt-in limit: cudaErrorInvalidValue (1)."""
+    over the card's opt-in limit: the C entry point returns
+    cudaErrorInvalidValue (1). The rule never picks them, so the test
+    hands the entry point that tile in its place."""
     _, tm, fields = pair(64, 64, TOPOLOGIES["periodic"], "biharmonic",
                          torch.float64, cuda)
     assert K.vi_smem_bytes(torch.float64, 64, True) == 297920
+    assert 297920 > K.card_limits(cuda.index)[0]
+    monkeypatch.setattr(K, "_tile_x", lambda *args: 64)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        K.substage(tm, stacked(fields, torch.float64, cuda), DT, 0,
-                   tile=(64, 32))
+        K.substage(tm, stacked(fields, torch.float64, cuda), DT, 0)
