@@ -69,9 +69,9 @@ each printing lines of findings; any failure exits non-zero:
    of the decomposed CLI run, halo 7), where it is timed against the
    plain version and the whole-domain substage on a grid of the tile's
    size; then one substage of the 2048² grid and one of a tile of its 2×2
-   mesh under torch.profiler, each formulation: a vector-invariant
-   substage must launch exactly one CUDA kernel, the tile kernel
-   (``vi_substage``);
+   mesh under torch.profiler, each formulation: a substage must launch
+   exactly one CUDA kernel, its formulation's tile kernel
+   (``vi_substage``, ``cons_substage``);
 8. the decomposed main path, four ranks sharing the one card over gloo
    (``torch.distributed.run``, halo slabs staged through host memory):
    the 2048² configuration in both formulations, 20 steps through
@@ -119,11 +119,10 @@ happen outside those windows. The last two lines are a JSON object of
 per-kernel findings (one entry per entry point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s;
-a substage entry also names its design: ``"tile"`` for the
-vector-invariant kernel over 2-D tiles, with its tile shape, shared
-memory bytes a block, registers a thread and resident blocks an SM from
-the CUDA runtime, ``"three kernels"`` for the conservative substage)
-and the result line ``{"ok": true, "device": {...}}``.
+a substage entry also names its design: ``"tile"``, one kernel over 2-D
+tiles, with its tile shape, shared memory bytes a block, registers a
+thread and resident blocks an SM from the CUDA runtime) and the result
+line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --worker dd <dir>               (under torchrun)
     python3 chip_smoke.py --worker cli <dir> <name> <formulation> [flags]
@@ -204,7 +203,9 @@ SCHEME_RUNS = [
     (CONS, {"momentum_advection": "centered2",
             "tracer_advection": "upwind3"})]
 SOURCES = {VI: "swmhd_tpu_torch/csrc/vi_tile.cuh",
-           CONS: "swmhd_tpu_torch/csrc/conservative.cu"}
+           CONS: "swmhd_tpu_torch/csrc/cons_tile.cuh"}
+# the tile kernel each formulation's substage launches
+TILE_KERNELS = {VI: "vi_substage", CONS: "cons_substage"}
 REPLACES = {"swmhd_substage": "swmhd_tpu/ops/fused_step.py:176",
             "swmhd_multistep": "swmhd_tpu/ops/fused_step.py:458"}
 # swmhd_substage's branches with an exchanged axis: the tile substage
@@ -721,17 +722,15 @@ def time_default(K, root):
 
 
 def design(K, branch, shape):
-    """The kernels-line fields of a substage branch's design: for the
-    vector-invariant kernel over 2-D tiles, its tile shape on ``shape``
-    (the wrapper's rule on card 0, float32), shared memory bytes a block, registers
-    a thread and resident blocks an SM from the CUDA runtime."""
+    """The kernels-line fields of a substage branch's design, one kernel
+    over 2-D tiles: its tile shape on ``shape`` (the wrapper's rule on
+    card 0, float32), shared memory bytes a block, registers a thread and
+    resident blocks an SM from the CUDA runtime."""
     import torch
     b = K.Branch(*branch)
-    if b.conservative:
-        return {"design": "three kernels"}
-    tile = K.vi_tile_shape(*shape, torch.float32, b.closure == 2,
-                           *K.card_limits(0))
-    smem, regs, blocks = K.vi_tile_info(torch.float32, b, tile[0])
+    tile = K.tile_shape(CONS if b.conservative else VI, *shape,
+                        torch.float32, b.closure == 2, *K.card_limits(0))
+    smem, regs, blocks = K.tile_info(torch.float32, b, tile[0])
     return {"design": "tile", "tile": list(tile), "smem_bytes": smem,
             "registers": regs, "blocks_per_sm": blocks}
 
@@ -754,10 +753,9 @@ def cuda_kernels_of(fn):
 
 
 def profile_substages(K, dev, smi):
-    """One vector-invariant substage on the whole 2048² grid and one on a
-    tile of its 2×2 mesh under torch.profiler: each must have launched
-    exactly one CUDA kernel, the tile kernel; the conservative substage's
-    kernels are printed beside them."""
+    """One substage of each formulation on the whole 2048² grid and one on
+    a tile of its 2×2 mesh under torch.profiler: each must have launched
+    exactly one CUDA kernel, its formulation's tile kernel."""
     import torch
     for formulation in (VI, CONS):
         model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
@@ -773,10 +771,10 @@ def profile_substages(K, dev, smi):
                 f"{len(names)} CUDA kernel(s): "
                 + "; ".join(n.split(">(")[0] + ">" if ">(" in n else n
                             for n in names))
-            if formulation == VI and (len(names) != 1
-                                      or "vi_substage" not in names[0]):
-                fail(f"the vector-invariant substage ({label}) launched "
-                     f"{names}, not the one tile kernel")
+            if len(names) != 1 or TILE_KERNELS[formulation] not in names[0]:
+                fail(f"the {formulation} substage ({label}) launched "
+                     f"{names}, not the one tile kernel "
+                     f"{TILE_KERNELS[formulation]}")
         del s, p, state
 
 

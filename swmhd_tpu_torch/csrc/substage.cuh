@@ -1,14 +1,14 @@
-// Shared pieces of the RK3 substage kernels (substage.cu, vi_tile.cuh,
-// conservative.cu) and of the 2-D tile tendency (tile.cu): parameters,
-// the index maps of periodic, bounded and exchanged axes, the WENO5-Z /
-// third-order biased / centered reconstructions with their near-wall
-// degradation, the WENO5 vorticity reconstruction, and the staggered
-// Laplacians of the diffusion closures.
+// Shared pieces of the RK3 substage kernels (vi_tile.cuh, cons_tile.cuh,
+// entry points in substage.cu) and of the 2-D tile tendency (tile.cu):
+// parameters, the wrap and clamp of an index, the WENO5-Z / third-order
+// biased / centered reconstructions with their near-wall degradation, the
+// WENO5 vorticity reconstruction, and the staggered second difference of
+// the diffusion closures.
 //
 // Layout: every field is (Nx, Ny) row-major, index i*Ny + j, i along x.
 // Face i is the left edge of cell i. On a tile of a domain decomposition
-// the state and the intermediates are the tile padded by (hx, hy) cells
-// of halo, and G_prev and the outputs are the unpadded tile.
+// the state is the tile padded by (hx, hy) cells of halo, and G_prev and
+// the outputs are the unpadded tile.
 
 #pragma once
 
@@ -18,9 +18,6 @@
 #include <type_traits>
 
 namespace swmhd {
-
-constexpr int kBlockY = 32;
-constexpr int kBlockX = 8;
 
 // How an axis reads past its end. Periodic wraps and bounded clamps at a
 // wall (edge replication) over the whole domain. Exchanged is an axis of
@@ -44,7 +41,7 @@ enum Stencil : int { kVelocityStencil = 0, kVorticityStencil = 1 };
 
 template <typename T>
 struct Params {
-  int nx, ny;            // extents of the state and intermediates (padded)
+  int nx, ny;            // extents of the state (padded)
   int hx, hy;            // halo widths; the update writes the inner
                          // (nx - 2hx, ny - 2hy)
   int mode_x, mode_y;    // Axis of each axis
@@ -57,28 +54,32 @@ struct Params {
 };
 
 // One substage: input state, G_prev (null in substage 0), outputs (g_out
-// may be null), the intermediates buffer (the conservative kernels'; null
-// for the vector-invariant one), the step and the Le–Moin coefficients
-// (γ_k, ζ_k), and the rows of the vector-invariant kernel's tiles.
+// may be null), the step and the Le–Moin coefficients (γ_k, ζ_k), and
+// the rows of the kernel's tiles (ops/substage.py tile_shape).
 template <typename T>
 struct Launch {
   const T* s_in;
   const T* g_prev;
   T* s_out;
   T* g_out;
-  T* tmp;
   Params<T> p;
   T dt, gk, zk;
   int tile_x;
   cudaStream_t stream;
 };
 
-// Each formulation's translation unit defines its launcher for float and
-// double; both return cudaGetLastError() after their launches.
+// Each formulation's translation units define its launcher and its
+// kernel's tile_kernel_info (tile.cuh) for float and double; a launcher
+// returns cudaGetLastError() after its launch.
 template <typename T>
 cudaError_t launch_vector_invariant(const Launch<T>& a);
 template <typename T>
 cudaError_t launch_conservative(const Launch<T>& a);
+template <typename T>
+int vi_tile_info(int mode_x, int mode_y, int opt, int tile_x,
+                 int biharmonic, int* out);
+template <typename T>
+int cons_tile_info(int mode_x, int mode_y, int opt, int tile_x, int* out);
 
 // R::go<X, Y>(args...) for a launch's pair of axis modes: each periodic /
 // bounded pair on a whole domain, and on a tile an exchanged x with a
@@ -102,12 +103,6 @@ auto on_axes(int mode_x, int mode_y, const Args&... args) {
   }
 }
 
-inline dim3 block_dims() { return dim3(kBlockY, kBlockX); }
-
-inline dim3 grid_dims(int nx, int ny) {
-  return dim3((ny + kBlockY - 1) / kBlockY, (nx + kBlockX - 1) / kBlockX);
-}
-
 // -- index maps ---------------------------------------------------------------
 //
 // A shift by m of a field: wrapped on a periodic axis (|m| < n), clamped
@@ -115,7 +110,8 @@ inline dim3 grid_dims(int nx, int ny) {
 // halo on an exchanged axis (clamped only at the padded array's end). A
 // shift of a derived array is the derived array evaluated at the shifted
 // index, so where the reference shifts a shifted array the index is
-// clamped at each step (sh2); on a periodic axis that is one wrap.
+// clamped at each step (tile.cuh Map::sh2); on a periodic axis that is
+// one wrap.
 
 __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : (i >= n ? i - n : i);
@@ -123,44 +119,6 @@ __device__ __forceinline__ int wrap(int i, int n) {
 
 __device__ __forceinline__ int clampi(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
-template <Axis A>
-__device__ __forceinline__ int sh(int i, int m, int n) {
-  if constexpr (A == Axis::kPeriodic) {
-    return wrap(i + m, n);
-  } else {
-    return clampi(i + m, n);
-  }
-}
-
-// shift by m, then by s
-template <Axis A>
-__device__ __forceinline__ int sh2(int i, int m, int s, int n) {
-  if constexpr (A == Axis::kPeriodic) {
-    return wrap(i + m + s, n);
-  } else if constexpr (A == Axis::kBounded) {
-    return clampi(clampi(i + m, n) + s, n);
-  } else {
-    return clampi(i + m + s, n);
-  }
-}
-
-// Indices of the point an update thread owns: (i, j) in the padded arrays,
-// c there, co in the unpadded outputs; false for a thread past the end.
-template <typename T>
-__device__ __forceinline__ bool update_point(const Params<T>& p, int& i,
-                                             int& j, size_t& c,
-                                             size_t& co) {
-  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  const int jj = blockIdx.x * kBlockY + threadIdx.x;
-  const int ii = blockIdx.y * kBlockX + threadIdx.y;
-  if (ii >= mx || jj >= my) return false;
-  i = ii + p.hx;
-  j = jj + p.hy;
-  c = static_cast<size_t>(i) * p.ny + j;
-  co = static_cast<size_t>(ii) * my + jj;
-  return true;
 }
 
 // -- arithmetic -----------------------------------------------------------------
@@ -186,9 +144,9 @@ __device__ __forceinline__ void betas_left(T cm3, T cm2, T cm1, T c0, T cp1,
        + T(0.25) * sq(T(3) * cm1 - T(4) * c0 + cp1);
 }
 
-// x / 6, or x · (1/6) with Recip (the vector-invariant tile kernel: an
-// IEEE division by a constant is a subroutine call on the card, and the
-// product stays within the kernels' bounds; PERF.md §6).
+// x / 6, or x · (1/6) with Recip (the tile kernels: an IEEE division by
+// a constant is a subroutine call on the card, and the product stays
+// within the kernels' bounds; PERF.md §6).
 template <bool Recip, typename T>
 __device__ __forceinline__ T over6(T x) {
   if constexpr (Recip) {
@@ -301,7 +259,7 @@ __device__ __forceinline__ void vorticity_pair(const T* z, const T* uf,
 
 // -- reconstructions at faces, wall-aware ------------------------------------------
 //
-// Window c[k] = c(q + k - 3), k = 0..5, read through sh<Wall>; q is the
+// Window c[k] = c(q + k - 3), k = 0..5, read through Map::sh; q is the
 // face index on an axis of n points. On a bounded axis the reference
 // replaces the values near a wall by lower-order ones: third order within
 // two cells (first order at the outermost faces), and WENO5 by that
@@ -355,13 +313,13 @@ __device__ __forceinline__ void face_pair(int s, const T* c, int q, int n,
 // the next face q, read through the window c[k] = c(q + k - 3) clamped at
 // each shift. Centered2's is ℑᶜ = (c[i+1] + c[i])/2 of the value c_i at i
 // itself, which at a bounded axis' last point is not the window's c[2].
-template <bool Wall, typename T>
+template <bool Wall, bool Recip = false, typename T>
 __device__ __forceinline__ void center_pair(int s, const T* c, T c_i, int q,
                                             int n, T& left, T& right) {
   if (s == kCentered2) {
     left = right = T(0.5) * (c[3] + c_i);
   } else {
-    face_pair<Wall>(s, c, q, n, left, right);
+    face_pair<Wall, Recip>(s, c, q, n, left, right);
   }
 }
 
@@ -369,101 +327,22 @@ __device__ __forceinline__ void center_pair(int s, const T* c, T c_i, int q,
 //
 // ∂ᶠ(∂ᶜ a) (Face) or ∂ᶜ(∂ᶠ a) along one axis at index i, from rd(k),
 // the value of a at index k, shift(k, m), the index k shifted by m, and
-// the spacing d (with Recip its reciprocal, multiplied by). The inner
-// difference is an array of its own, so the outer one reads it at the
-// shifted index: at a wall, the clamped index (∂ᶠ(∂ᶜ a) is 0 at face 0,
-// ∂ᶜ(∂ᶠ a) at the last center).
-template <bool Face, bool Recip = false, typename T, typename R, typename S>
+// the reciprocal spacing r (each difference is multiplied by it). The
+// inner difference is an array of its own, so the outer one reads it at
+// the shifted index: at a wall, the clamped index (∂ᶠ(∂ᶜ a) is 0 at face
+// 0, ∂ᶜ(∂ᶠ a) at the last center).
+template <bool Face, typename T, typename R, typename S>
 __device__ __forceinline__ T second_difference_by(const R& rd,
                                                   const S& shift, int i,
-                                                  T d) {
-  auto by = [d](T x) {
-    if constexpr (Recip) {
-      return x * d;
-    } else {
-      return x / d;
-    }
-  };
+                                                  T r) {
   if constexpr (Face) {
     const int im = shift(i, -1);
-    return by(by(rd(shift(i, 1)) - rd(i)) - by(rd(shift(im, 1)) - rd(im)));
+    return ((rd(shift(i, 1)) - rd(i)) * r - (rd(shift(im, 1)) - rd(im)) * r)
+           * r;
   } else {
     const int ip = shift(i, 1);
-    return by(by(rd(ip) - rd(shift(ip, -1))) - by(rd(i) - rd(shift(i, -1))));
-  }
-}
-
-// The same on an axis of n points in mode A (sh<A>).
-template <Axis A, bool Face, typename T, typename R>
-__device__ __forceinline__ T second_difference(const R& rd, int i, int n,
-                                               T d) {
-  return second_difference_by<Face>(
-      rd, [n](int k, int m) { return sh<A>(k, m, n); }, i, d);
-}
-
-// ∇²a at (i, j); FX, FY: a lies on faces along x, y (u: (f,c) is <true,
-// false>, v: (c,f) <false, true>, a center field <false, false>).
-template <Axis X, Axis Y, bool FX, bool FY, typename T>
-__device__ __forceinline__ T laplacian(const T* a, int i, int j,
-                                       const Params<T>& p) {
-  auto rx = [&](int k) { return a[static_cast<size_t>(k) * p.ny + j]; };
-  auto ry = [&](int k) { return a[static_cast<size_t>(i) * p.ny + k]; };
-  return second_difference<X, FX>(rx, i, p.nx, p.dx)
-         + second_difference<Y, FY>(ry, j, p.ny, p.dy);
-}
-
-// The inner Laplacians of a biharmonic closure, of the momentum
-// prognostics mu, mv and the tracer A, stored at c of the intermediates
-// lu, lv, lA by a first kernel over the whole (padded) array.
-template <Axis X, Axis Y, typename T>
-__device__ __forceinline__ void store_inner_laplacians(
-    const T* mu, const T* mv, const T* A, int i, int j, size_t c,
-    const Params<T>& p, T* lu, T* lv, T* lA) {
-  lu[c] = laplacian<X, Y, true, false>(mu, i, j, p);
-  lv[c] = laplacian<X, Y, false, true>(mv, i, j, p);
-  lA[c] = laplacian<X, Y, false, false>(A, i, j, p);
-}
-
-// The closure's tendencies added to (Gu, Gv, GA) at (i, j): ν∇² of the
-// momentum prognostics mu, mv and κ∇²A, or −ν∇⁴ and −κ∇⁴ as the outer
-// Laplacians of the stored inner ones lu, lv, lA.
-template <Axis X, Axis Y, typename T>
-__device__ __forceinline__ void add_closure(
-    const Params<T>& p, const T* mu, const T* mv, const T* A, const T* lu,
-    const T* lv, const T* lA, int i, int j, T& Gu, T& Gv, T& GA) {
-  if (p.closure == kLaplacian) {
-    Gu = Gu + p.nu * laplacian<X, Y, true, false>(mu, i, j, p);
-    Gv = Gv + p.nu * laplacian<X, Y, false, true>(mv, i, j, p);
-    GA = GA + p.kappa * laplacian<X, Y, false, false>(A, i, j, p);
-  } else if (p.closure == kBiharmonic) {
-    Gu = Gu + (-p.nu) * laplacian<X, Y, true, false>(lu, i, j, p);
-    Gv = Gv + (-p.nu) * laplacian<X, Y, false, true>(lv, i, j, p);
-    GA = GA + (-p.kappa) * laplacian<X, Y, false, false>(lA, i, j, p);
-  }
-}
-
-// -- the end of a substage ------------------------------------------------------
-//
-// No penetration (the wall-normal tendency is zero on face 0 of a bounded
-// axis; the far wall face is not stored), then the Le–Moin update
-// s' = s + dt (γ G + ζ G_prev): s at c of the padded arrays, G_prev and
-// the outputs at co of the unpadded ones, G stored where g_out is given.
-template <bool WX, bool WY, typename T>
-__device__ __forceinline__ void mask_and_update(
-    T Gh, T Gu, T Gv, T GA, int i, int j, size_t c, size_t co,
-    const Params<T>& p, const T* s, const T* g_prev, T* s_out, T* g_out,
-    T dt, T gk, T zk) {
-  if (WX && i == 0) Gu = T(0);
-  if (WY && j == 0) Gv = T(0);
-  const size_t n = static_cast<size_t>(p.nx) * p.ny;
-  const size_t no = static_cast<size_t>(p.nx - 2 * p.hx) * (p.ny - 2 * p.hy);
-  const T G[4] = {Gh, Gu, Gv, GA};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const size_t o = k * no + co;
-    const T inc = g_prev ? gk * G[k] + zk * g_prev[o] : gk * G[k];
-    s_out[o] = s[k * n + c] + dt * inc;
-    if (g_out) g_out[o] = G[k];
+    return ((rd(ip) - rd(shift(ip, -1))) * r - (rd(i) - rd(shift(i, -1))) * r)
+           * r;
   }
 }
 

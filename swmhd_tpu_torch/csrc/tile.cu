@@ -78,7 +78,6 @@
 namespace swmhd {
 namespace {
 
-constexpr int kTileThreads = 256;
 constexpr int kSmemRefused = -2;   // ops/tile.py SMEM_REFUSED
 constexpr int kTileRadius = 3;     // composed radius of the VI tendency
 

@@ -1,12 +1,22 @@
 // What the kernels over 2-D tiles in shared memory share: the tile probes
-// of tile.cu and the vector-invariant substage of vi_tile.cuh.
+// of tile.cu and the two substage kernels, vi_tile.cuh (vector-invariant)
+// and cons_tile.cuh (conservative): a block's shape, the index map of a
+// tile's axis, the region loops, the load of the state windows, the
+// Laplacian in box coordinates, and the launch of a substage kernel with
+// its dynamic shared memory.
 
 #pragma once
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "substage.cuh"
+
 namespace swmhd {
+
+constexpr int kTileThreads = 256;   // a block
+constexpr int kTileY = 32;   // a substage tile's columns (ops/substage.py)
+constexpr int kTileRows = kTileThreads / kTileY;
 
 // The card's opt-in shared memory a block (232,448 B on an H100).
 inline int smem_optin_limit() {
@@ -22,6 +32,158 @@ __device__ __forceinline__ void wait_copies() {
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
+}
+
+// Local index a of a tile's axis is the point i0 + a of an axis of n
+// points (the padded extent on an exchanged axis). A shift goes to the
+// neighbouring slot of the window on a periodic axis (loaded wrapped),
+// and otherwise to the local index of the clamped global one: at a wall
+// the wall point (edge replication), on an exchanged axis a point of the
+// padded array.
+template <Axis A>
+struct Map {
+  int i0, n;
+  // shift by m
+  __device__ __forceinline__ int sh(int a, int m) const {
+    if constexpr (A == Axis::kPeriodic) {
+      return a + m;
+    } else {
+      return clampi(i0 + a + m, n) - i0;
+    }
+  }
+  // shift by m, then by s: a shift of a shifted derived array, clamped
+  // at each step
+  __device__ __forceinline__ int sh2(int a, int m, int s) const {
+    if constexpr (A == Axis::kPeriodic) {
+      return a + m + s;
+    } else if constexpr (A == Axis::kBounded) {
+      return clampi(clampi(i0 + a + m, n) + s, n) - i0;
+    } else {
+      return clampi(i0 + a + m + s, n) - i0;
+    }
+  }
+  __device__ __forceinline__ int g(int a) const { return i0 + a; }
+  // the index a window slot is loaded from: wrapped once (and clamped,
+  // for the slots of a ragged tile's far side that no point reads) or
+  // clamped
+  __device__ __forceinline__ int load(int a) const {
+    if constexpr (A == Axis::kPeriodic) {
+      const int x = wrap(i0 + a, n);
+      return x < n ? x : n - 1;
+    } else {
+      return clampi(i0 + a, n);
+    }
+  }
+};
+
+// f(a, b) for every (a, b) of [a0, a1) × [B0, B1), the block's threads
+// taking consecutive points.
+template <int B0, int B1, typename F>
+__device__ __forceinline__ void each_point(int a0, int a1, const F& f) {
+  constexpr int cols = B1 - B0;
+  const int n = (a1 - a0) * cols;
+  for (int e = threadIdx.x; e < n; e += kTileThreads) {
+    const int r = e / cols;
+    f(a0 + r, B0 + e - r * cols);
+  }
+}
+
+// The four state windows of a tile into `win`: plane k (rows × Cols
+// slots) holds field k of the stacked state s at the local points
+// [-Lo, rows - Lo) × [-Lo, Cols - Lo), by cp.async, all issued at once,
+// from the maps' wrapped, clamped or exchanged indices (Map::load), so no
+// padded copy of the state exists. Returns when the block has them.
+template <int Lo, int Cols, typename T, Axis X, Axis Y>
+__device__ __forceinline__ void load_windows(T* win, const T* s,
+                                             const Params<T>& p,
+                                             const Map<X>& M,
+                                             const Map<Y>& N, int rows) {
+  const size_t n = static_cast<size_t>(p.nx) * p.ny;
+  const int plane = rows * Cols;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    for (int e = threadIdx.x; e < plane; e += kTileThreads) {
+      const int r = e / Cols;
+      const int gi = M.load(r - Lo), gj = N.load(e - r * Cols - Lo);
+      __pipeline_memcpy_async(
+          win + k * plane + e,
+          s + k * n + static_cast<size_t>(gi) * p.ny + gj, sizeof(T));
+    }
+  }
+  wait_copies();
+}
+
+// ∇² at local (a, b) of rd(a, b), through the maps, with the reciprocal
+// spacings rdx, rdy; FX, FY: the field lies on faces along x, y (uh or u:
+// (f,c) is <true, false>, vh or v: (c,f) <false, true>, a center field
+// <false, false>).
+template <bool FX, bool FY, Axis X, Axis Y, typename T, typename RD>
+__device__ __forceinline__ T tile_laplacian(const RD& rd, const Map<X>& mx,
+                                            const Map<Y>& my, int a, int b,
+                                            T rdx, T rdy) {
+  return second_difference_by<FX>(
+             [&](int k) { return rd(k, b); },
+             [&](int k, int m) { return mx.sh(k, m); }, a, rdx)
+         + second_difference_by<FY>(
+             [&](int k) { return rd(a, k); },
+             [&](int k, int m) { return my.sh(k, m); }, b, rdy);
+}
+
+// Kernel k (null for axis modes no launch takes) with its dynamic shared
+// memory limit raised to `bytes` where *allowed, the most raised so far
+// for it, falls short; cudaErrorInvalidValue for a null kernel or bytes
+// over the card's opt-in limit.
+inline cudaError_t raise_smem_limit(const void* k, size_t bytes,
+                                    size_t* allowed) {
+  static const int limit = smem_optin_limit();
+  if (k == nullptr || bytes > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
+  if (bytes > *allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    *allowed = bytes;
+  }
+  return cudaSuccess;
+}
+
+// Launches substage kernel k, ready for `bytes` of shared memory, over the
+// (tile_x, kTileY) tiles of a launch's unpadded output: block
+// (blockIdx.y, blockIdx.x) is tile (x0 / tile_x, y0 / kTileY).
+template <typename T>
+cudaError_t launch_tiles(const void* k, const Launch<T>& a, size_t bytes) {
+  const Params<T>& p = a.p;
+  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  const int tx = a.tile_x;
+  if (mx < 1 || my < 1 || tx < 1) return cudaErrorInvalidValue;
+  const dim3 grid((my + kTileY - 1) / kTileY, (mx + tx - 1) / tx);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  Params<T> pp = p;
+  int tile_x = tx;
+  T dt = a.dt, gk = a.gk, zk = a.zk;
+  void* args[] = {const_cast<T**>(&a.s_in), const_cast<T**>(&a.g_prev),
+                  const_cast<T**>(&a.s_out), const_cast<T**>(&a.g_out),
+                  &pp, &tile_x, &dt, &gk, &zk};
+  return cudaLaunchKernel(k, grid, dim3(kTileThreads), args, bytes,
+                          a.stream);
+}
+
+// out[0] shared memory bytes a block, out[1] registers a thread, out[2]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// of kernel k, ready for `bytes`.
+inline int tile_kernel_info(const void* k, size_t bytes, int* out) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      kTileThreads, bytes);
+  out[0] = static_cast<int>(bytes);
+  out[1] = attr.numRegs;
+  out[2] = blocks;
+  return static_cast<int>(err);
 }
 
 }  // namespace swmhd

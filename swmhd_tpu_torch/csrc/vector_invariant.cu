@@ -6,12 +6,5 @@
 
 namespace swmhd {
 template cudaError_t launch_vector_invariant<float>(const Launch<float>&);
+template int vi_tile_info<float>(int, int, int, int, int, int*);
 }  // namespace swmhd
-
-// out: shared memory bytes a block, registers a thread, resident blocks an
-// SM of the kernel a launch with these arguments takes.
-extern "C" int swmhd_vi_tile_info_f32(int mode_x, int mode_y, int opt,
-                                      int tile_x, int biharmonic, int* out) {
-  return swmhd::vi_tile_info<float>(mode_x, mode_y, opt, tile_x, biharmonic,
-                                    out);
-}

@@ -5,10 +5,5 @@
 
 namespace swmhd {
 template cudaError_t launch_vector_invariant<double>(const Launch<double>&);
+template int vi_tile_info<double>(int, int, int, int, int, int*);
 }  // namespace swmhd
-
-extern "C" int swmhd_vi_tile_info_f64(int mode_x, int mode_y, int opt,
-                                      int tile_x, int biharmonic, int* out) {
-  return swmhd::vi_tile_info<double>(mode_x, mode_y, opt, tile_x,
-                                     biharmonic, out);
-}

@@ -18,9 +18,9 @@
 // divisions and the WENO-Z weights) against 16 words of state, G_prev, new
 // state and G: operations. The design keeps every intermediate on chip.
 //
-// Design. One block of kViThreads threads per (TX, kViTileY) tile of the
+// Design. One block of kTileThreads threads per (TX, kTileY) tile of the
 // unpadded output; TX is the wrapper's choice (ops/substage.py
-// vi_tile_shape), kViTileY = 32 is one warp's width along y, the
+// tile_shape), kTileY = 32 is one warp's width along y, the
 // contiguous axis. Local index (a, b) is the point (i0 + a, j0 + b) of the
 // (padded) arrays, the tile's points a in [0, TX), b in [0, 32).
 //   1. The four state windows, kViRadius = 3 cells around the tile (the
@@ -51,7 +51,7 @@
 // Traps the design handles:
 //   - Wall semantics. A shift of a derived array past a bounded axis'
 //     wall reads the derived array at the clamped index, and a shift of a
-//     shifted array clamps at each step (substage.cuh sh2). Here every
+//     shifted array clamps at each step (tile.cuh Map::sh2). Here every
 //     read, of the state or of an intermediate, goes through Map::sh and
 //     Map::sh2, which clamp the global index and turn it back into a local
 //     one: a read past the wall lands on the wall point's slot, which is
@@ -59,7 +59,7 @@
 //     the slots past the wall (never read; the plain emulation
 //     ops/vi_tile.py fills them with NaN to show it).
 //   - Masks. Gu at i = 0 and Gv at j = 0 of a bounded axis are zero
-//     (no penetration), as mask_and_update does.
+//     (no penetration).
 //   - Bitwise tiles. A tile of a decomposition (exchanged axes) runs the
 //     same expressions in the same order as the whole grid's periodic
 //     axes; only the index maps differ, and the tile interior matches the
@@ -101,19 +101,16 @@
 
 namespace swmhd {
 
-constexpr int kViTileY = 32;        // ops/substage.py VI_TILE_Y
-constexpr int kViRadius = 3;        // VI_RADIUS
-constexpr int kViThreads = 256;
-constexpr int kViRows = kViThreads / kViTileY;
-constexpr int kViBoxCols = kViTileY + 2 * kViRadius;
-constexpr int kViBoxArrays = 8;     // VI_BOX_ARRAYS
+constexpr int kViRadius = 3;        // ops/substage.py TILE_LAYOUTS
+constexpr int kViBoxCols = kTileY + 2 * kViRadius;
+constexpr int kViBoxArrays = 8;
 constexpr int kViBiharmonicArrays = 2;
 constexpr int kViMaxTileX = 64;
 // resident blocks an SM the register allocation is sized for (at most 128
-// registers a thread; the default model's kernel takes 61 in f32)
+// registers a thread; the default model's kernel takes 63 in f32)
 constexpr int kViMinBlocks = 2;
 
-// Shared memory of a block (ops/substage.py vi_smem_bytes).
+// Shared memory of a block (ops/substage.py smem_bytes).
 inline size_t vi_smem_bytes(size_t word, int tile_x, bool biharmonic) {
   return word * static_cast<size_t>(tile_x + 2 * kViRadius) * kViBoxCols
          * (4 + kViBoxArrays + kViBiharmonicArrays * biharmonic);
@@ -127,55 +124,6 @@ __device__ __forceinline__ Params<T> vi_options(Params<T> p) {
     p.stencil = kVelocityStencil;
   }
   return p;
-}
-
-// Local index a of a tile's axis is the point i0 + a of an axis of n
-// points (the padded extent on an exchanged axis).
-template <Axis A>
-struct Map {
-  int i0, n;
-  // shift by m, as substage.cuh sh
-  __device__ __forceinline__ int sh(int a, int m) const {
-    if constexpr (A == Axis::kPeriodic) {
-      return a + m;
-    } else {
-      return clampi(i0 + a + m, n) - i0;
-    }
-  }
-  // shift by m, then by s, as sh2
-  __device__ __forceinline__ int sh2(int a, int m, int s) const {
-    if constexpr (A == Axis::kPeriodic) {
-      return a + m + s;
-    } else if constexpr (A == Axis::kBounded) {
-      return clampi(clampi(i0 + a + m, n) + s, n) - i0;
-    } else {
-      return clampi(i0 + a + m + s, n) - i0;
-    }
-  }
-  __device__ __forceinline__ int g(int a) const { return i0 + a; }
-  // the index a window slot is loaded from: wrapped once (and clamped,
-  // for the slots of a ragged tile's far side that no point reads) or
-  // clamped
-  __device__ __forceinline__ int load(int a) const {
-    if constexpr (A == Axis::kPeriodic) {
-      const int x = wrap(i0 + a, n);
-      return x < n ? x : n - 1;
-    } else {
-      return clampi(i0 + a, n);
-    }
-  }
-};
-
-// f(a, b) for every (a, b) of [a0, a1) × [B0, B1), the block's threads
-// taking consecutive points.
-template <int B0, int B1, typename F>
-__device__ __forceinline__ void each_point(int a0, int a1, const F& f) {
-  constexpr int cols = B1 - B0;
-  const int n = (a1 - a0) * cols;
-  for (int e = threadIdx.x; e < n; e += kViThreads) {
-    const int r = e / cols;
-    f(a0 + r, B0 + e - r * cols);
-  }
 }
 
 // (left, right) of ζ on the flux point at local q along the axis of map m
@@ -209,31 +157,17 @@ __device__ __forceinline__ void vi_vorticity(const Params<T>& p,
   }
 }
 
-// ∇² at local (a, b) of rd(a, b), through the maps, with the reciprocal
-// spacings rdx, rdy; FX, FY as laplacian.
-template <bool FX, bool FY, Axis X, Axis Y, typename T, typename RD>
-__device__ __forceinline__ T vi_laplacian(const RD& rd, const Map<X>& mx,
-                                          const Map<Y>& my, int a, int b,
-                                          T rdx, T rdy) {
-  return second_difference_by<FX, true>(
-             [&](int k) { return rd(k, b); },
-             [&](int k, int m) { return mx.sh(k, m); }, a, rdx)
-         + second_difference_by<FY, true>(
-             [&](int k) { return rd(a, k); },
-             [&](int k, int m) { return my.sh(k, m); }, b, rdy);
-}
-
 // s, g_prev, s_out, g_out as in Launch; p.nx, p.ny the padded extents.
-// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kViTileY) of the
+// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kTileY) of the
 // unpadded output.
 template <typename T, Axis X, Axis Y, bool Opt>
-__global__ void __launch_bounds__(kViThreads, kViMinBlocks)
+__global__ void __launch_bounds__(kTileThreads, kViMinBlocks)
 vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
             T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
             int tx, T dt, T gk, T zk) {
   p = vi_options<Opt>(p);
   constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
-  constexpr int R = kViRadius, TY = kViTileY, BC = kViBoxCols;
+  constexpr int R = kViRadius, TY = kTileY, BC = kViBoxCols;
   enum { H = 0, U = 1, V = 2, A = 3 };
   extern __shared__ __align__(16) unsigned char smem[];
   T* const win = reinterpret_cast<T*>(smem);
@@ -244,7 +178,6 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   const Map<X> M{p.hx + x0, p.nx};
   const Map<Y> N{p.hy + y0, p.ny};
   const int ex = min(tx, mx - x0), ey = min(TY, my - y0);
-  const size_t n = static_cast<size_t>(p.nx) * p.ny;
   const T rdx = T(1) / p.dx, rdy = T(1) / p.dy;
 
   auto slot = [&](int a, int b) { return (a + R) * BC + b + R; };
@@ -252,17 +185,7 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   auto bx = [&](int t) { return box + t * plane; };
 
   // 1. the state windows
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    for (int e = threadIdx.x; e < plane; e += kViThreads) {
-      const int r = e / BC;
-      const int gi = M.load(r - R), gj = N.load(e - r * BC - R);
-      __pipeline_memcpy_async(
-          win + k * plane + e,
-          s + k * n + static_cast<size_t>(gi) * p.ny + gj, sizeof(T));
-    }
-  }
-  wait_copies();
+  load_windows<R, BC>(win, s, p, M, N, tx + 2 * R);
 
   // the Le–Moin update of field k at tile point (a, b)
   const size_t no = static_cast<size_t>(mx) * my;
@@ -304,14 +227,14 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
     });
     if (p.closure == kBiharmonic) {
       each_point<-1, TY + 1>(-1, tx + 1, [&](int a, int b) {
-        LA[slot(a, b)] = vi_laplacian<false, false>(
+        LA[slot(a, b)] = tile_laplacian<false, false>(
             [&](int i, int j) { return st(A, i, j); }, M, N, a, b, rdx, rdy);
       });
     }
     __syncthreads();
 
     const int b = lane;
-    for (int a = warp; a < ex && b < ey; a += kViRows) {
+    for (int a = warp; a < ex && b < ey; a += kTileRows) {
       const bool last_x = WX && M.g(a) == p.nx - 1;
       const bool last_y = WY && N.g(b) == p.ny - 1;
       const int ap = M.sh(a, 1), bp = N.sh(b, 1);
@@ -330,11 +253,11 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
         GA = GA - p.gam_bg * (T(0.5) * (Vf_jp + Vf0)) / h0;
       }
       if (p.closure == kLaplacian) {
-        GA = GA + p.kappa * vi_laplacian<false, false>(
+        GA = GA + p.kappa * tile_laplacian<false, false>(
                                 [&](int i, int j) { return st(A, i, j); },
                                 M, N, a, b, rdx, rdy);
       } else if (p.closure == kBiharmonic) {
-        GA = GA + (-p.kappa) * vi_laplacian<false, false>(
+        GA = GA + (-p.kappa) * tile_laplacian<false, false>(
                                    [&](int i, int j) {
                                      return LA[slot(i, j)];
                                    },
@@ -388,16 +311,16 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
                       : (st(A, ap, b) - A0) * rdx;
     By[slot(a, b)] = T(0.5) * (dx1 + dx0) / h0;
     if (p.closure == kBiharmonic) {
-      Lu[slot(a, b)] = vi_laplacian<true, false>(
+      Lu[slot(a, b)] = tile_laplacian<true, false>(
           [&](int i, int j) { return st(U, i, j); }, M, N, a, b, rdx, rdy);
-      Lv[slot(a, b)] = vi_laplacian<false, true>(
+      Lv[slot(a, b)] = tile_laplacian<false, true>(
           [&](int i, int j) { return st(V, i, j); }, M, N, a, b, rdx, rdy);
     }
   });
   __syncthreads();
 
   const int b = lane;
-  for (int a = warp; a < ex && b < ey; a += kViRows) {
+  for (int a = warp; a < ex && b < ey; a += kTileRows) {
     const bool last_x = WX && M.g(a) == p.nx - 1;
     const bool last_y = WY && N.g(b) == p.ny - 1;
     const int am = M.sh(a, -1), ap = M.sh(a, 1);
@@ -436,17 +359,17 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
     Gv = Gv + (-p.f) * u_hat;
 
     if (p.closure == kLaplacian) {
-      Gu = Gu + p.nu * vi_laplacian<true, false>(
+      Gu = Gu + p.nu * tile_laplacian<true, false>(
                            [&](int i, int j) { return st(U, i, j); }, M, N,
                            a, b, rdx, rdy);
-      Gv = Gv + p.nu * vi_laplacian<false, true>(
+      Gv = Gv + p.nu * tile_laplacian<false, true>(
                            [&](int i, int j) { return st(V, i, j); }, M, N,
                            a, b, rdx, rdy);
     } else if (p.closure == kBiharmonic) {
-      Gu = Gu + (-p.nu) * vi_laplacian<true, false>(
+      Gu = Gu + (-p.nu) * tile_laplacian<true, false>(
                               [&](int i, int j) { return at(Lu, i, j); }, M,
                               N, a, b, rdx, rdy);
-      Gv = Gv + (-p.nu) * vi_laplacian<false, true>(
+      Gv = Gv + (-p.nu) * tile_laplacian<false, true>(
                               [&](int i, int j) { return at(Lv, i, j); }, M,
                               N, a, b, rdx, rdy);
     }
@@ -511,78 +434,46 @@ bool vi_opt(const Params<T>& p) {
          || p.stencil != kVelocityStencil;
 }
 
-// The kernel of (mode_x, mode_y, opt) with its dynamic shared memory
-// limit raised to `bytes` (once a kernel, for the largest asked so far);
-// null, with cudaErrorInvalidValue in *err, for modes no launch takes, a
-// tile_x out of [1, kViMaxTileX] or bytes over the card's opt-in limit.
+// The kernel of (mode_x, mode_y, opt) ready for `bytes` of shared memory
+// (raise_smem_limit); null, with cudaErrorInvalidValue in *err, for modes
+// no launch takes, a tile_x out of [1, kViMaxTileX] or bytes over the card's
+// opt-in limit.
 template <typename T>
 const void* vi_ready(int mode_x, int mode_y, bool opt, int tile_x,
                      size_t bytes, cudaError_t* err) {
-  static int limit = 0;
   static size_t allowed[2][9] = {};
-  if (limit == 0) limit = smem_optin_limit();
   const int m = mode_x * 3 + mode_y;
+  *err = cudaErrorInvalidValue;
+  if (m < 0 || m > 8 || tile_x < 1 || tile_x > kViMaxTileX) return nullptr;
   const void* k = opt ? reinterpret_cast<const void*>(
                             vi_kernel<T, true>(mode_x, mode_y))
                       : reinterpret_cast<const void*>(
                             vi_kernel<T, false>(mode_x, mode_y));
-  *err = cudaErrorInvalidValue;
-  if (k == nullptr || m < 0 || m > 8 || tile_x < 1
-      || tile_x > kViMaxTileX || bytes > static_cast<size_t>(limit)) {
-    return nullptr;
-  }
-  if (bytes > allowed[opt][m]) {
-    *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-    if (*err != cudaSuccess) return nullptr;
-    allowed[opt][m] = bytes;
-  }
-  *err = cudaSuccess;
-  return k;
+  *err = raise_smem_limit(k, bytes, &allowed[opt][m]);
+  return *err == cudaSuccess ? k : nullptr;
 }
 
 template <typename T>
 cudaError_t launch_vector_invariant(const Launch<T>& a) {
   const Params<T>& p = a.p;
   const bool opt = vi_opt(p);
-  const int tx = a.tile_x;
-  const size_t bytes = vi_smem_bytes(sizeof(T), tx,
+  const size_t bytes = vi_smem_bytes(sizeof(T), a.tile_x,
                                      opt && p.closure == kBiharmonic);
   cudaError_t err;
-  const void* k = vi_ready<T>(p.mode_x, p.mode_y, opt, tx, bytes, &err);
-  if (k == nullptr) return err;
-  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  const dim3 grid((my + kViTileY - 1) / kViTileY, (mx + tx - 1) / tx);
-  if (mx < 1 || my < 1 || grid.y > 65535) return cudaErrorInvalidValue;
-  Params<T> pp = p;
-  int tile_x = tx;
-  T dt = a.dt, gk = a.gk, zk = a.zk;
-  void* args[] = {const_cast<T**>(&a.s_in), const_cast<T**>(&a.g_prev),
-                  const_cast<T**>(&a.s_out), const_cast<T**>(&a.g_out),
-                  &pp, &tile_x, &dt, &gk, &zk};
-  return cudaLaunchKernel(k, grid, dim3(kViThreads), args, bytes, a.stream);
+  const void* k = vi_ready<T>(p.mode_x, p.mode_y, opt, a.tile_x, bytes,
+                              &err);
+  return k == nullptr ? err : launch_tiles(k, a, bytes);
 }
 
-// out[0] shared memory bytes a block, out[1] registers a thread, out[2]
-// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// of the kernel a launch with these arguments takes.
+// tile_kernel_info of the kernel a launch with these arguments takes.
 template <typename T>
 int vi_tile_info(int mode_x, int mode_y, int opt, int tile_x,
                  int biharmonic, int* out) {
   const size_t bytes = vi_smem_bytes(sizeof(T), tile_x, biharmonic != 0);
   cudaError_t err;
   const void* k = vi_ready<T>(mode_x, mode_y, opt != 0, tile_x, bytes, &err);
-  if (k == nullptr) return static_cast<int>(err);
-  cudaFuncAttributes attr{};
-  err = cudaFuncGetAttributes(&attr, k);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kViThreads,
-                                                      bytes);
-  out[0] = static_cast<int>(bytes);
-  out[1] = attr.numRegs;
-  out[2] = blocks;
-  return static_cast<int>(err);
+  return k == nullptr ? static_cast<int>(err)
+                      : tile_kernel_info(k, bytes, out);
 }
 
 }  // namespace swmhd

@@ -30,17 +30,17 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 BOTH = ("f32", "f64")
 # name -> (argtypes, the suffixes it is defined with; () for the bare name)
 _SIGNATURES = {
-    # s_in, g_prev, s_out, g_out, tmp, nx, ny, hx, hy, conservative,
-    # mode_x, mode_y, closure, momentum, mass, tracer, stencil, tile_x, dx,
-    # dy, g, f, A_bg_grad_y, nu, kappa, dt, gamma_k, zeta_k, stream
-    "swmhd_substage": ([_P] * 5 + [_I] * 13 + [_D] * 10 + [_P], BOTH),
-    # s_in, s_out, work, gbuf, tmp, nx, ny, conservative, wall_x, wall_y,
+    # s_in, g_prev, s_out, g_out, nx, ny, hx, hy, conservative, mode_x,
+    # mode_y, closure, momentum, mass, tracer, stencil, tile_x, dx, dy, g,
+    # f, A_bg_grad_y, nu, kappa, dt, gamma_k, zeta_k, stream
+    "swmhd_substage": ([_P] * 4 + [_I] * 13 + [_D] * 10 + [_P], BOTH),
+    # s_in, s_out, work, gbuf, nx, ny, conservative, wall_x, wall_y,
     # closure, momentum, mass, tracer, stencil, tile_x, dx, dy, g, f,
     # A_bg_grad_y, nu, kappa, dt, n_steps, stream
-    "swmhd_multistep": ([_P] * 5 + [_I] * 11 + [_D] * 8 + [_I, _P], BOTH),
-    # (vector_invariant*.cu) mode_x, mode_y, opt, tile_x, biharmonic, out:
-    # the tile kernel's shared memory a block, registers, blocks an SM
-    "swmhd_vi_tile_info": ([_I] * 5 + [_P], BOTH),
+    "swmhd_multistep": ([_P] * 4 + [_I] * 11 + [_D] * 8 + [_I, _P], BOTH),
+    # conservative, mode_x, mode_y, opt, tile_x, biharmonic, out: the tile
+    # kernel's shared memory a block, registers, blocks an SM
+    "swmhd_tile_info": ([_I] * 6 + [_P], BOTH),
     # (tile.cu) the card's opt-in shared memory per block
     "swmhd_smem_limit": ([], ()),
     # x_padded, out, nx, ny, tx, ty, hx, hy, async, branch, p, box_rows,

@@ -13,13 +13,12 @@ launches counted under the branches with an exchanged axis. The
 prognostics travel stacked as one ``(4, Nx, Ny)`` tensor in the order h,
 u, v, A.
 
-The vector-invariant substage is one kernel over 2-D tiles of ``(TX,
-VI_TILE_Y)`` points with its intermediates in shared memory; the wrapper
-picks TX (:func:`vi_tile_shape`) and allocates no intermediates for it.
-Its plain emulation tile by tile is
-:func:`swmhd_tpu_torch.ops.vi_tile.substage_tiles_reference`. The
-conservative substage is three kernels passing intermediates through
-device memory.
+Each formulation's substage is one kernel over 2-D tiles of ``(TX,
+TILE_Y)`` points with its intermediates in shared memory and the
+Le–Moin update fused in; the wrapper picks TX (:func:`tile_shape`) and
+allocates nothing but the outputs. Their plain emulations tile by tile
+are :func:`swmhd_tpu_torch.ops.vi_tile.substage_tiles_reference` and
+:func:`swmhd_tpu_torch.ops.cons_tile.substage_tiles_reference`.
 
 The kernels cover both formulations (vector-invariant with the jacobian
 Lorentz forcing, conservative with the divergence-form one) on any pair of
@@ -55,20 +54,24 @@ from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
 from ..models.state import Clock, State
 from ..physics.diffusion import BiharmonicDiffusion, LaplacianDiffusion
 
-# intermediates between the kernels of one conservative substage; a
-# biharmonic closure adds its three inner Laplacians. The
-# vector-invariant substage is one kernel over 2-D tiles whose
-# intermediates stay in shared memory (csrc/vi_tile.cuh).
-N_TMP = {CONSERVATIVE: 16}
-BIHARMONIC_TMP = 3
-# the vector-invariant tile kernel: tiles of (TX, VI_TILE_Y) points, TX
-# one of VI_TILE_X; the state windows and the intermediates span the
-# tile and VI_RADIUS cells around it (the composed read radius); the box
-# holds VI_BOX_ARRAYS intermediates at a time, VI_BIHARMONIC_ARRAYS more
-# with a biharmonic closure (csrc/vi_tile.cuh vi_smem_bytes)
-VI_TILE_Y, VI_TILE_X, VI_RADIUS = 32, (32, 16, 8), 3
-VI_MAX_TILE_X = 64          # the most rows a tile may have (kViMaxTileX)
-VI_BOX_ARRAYS, VI_BIHARMONIC_ARRAYS = 8, 2
+
+class TileLayout(NamedTuple):
+    """The shared memory of one formulation's tile kernel: the state
+    windows and the box arrays span the tile and ``lo`` cells before it,
+    ``hi`` after it on each axis (the composed read radius); the box holds
+    ``arrays`` intermediates at its peak, ``biharmonic`` more with a
+    biharmonic closure (csrc/vi_tile.cuh vi_smem_bytes,
+    csrc/cons_tile.cuh cons_smem_bytes)."""
+    lo: int
+    hi: int
+    arrays: int
+    biharmonic: int
+
+
+# the substage kernels' tiles: (TX, TILE_Y) points, TX one of TILE_X
+TILE_Y, TILE_X = 32, (32, 16, 8)
+TILE_LAYOUTS = {VECTOR_INVARIANT: TileLayout(3, 3, 8, 2),
+                CONSERVATIVE: TileLayout(4, 3, 8, 0)}
 MIN_POINTS = 8      # per axis: the kernel wraps indices at most once
 # how the kernel reads past the end of an axis (the AxisMode of
 # csrc/substage.cuh): wrap, clamp at a wall, or read the exchanged halo
@@ -248,44 +251,31 @@ def _check_fields(s):
         raise ValueError("stacked fields must be contiguous")
 
 
-def n_tmp(model) -> int:
-    """The intermediates of one substage of ``model`` in device memory:
-    none for the vector-invariant tile kernel."""
-    if model.formulation != CONSERVATIVE:
-        return 0
-    return (N_TMP[CONSERVATIVE]
-            + BIHARMONIC_TMP * isinstance(model.closure, BiharmonicDiffusion))
-
-
-def _intermediates(model, s):
-    n = n_tmp(model)
-    return (torch.empty((n,) + tuple(s.shape[1:]), dtype=s.dtype,
-                        device=s.device) if n else None)
-
-
-def vi_smem_bytes(dtype, tile_x, biharmonic=False) -> int:
-    """Shared memory a block of the vector-invariant tile kernel takes:
-    the four state windows and the box's intermediates, each (tile_x +
-    2·VI_RADIUS) × (VI_TILE_Y + 2·VI_RADIUS) values."""
-    box = (tile_x + 2 * VI_RADIUS) * (VI_TILE_Y + 2 * VI_RADIUS)
-    arrays = 4 + VI_BOX_ARRAYS + VI_BIHARMONIC_ARRAYS * bool(biharmonic)
-    return dtype.itemsize * box * arrays
+def smem_bytes(formulation, dtype, tile_x, biharmonic=False) -> int:
+    """Shared memory a block of ``formulation``'s tile kernel takes: the
+    four state windows and the box's intermediates at their peak, each
+    (tile_x + lo + hi) × (TILE_Y + lo + hi) values (:data:`TILE_LAYOUTS`)."""
+    lay = TILE_LAYOUTS[formulation]
+    box = (tile_x + lay.lo + lay.hi) * (TILE_Y + lay.lo + lay.hi)
+    return dtype.itemsize * box * (4 + lay.arrays
+                                   + lay.biharmonic * bool(biharmonic))
 
 
 @functools.lru_cache(maxsize=None)
-def vi_tile_shape(nx, ny, dtype, biharmonic, smem_limit, sms):
-    """``(TX, VI_TILE_Y)`` of the vector-invariant tile kernel on an
-    unpadded ``nx × ny`` output, on a card of ``sms`` SMs whose opt-in
-    shared memory a block is ``smem_limit`` bytes (:func:`card_limits`):
-    among the TX of VI_TILE_X whose block leaves room for two in that
-    limit, the largest that still makes two blocks an SM, else the
-    smallest. Cached: every substage call asks."""
-    fits = [t for t in VI_TILE_X
-            if 2 * vi_smem_bytes(dtype, t, biharmonic) <= smem_limit]
+def tile_shape(formulation, nx, ny, dtype, biharmonic, smem_limit, sms):
+    """``(TX, TILE_Y)`` of ``formulation``'s tile kernel on an unpadded
+    ``nx × ny`` output, on a card of ``sms`` SMs whose opt-in shared
+    memory a block is ``smem_limit`` bytes (:func:`card_limits`): among
+    the TX of TILE_X whose block leaves room for two in that limit, the
+    largest that still makes two blocks an SM, else the smallest. Cached:
+    every substage call asks."""
+    fits = [t for t in TILE_X
+            if 2 * smem_bytes(formulation, dtype, t, biharmonic)
+            <= smem_limit]
     for t in fits:
-        if math.ceil(nx / t) * math.ceil(ny / VI_TILE_Y) >= 2 * sms:
-            return t, VI_TILE_Y
-    return fits[-1], VI_TILE_Y
+        if math.ceil(nx / t) * math.ceil(ny / TILE_Y) >= 2 * sms:
+            return t, TILE_Y
+    return fits[-1], TILE_Y
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,31 +307,28 @@ def card_limits(index):
 
 
 def _tile_x(model, nx, ny, s):
-    """The rows of the vector-invariant kernel's tiles on an unpadded ``nx
-    × ny`` output of the stacked fields ``s`` (a CUDA tensor), by
-    :func:`vi_tile_shape` on its card; 0 for the conservative kernels,
-    which take none."""
-    if model.formulation == CONSERVATIVE:
-        return 0
-    return vi_tile_shape(nx, ny, s.dtype,
-                         isinstance(model.closure, BiharmonicDiffusion),
-                         *card_limits(s.device.index))[0]
+    """The rows of the kernel's tiles on an unpadded ``nx × ny`` output of
+    the stacked fields ``s`` (a CUDA tensor), by :func:`tile_shape` on its
+    card."""
+    return tile_shape(model.formulation, nx, ny, s.dtype,
+                      isinstance(model.closure, BiharmonicDiffusion),
+                      *card_limits(s.device.index))[0]
 
 
-def vi_tile_info(dtype, branch, tile_x):
+def tile_info(dtype, branch, tile_x):
     """``(shared memory bytes a block, registers a thread, resident blocks
-    an SM)`` of the vector-invariant tile kernel that a launch of
-    :class:`Branch` ``branch`` with tiles of ``tile_x`` rows takes, from
-    the CUDA runtime (``cudaFuncGetAttributes``,
+    an SM)`` of the tile kernel that a launch of :class:`Branch` ``branch``
+    with tiles of ``tile_x`` rows takes, from the CUDA runtime
+    (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     b = Branch(*branch)
     opt = any(b[3:])        # a switch off the default model's
     biharmonic = CLOSURES[b.closure] is BiharmonicDiffusion
     out = (ctypes.c_int * 3)()
-    err = _lib_fn("swmhd_vi_tile_info", dtype)(
-        b.mode_x, b.mode_y, int(opt), int(tile_x), int(biharmonic),
-        ctypes.addressof(out))
-    _raise_on(err, "swmhd_vi_tile_info")
+    err = _lib_fn("swmhd_tile_info", dtype)(
+        b.conservative, b.mode_x, b.mode_y, int(opt), int(tile_x),
+        int(biharmonic), ctypes.addressof(out))
+    _raise_on(err, "swmhd_tile_info")
     return tuple(out)
 
 
@@ -355,8 +342,7 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     nx + 2hx, ny + 2hy)``; ``g_prev`` and the results are ``(4, nx, ny)``.
     A padded axis must be periodic in ``model`` and is read from the halo
     (the exchanged axis mode); an axis with no pad is the whole domain's
-    and wraps or walls. The vector-invariant kernel's tiles are
-    :func:`vi_tile_shape`'s."""
+    and wraps or walls. The kernel's tiles are :func:`tile_shape`'s."""
     hx, hy = halo
     g = model.grid
     for h, topo, name in ((hx, g.topology_x, "x"), (hy, g.topology_y, "y")):
@@ -391,12 +377,11 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     tile_x = _tile_x(model, nx, ny, s)
     s_out = torch.empty(shape, dtype=s.dtype, device=s.device)
     g_out = torch.empty_like(s_out) if write_G else None
-    tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
-    err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), _ptr(tmp),
-             nx, ny, hx, hy, *branch, tile_x, *params[8:], float(dt),
-             RK3_GAMMA[stage], RK3_ZETA[stage], stream)
+    err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), nx, ny, hx,
+             hy, *branch, tile_x, *params[8:], float(dt), RK3_GAMMA[stage],
+             RK3_ZETA[stage], stream)
     substage.launches += 1
     substage.launches_by_branch[branch] += 1
     _raise_on(err, "swmhd_substage")
@@ -418,12 +403,11 @@ def multistep(model, s, dt, n_steps):
     out = torch.empty_like(s)
     work = torch.empty_like(s)
     gbuf = torch.empty((2,) + tuple(s.shape), dtype=s.dtype, device=s.device)
-    tmp = _intermediates(model, s)
     fn = _lib_fn("swmhd_multistep", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
-    err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), _ptr(tmp),
-             g.Nx, g.Ny, *params[:8], _tile_x(model, g.Nx, g.Ny, s),
-             *params[8:], float(dt), int(n_steps), stream)
+    err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), g.Nx, g.Ny,
+             *params[:8], _tile_x(model, g.Nx, g.Ny, s), *params[8:],
+             float(dt), int(n_steps), stream)
     multistep.launches += 1
     multistep.launches_by_branch[params.branch] += 1
     _raise_on(err, "swmhd_multistep")

@@ -2,8 +2,8 @@
 (``csrc/vi_tile.cuh``): :func:`substage_tiles_reference`.
 
 The kernel computes one ``(TX, TY)`` tile of the unpadded output per
-block. It stages the tile's state windows, ``VI_RADIUS`` cells wider on
-every side, computes the intermediates (the derived arrays of the
+block. It stages the tile's state windows, 3 cells wider on every side
+(``TILE_LAYOUTS``), computes the intermediates (the derived arrays of the
 reference's tendency) over the regions of the box that the tile's points
 read, then G and the Le–Moin update at the tile's points. This module does
 the same in PyTorch, tile by tile, with the kernel's index maps and
@@ -26,6 +26,9 @@ the JAX package by ``tests/test_torch_vi_tile.py``. A host build of
 ``csrc/vi_tile.cuh`` (g++ with stand-in CUDA headers, 256 threads a block
 meeting at a barrier, shared memory filled with NaN) matches this
 module's arithmetic bit for bit: ``tests/test_torch_vi_tile_host.py``.
+The pieces that do not depend on the formulation (:class:`Map`,
+:class:`Box`, the reconstructions, :func:`tiles_reference`) serve the
+conservative kernel's emulation too (:mod:`.cons_tile`).
 """
 
 from __future__ import annotations
@@ -34,13 +37,13 @@ import math
 
 import torch
 
-from ..models.shallow_water import RK3_GAMMA, RK3_ZETA
+from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
+                                    VECTOR_INVARIANT)
 from .. import advection
 from .substage import (BOUNDED_AXIS, EXCHANGED_AXIS, PERIODIC_AXIS,
-                       VI_RADIUS, VI_TILE_X, VI_TILE_Y, _crop,
-                       kernel_params)
+                       TILE_LAYOUTS, TILE_X, TILE_Y, _crop, kernel_params)
 
-R = VI_RADIUS
+R = TILE_LAYOUTS[VECTOR_INVARIANT].lo
 WENO5, UPWIND3, CENTERED2 = 0, 1, 2          # csrc/substage.cuh Scheme
 LAPLACIAN, BIHARMONIC = 1, 2                 # Closure
 H, U, V, A = 0, 1, 2, 3
@@ -189,42 +192,66 @@ def _second_difference(rd, m, a, rd_, face):
 
 # -- one tile ---------------------------------------------------------------------
 
-def _tile(s, p, X, Y, TX, TY):
-    """(G of the tile's TX × TY points, as (4, TX, TY), masked)."""
-    nan = float("nan")
-    win = s[:, X.load(torch.arange(-R, TX + R))[:, None],
-            Y.load(torch.arange(-R, TY + R))[None, :]]
-    WX, WY = X.mode == BOUNDED_AXIS, Y.mode == BOUNDED_AXIS
-    NX, NY = X.n, Y.n
-    one = torch.ones((), dtype=s.dtype)
-    rdx = one / torch.tensor(p.dx, dtype=s.dtype)
-    rdy = one / torch.tensor(p.dy, dtype=s.dtype)
+def region(a0, a1, b0, b1):
+    """The local points [a0, a1) × [b0, b1), as broadcasting indices."""
+    return (torch.arange(a0, a1)[:, None], torch.arange(b0, b1)[None, :])
 
-    def st(k, a, b):
-        return win[k][a + R, b + R]
 
-    def at(box, a, b):
-        return box[a + R, b + R]
+class Box:
+    """The shared memory of one ``TX × TY`` tile of the stacked fields
+    ``s`` under the maps ``X``, ``Y``, as the kernel lays it out: the four
+    state windows and the box arrays over the local points ``[-lo, TX +
+    hi) × [-lo, TY + hi)``; ``rdx``, ``rdy`` the reciprocal spacings
+    rounded in the working type."""
 
-    def region(a0, a1, b0, b1):
-        return (torch.arange(a0, a1)[:, None],
-                torch.arange(b0, b1)[None, :])
+    def __init__(self, s, p, X, Y, TX, TY, lo, hi):
+        self.X, self.Y, self.lo = X, Y, lo
+        self.shape = (TX + lo + hi, TY + lo + hi)
+        self.new_full = s.new_full
+        self.win = s[:, X.load(torch.arange(-lo, TX + hi))[:, None],
+                     Y.load(torch.arange(-lo, TY + hi))[None, :]]
+        one = torch.ones((), dtype=s.dtype)
+        self.rdx = one / torch.tensor(p.dx, dtype=s.dtype)
+        self.rdy = one / torch.tensor(p.dy, dtype=s.dtype)
 
-    def new_box(a, b, value):
-        box = s.new_full((TX + 2 * R, TY + 2 * R), nan)
-        value = torch.where(X.outside(a) | Y.outside(b), nan, value)
-        box[a + R, b + R] = value.expand(a.shape[0], b.shape[1])
+    def st(self, k, a, b):
+        """State field k at local (a, b)."""
+        return self.win[k][a + self.lo, b + self.lo]
+
+    def at(self, box, a, b):
+        return box[a + self.lo, b + self.lo]
+
+    def new(self, a, b, value):
+        """A box array holding ``value`` over the region (a, b) and NaN
+        elsewhere and past the walls."""
+        nan = float("nan")
+        box = self.new_full(self.shape, nan)
+        value = torch.where(self.X.outside(a) | self.Y.outside(b), nan,
+                            value)
+        box[a + self.lo, b + self.lo] = value.expand(a.shape[0], b.shape[1])
         return box
 
-    def laplacian(rd2, a, b, fx, fy):
-        return (_second_difference(lambda k: rd2(k, b), X, a, rdx, fx)
-                + _second_difference(lambda k: rd2(a, k), Y, b, rdy, fy))
+    def laplacian(self, rd2, a, b, fx, fy):
+        """∇² at (a, b) of ``rd2(a, b)``; fx, fy: on faces along x, y."""
+        return (_second_difference(lambda k: rd2(k, b), self.X, a, self.rdx,
+                                   fx)
+                + _second_difference(lambda k: rd2(a, k), self.Y, b,
+                                     self.rdy, fy))
 
-    def state(k):
-        return lambda a, b: st(k, a, b)
+    def state(self, k):
+        return lambda a, b: self.st(k, a, b)
 
-    def of(box):
-        return lambda a, b: at(box, a, b)
+    def of(self, box):
+        return lambda a, b: self.at(box, a, b)
+
+
+def _tile(s, p, X, Y, TX, TY):
+    """(G of the tile's TX × TY points, as (4, TX, TY), masked)."""
+    box = Box(s, p, X, Y, TX, TY, R, R)
+    st, at, new_box, laplacian = box.st, box.at, box.new, box.laplacian
+    state, of, rdx, rdy = box.state, box.of, box.rdx, box.rdy
+    WX, WY = X.mode == BOUNDED_AXIS, Y.mode == BOUNDED_AXIS
+    NX, NY = X.n, Y.n
 
     # phase 1: mass and tracer, one region
     a, b = region(0, TX + 1, 0, TY + 1)
@@ -370,19 +397,13 @@ def _vorticity_recon(p, load, m, q, wall):
     return _upwind3_pair(z, m.g(m.sh(q, 1)), m.n, wall)
 
 
-def substage_tiles_reference(model, s, dt, stage, g_prev=None, halo=(0, 0),
-                             tile=(VI_TILE_X[0], VI_TILE_Y)):
-    """Substage ``stage`` of the vector-invariant model on stacked fields
-    ``s`` (padded by ``halo`` on exchanged axes, as for
-    :func:`~swmhd_tpu_torch.ops.substage.substage`) computed tile by tile
-    as the kernel computes it: ``(s_new, G)``, unpadded. ``tile`` is the
-    kernel's ``(TX, TY)``; the wrapper picks it by grid and card
-    (:func:`~swmhd_tpu_torch.ops.substage.vi_tile_shape`)."""
-    substage_tiles_reference.calls += 1
+def tiles_reference(tile_of, model, s, dt, stage, g_prev, halo, tile):
+    """Substage ``stage`` of ``model`` on stacked fields ``s`` (padded by
+    ``halo`` on exchanged axes, as for
+    :func:`~swmhd_tpu_torch.ops.substage.substage`), G computed tile by
+    tile by ``tile_of(s, params, X, Y, TX, TY)`` on the ``(TX, TY)`` tiles
+    of ``tile``: ``(s_new, G)``, unpadded."""
     p = kernel_params(model)
-    if p.conservative:
-        raise ValueError("the tile kernel computes the vector-invariant "
-                         "formulation")
     hx, hy = halo
     NX, NY = s.shape[1:]
     mx, my = NX - 2 * hx, NY - 2 * hy
@@ -394,13 +415,29 @@ def substage_tiles_reference(model, s, dt, stage, g_prev=None, halo=(0, 0),
         for tj in range(math.ceil(my / TY)):
             x0, y0 = ti * TX, tj * TY
             ex, ey = min(TX, mx - x0), min(TY, my - y0)
-            g = _tile(s, p, Map(modes[0], hx + x0, NX),
-                      Map(modes[1], hy + y0, NY), TX, TY)
+            g = tile_of(s, p, Map(modes[0], hx + x0, NX),
+                        Map(modes[1], hy + y0, NY), TX, TY)
             G[:, x0:x0 + ex, y0:y0 + ey] = g[:, :ex, :ey]
     inc = RK3_GAMMA[stage] * G
     if g_prev is not None:
         inc = inc + RK3_ZETA[stage] * g_prev
     return _crop(s, halo) + dt * inc, G
+
+
+def substage_tiles_reference(model, s, dt, stage, g_prev=None, halo=(0, 0),
+                             tile=(TILE_X[0], TILE_Y)):
+    """Substage ``stage`` of the vector-invariant model on stacked fields
+    ``s`` (padded by ``halo`` on exchanged axes, as for
+    :func:`~swmhd_tpu_torch.ops.substage.substage`) computed tile by tile
+    as the kernel computes it: ``(s_new, G)``, unpadded. ``tile`` is the
+    kernel's ``(TX, TY)``; the wrapper picks it by grid and card
+    (:func:`~swmhd_tpu_torch.ops.substage.tile_shape`). The conservative
+    formulation's is :func:`.cons_tile.substage_tiles_reference`."""
+    substage_tiles_reference.calls += 1
+    if model.formulation == CONSERVATIVE:
+        raise ValueError("this emulates the vector-invariant tile kernel; "
+                         "ops.cons_tile emulates the conservative one")
+    return tiles_reference(_tile, model, s, dt, stage, g_prev, halo, tile)
 
 
 substage_tiles_reference.calls = 0

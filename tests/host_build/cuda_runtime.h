@@ -1,5 +1,5 @@
 // Host stand-in for the CUDA runtime header, for a g++ (-std=c++20) build
-// of the vector-invariant tile kernel (vi_host.cpp): the qualifiers are
+// of a substage tile kernel (vi_host.cpp, cons_host.cpp): the qualifiers are
 // empty, threadIdx and blockIdx are per host thread, __syncthreads waits
 // at the block's std::barrier, and the runtime calls of the launchers are
 // stubs (no launch goes through them).

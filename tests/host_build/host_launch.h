@@ -1,0 +1,91 @@
+// The host side of a g++ (-std=c++20) build of a substage tile kernel
+// (vi_host.cpp, cons_host.cpp): the thread and block indices, the block
+// barrier and the shared memory the stand-in cuda_runtime.h declares, and
+// a launch that runs the blocks one after another, each on kTileThreads
+// host threads that meet at a std::barrier wherever the kernel calls
+// __syncthreads. Before each block the shared memory is filled with 0xff
+// bytes, so a slot read before it is written (an intermediate outside its
+// region, a slot past a wall) is a NaN and shows in G.
+#pragma once
+#include <thread>
+#include <vector>
+
+#include "cuda_runtime.h"
+
+thread_local dim3 threadIdx, blockIdx;
+std::barrier<>* block_barrier;
+namespace swmhd {
+alignas(16) unsigned char smem[1 << 20];
+}
+
+#include "tile.cuh"
+
+namespace swmhd {
+
+// The grid of launch_tiles (tile.cuh) over the unpadded output of p,
+// block (by, bx) running block() on every thread; cudaErrorInvalidValue
+// for a tile_x out of [1, max_tile_x], an empty output or more shared
+// memory than the stand-in has.
+template <typename T, typename F>
+int run_tiles(const Params<T>& p, int tile_x, int max_tile_x, size_t bytes,
+              const F& block) {
+  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  if (tile_x < 1 || tile_x > max_tile_x || mx < 1 || my < 1
+      || bytes > sizeof(smem)) {
+    return cudaErrorInvalidValue;
+  }
+  const unsigned grid_x = (my + kTileY - 1) / kTileY;
+  const unsigned grid_y = (mx + tile_x - 1) / tile_x;
+  std::barrier<> barrier(kTileThreads);
+  block_barrier = &barrier;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < kTileThreads; ++t) {
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned by = 0; by < grid_y; ++by) {
+        for (unsigned bx = 0; bx < grid_x; ++bx) {
+          blockIdx = dim3(bx, by);
+          if (t == 0) std::memset(smem, 0xff, sizeof(smem));
+          barrier.arrive_and_wait();
+          block();
+          barrier.arrive_and_wait();
+        }
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  return cudaSuccess;
+}
+
+// substage.cu make_params
+template <typename T>
+Params<T> host_params(int nx, int ny, int hx, int hy, int mode_x,
+                      int mode_y, int closure, int momentum, int mass,
+                      int tracer, int stencil, double dx, double dy,
+                      double g, double f, double gam_bg, double nu,
+                      double kappa) {
+  return Params<T>{nx + 2 * hx, ny + 2 * hy, hx, hy, mode_x, mode_y,
+                   closure, momentum, mass, tracer, stencil,
+                   T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy),
+                   T(nu), T(kappa)};
+}
+
+}  // namespace swmhd
+
+// swmhd_substage's arguments (substage.cu) without the stream, for a
+// host entry point NAME_SUFFIX that calls substage<T> of its file: nx, ny
+// are the unpadded extents.
+#define SWMHD_HOST_ENTRY(NAME, T, SUFFIX)                                    \
+  extern "C" int NAME##_##SUFFIX(                                            \
+      const T* s, const T* g_prev, T* s_out, T* g_out, int nx, int ny,       \
+      int hx, int hy, int mode_x, int mode_y, int closure, int momentum,     \
+      int mass, int tracer, int stencil, int tile_x, double dx, double dy,   \
+      double g, double f, double gam_bg, double nu, double kappa, double dt, \
+      double gk, double zk) {                                                \
+    return swmhd::substage<T>(                                               \
+        s, g_prev, s_out, g_out,                                             \
+        swmhd::host_params<T>(nx, ny, hx, hy, mode_x, mode_y, closure,       \
+                              momentum, mass, tracer, stencil, dx, dy, g, f, \
+                              gam_bg, nu, kappa),                            \
+        tile_x, T(dt), T(gk), T(zk));                                        \
+  }

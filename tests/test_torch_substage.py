@@ -252,8 +252,14 @@ def test_kernel_params_take_the_options(options):
                                          else (0.0, 0.0))
     assert K.branch_label(params.branch) == \
         f"vector_invariant, bounded y, {tail}"
-    # the vector-invariant tile kernel keeps its intermediates on chip
-    assert K.n_tmp(tm) == 0
+    # the tile kernel keeps its intermediates on chip; its tiles follow
+    # the formulation's layout, which a biharmonic closure widens
+    h100 = (232448, 132)
+    assert K.tile_shape(tm.formulation, 2048, 2048, torch.float32,
+                        options == "biharmonic", *h100) == (32, 32)
+    assert K.smem_bytes(tm.formulation, torch.float32, 32,
+                        options == "biharmonic") == (
+        80864 if options == "biharmonic" else 69312)
 
 
 @pytest.mark.parametrize("options", [o for o in OPTIONS

@@ -8,7 +8,7 @@ regions the kernel computes, NaN elsewhere and past the walls) against
 (``model.tendencies`` and the Le–Moin update), to 1e-12 of each compared
 array's scale, at 32² and 48×32, for every pair of axis modes, on halo
 tiles cut from the whole grid, and with model options; and the wrapper's
-tile-shape rule (``vi_tile_shape``, ``vi_smem_bytes``). The kernel's own
+tile-shape rule (``tile_shape``, ``smem_bytes``). The kernel's own
 logic is held to the emulation on the CPU by a host build:
 ``tests/test_torch_vi_tile_host.py``.
 
@@ -27,16 +27,19 @@ import torch
 import swmhd_tpu
 import swmhd_tpu_torch
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
-                       FPlane as JFPlane, jacobian_lorentz_forcing as jforce)
+                       FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
+                       divergence_lorentz_forcing as jdivforce)
 from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
                              FPlane as TFPlane,
-                             jacobian_lorentz_forcing as tforce)
+                             jacobian_lorentz_forcing as tforce,
+                             divergence_lorentz_forcing as tdivforce)
 from swmhd_tpu_torch.convert import state_from_numpy
 from swmhd_tpu_torch.models.shallow_water import RK3_GAMMA
 from swmhd_tpu_torch.ops import substage as K
+from swmhd_tpu_torch.ops import cons_tile
 from swmhd_tpu_torch.ops.vi_tile import substage_tiles_reference
-from chip_smoke import (cut_tile, initial_fields, option_kwargs, stable_nu,
-                        tile_layout)
+from chip_smoke import (CONS, VI, cut_tile, initial_fields, option_kwargs,
+                        stable_nu, tile_layout)
 
 torch.set_num_threads(1)
 
@@ -50,18 +53,21 @@ TOPOLOGIES = {"periodic": ("periodic", "periodic"),
 
 
 def pair(NX, NY, topology, options=None, dtype=torch.float64,
-         device="cpu", seed=0, extent=L):
-    """The same vector-invariant model in both packages (A background
-    gradient -0.05 where an axis is bounded) on the square of side
-    ``extent`` and one state: chip_smoke's wall-reaching fields plus
+         device="cpu", seed=0, extent=L, formulation=VI):
+    """The same model of ``formulation`` (vector-invariant by default) in
+    both packages, each with its formulation's Lorentz forcing (A
+    background gradient -0.05 where an axis is bounded), on the square of
+    side ``extent`` and one state: chip_smoke's wall-reaching fields plus
     seeded numpy noise of 1e-3, as numpy."""
     gamma = -0.05 if "bounded" in topology else 0.0
+    conservative = formulation == CONS
     rng = np.random.default_rng(seed)
     box = (-extent / 2, extent / 2)
     jg = JGrid.regular(NX, NY, box, box, topology=topology,
                        dtype=jnp.float64)
     nu = stable_nu(jg, DT, options)
-    jm = JModel(grid=jg, coriolis=JFPlane(1.0), forcing=jforce(gamma),
+    jm = JModel(grid=jg, formulation=formulation, coriolis=JFPlane(1.0),
+                forcing=(jdivforce if conservative else jforce)(gamma),
                 A_background_gradient_y=gamma,
                 **option_kwargs(options, swmhd_tpu, nu))
     js = jm.initial_state(**initial_fields(jnp, h_bump=0.05, walls=True))
@@ -74,7 +80,8 @@ def pair(NX, NY, topology, options=None, dtype=torch.float64,
     fields = {k: np.asarray(getattr(js, k)) for k in FIELDS}
     tg = TGrid.regular(NX, NY, box, box, topology=topology, dtype=dtype,
                        device=device)
-    tm = TModel(grid=tg, coriolis=TFPlane(1.0), forcing=tforce(gamma),
+    tm = TModel(grid=tg, formulation=formulation, coriolis=TFPlane(1.0),
+                forcing=(tdivforce if conservative else tforce)(gamma),
                 A_background_gradient_y=gamma,
                 **option_kwargs(options, swmhd_tpu_torch, nu))
     return jm, tm, fields
@@ -164,12 +171,20 @@ def test_halo_tiles_match_the_whole_grid(topo, mesh, options, halo):
 
 
 def test_tiles_reference_refuses_the_conservative_formulation():
+    """Each formulation's emulation takes its own kernel's model only: the
+    conservative one is ops.cons_tile's."""
     _, tm, fields = pair(16, 16, TOPOLOGIES["periodic"])
-    tm = dataclasses.replace(
+    cons = dataclasses.replace(
         tm, formulation="conservative",
         forcing=swmhd_tpu_torch.divergence_lorentz_forcing())
     with pytest.raises(ValueError):
-        substage_tiles_reference(tm, stacked(fields), DT, 0)
+        substage_tiles_reference(cons, stacked(fields), DT, 0)
+    with pytest.raises(ValueError):
+        cons_tile.substage_tiles_reference(tm, stacked(fields), DT, 0)
+    calls = cons_tile.substage_tiles_reference.calls
+    cons_tile.substage_tiles_reference(cons, stacked(fields), DT, 0,
+                                       tile=(8, 32))
+    assert cons_tile.substage_tiles_reference.calls == calls + 1
 
 
 # -- the tile-shape rule -----------------------------------------------------
@@ -178,19 +193,20 @@ def test_smem_bytes_follow_the_kernel_layout():
     """Four state windows and 8 box arrays (10 with a biharmonic
     closure), each (TX + 6) × 38 values: vi_tile.cuh vi_smem_bytes."""
     f32, f64 = torch.float32, torch.float64
-    assert K.vi_smem_bytes(f32, 32) == 4 * 38 * 38 * 12 == 69312
-    assert K.vi_smem_bytes(f32, 32, True) == 4 * 38 * 38 * 14 == 80864
-    assert K.vi_smem_bytes(f64, 16) == 8 * 22 * 38 * 12 == 80256
-    assert K.vi_smem_bytes(f64, 16, True) == 8 * 22 * 38 * 14
-    assert K.vi_smem_bytes(f64, 32) == 138624
+    assert K.smem_bytes(VI, f32, 32) == 4 * 38 * 38 * 12 == 69312
+    assert K.smem_bytes(VI, f32, 32, True) == 4 * 38 * 38 * 14 == 80864
+    assert K.smem_bytes(VI, f64, 16) == 8 * 22 * 38 * 12 == 80256
+    assert K.smem_bytes(VI, f64, 16, True) == 8 * 22 * 38 * 14
+    assert K.smem_bytes(VI, f64, 32) == 138624
+    lay = K.TILE_LAYOUTS[VI]
+    assert lay == (3, 3, 8, 2)
     for dtype in (f32, f64):
         for tx in (8, 16, 32):
             for bih in (False, True):
-                words = ((tx + 2 * K.VI_RADIUS) * (K.VI_TILE_Y
-                                                   + 2 * K.VI_RADIUS)
-                         * (4 + K.VI_BOX_ARRAYS
-                            + K.VI_BIHARMONIC_ARRAYS * bih))
-                assert K.vi_smem_bytes(dtype, tx, bih) == \
+                words = ((tx + lay.lo + lay.hi) * (K.TILE_Y + lay.lo
+                                                   + lay.hi)
+                         * (4 + lay.arrays + lay.biharmonic * bih))
+                assert K.smem_bytes(VI, dtype, tx, bih) == \
                     words * (4 if dtype == f32 else 8)
 
 
@@ -209,9 +225,9 @@ def test_tile_rule_covers_the_grid_and_fits(dtype, biharmonic):
     2048² and enough blocks for two an SM wherever a grid allows."""
     limit, sms = H100
     for nx, ny in SHAPES:
-        tx, ty = K.vi_tile_shape(nx, ny, dtype, biharmonic, *H100)
-        assert ty == K.VI_TILE_Y and tx in K.VI_TILE_X
-        bytes_ = K.vi_smem_bytes(dtype, tx, biharmonic)
+        tx, ty = K.tile_shape(VI, nx, ny, dtype, biharmonic, *H100)
+        assert ty == K.TILE_Y and tx in K.TILE_X
+        bytes_ = K.smem_bytes(VI, dtype, tx, biharmonic)
         assert 2 * bytes_ <= limit
         blocks = math.ceil(nx / tx) * math.ceil(ny / ty)
         assert blocks * tx * ty >= nx * ny
@@ -221,29 +237,35 @@ def test_tile_rule_covers_the_grid_and_fits(dtype, biharmonic):
                 covered[i:i + tx, j:j + ty] = True
         assert covered.all()
         if blocks < 2 * sms:
-            assert tx == min(t for t in K.VI_TILE_X
-                             if 2 * K.vi_smem_bytes(dtype, t, biharmonic)
+            assert tx == min(t for t in K.TILE_X
+                             if 2 * K.smem_bytes(VI, dtype, t, biharmonic)
                              <= limit)
-    assert K.vi_tile_shape(2048, 2048, torch.float32, False, *H100) \
+    assert K.tile_shape(VI, 2048, 2048, torch.float32, False, *H100) \
         == (32, 32)
-    assert K.vi_tile_shape(2048, 2048, torch.float64, False, *H100) \
+    assert K.tile_shape(VI, 2048, 2048, torch.float64, False, *H100) \
         == (16, 32)
-    assert K.vi_tile_shape(128, 128, torch.float32, False, *H100) == (8, 32)
+    assert K.tile_shape(VI, 128, 128, torch.float32, False, *H100) \
+        == (8, 32)
 
 
 def test_tile_rule_follows_the_card():
     """The rule reads the card: less shared memory a block rules out the
     tiles that would not fit twice, more SMs take smaller tiles; the
-    conservative kernels take no tile rows."""
+    conservative kernel's layout (radius 4 below, 3 above, no more arrays
+    with a biharmonic closure) goes through the same rule."""
     f32 = torch.float32
-    assert K.vi_tile_shape(2048, 2048, f32, False, 100_000, 132) == (16, 32)
-    assert K.vi_tile_shape(2048, 2048, f32, False, 232448, 2100) == (16, 32)
-    assert K.vi_tile_shape(2048, 2048, f32, False, 232448, 9000) == (8, 32)
-    _, tm, fields = pair(16, 16, TOPOLOGIES["periodic"])
-    cons = dataclasses.replace(
-        tm, formulation="conservative",
-        forcing=swmhd_tpu_torch.divergence_lorentz_forcing())
-    assert K._tile_x(cons, 16, 16, stacked(fields)) == 0
+    assert K.tile_shape(VI, 2048, 2048, f32, False, 100_000, 132) \
+        == (16, 32)
+    assert K.tile_shape(VI, 2048, 2048, f32, False, 232448, 2100) \
+        == (16, 32)
+    assert K.tile_shape(VI, 2048, 2048, f32, False, 232448, 9000) \
+        == (8, 32)
+    # 73,008 B at 32 rows fit twice in 150,000 B; VI's biharmonic 80,864
+    # do not
+    assert K.tile_shape(CONS, 2048, 2048, f32, True, 150_000, 132) \
+        == (32, 32)
+    assert K.tile_shape(VI, 2048, 2048, f32, True, 150_000, 132) \
+        == (16, 32)
 
 
 # -- on the card -------------------------------------------------------------
@@ -272,8 +294,8 @@ def test_card_grids_reach_each_tile_shape(rows, dtype):
     tiles fit twice only up to 16 rows)."""
     nx, ny, _ = CARD_GRIDS[rows]
     for biharmonic in (False, True):
-        assert K.vi_tile_shape(nx, ny, dtype, biharmonic, *H100) == (
-            min(rows, 16 if dtype == torch.float64 else 32), K.VI_TILE_Y)
+        assert K.tile_shape(VI, nx, ny, dtype, biharmonic, *H100) == (
+            min(rows, 16 if dtype == torch.float64 else 32), K.TILE_Y)
 
 
 @pytest.mark.cuda
@@ -330,9 +352,9 @@ def test_tile_kernel_info_on_card(cuda, dtype):
     _, tm, _ = pair(64, 64, TOPOLOGIES["periodic"], "biharmonic", dtype,
                     cuda)
     branch = K.kernel_params(tm).branch
-    for tx in K.VI_TILE_X:
-        smem, regs, blocks = K.vi_tile_info(dtype, branch, tx)
-        assert smem == K.vi_smem_bytes(dtype, tx, True)
+    for tx in K.TILE_X:
+        smem, regs, blocks = K.tile_info(dtype, branch, tx)
+        assert smem == K.smem_bytes(VI, dtype, tx, True)
         assert 0 < regs <= 255 and blocks >= 1
 
 
@@ -345,7 +367,7 @@ def test_tile_kernel_refuses_too_much_shared_memory_on_card(cuda,
     hands the entry point that tile in its place."""
     _, tm, fields = pair(64, 64, TOPOLOGIES["periodic"], "biharmonic",
                          torch.float64, cuda)
-    assert K.vi_smem_bytes(torch.float64, 64, True) == 297920
+    assert K.smem_bytes(VI, torch.float64, 64, True) == 297920
     assert 297920 > K.card_limits(cuda.index)[0]
     monkeypatch.setattr(K, "_tile_x", lambda *args: 64)
     with pytest.raises(RuntimeError, match="CUDA error 1"):

@@ -57,25 +57,31 @@ def _gxx():
     return gxx
 
 
-@pytest.fixture(scope="module")
-def host(tmp_path_factory):
-    """The host build's two entry points, by dtype."""
-    out = tmp_path_factory.mktemp("vi_host") / "vi_host.so"
+def build_host(tmp_path_factory, name):
+    """The two entry points of ``tests/host_build/<name>.cpp`` built with
+    g++, by dtype."""
+    out = tmp_path_factory.mktemp(name) / f"{name}.so"
     build = subprocess.run(
         [_gxx(), "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
          "-fPIC", "-pthread", "-I", SHIM, "-I", CSRC,
-         os.path.join(SHIM, "vi_host.cpp"), "-o", str(out)],
+         os.path.join(SHIM, f"{name}.cpp"), "-o", str(out)],
         capture_output=True, text=True)
     assert build.returncode == 0, build.stderr[-4000:]
     lib = ctypes.CDLL(str(out))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fns = {}
     for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
-        fn = getattr(lib, f"vi_host_substage_{suffix}")
+        fn = getattr(lib, f"{name}_substage_{suffix}")
         fn.argtypes = [P] * 4 + [I] * 12 + [D] * 10
         fn.restype = I
         fns[dtype] = fn
     return fns
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """The host build's two entry points, by dtype."""
+    return build_host(tmp_path_factory, "vi_host")
 
 
 def run(host, model, s, stage, g_prev=None, halo=(0, 0), tile=(8, 32)):
@@ -95,9 +101,9 @@ def run(host, model, s, stage, g_prev=None, halo=(0, 0), tile=(8, 32)):
     return s_out, g_out
 
 
-def model_and_state(N, topo, options, dtype):
+def model_and_state(N, topo, options, dtype, formulation=VI):
     topology, gamma = TOPOLOGIES[topo]
-    model, state = wall_model(N, dtype, "cpu", VI, topology, gamma)
+    model, state = wall_model(N, dtype, "cpu", formulation, topology, gamma)
     return with_options(model, options, DT), K.stack(state)
 
 
