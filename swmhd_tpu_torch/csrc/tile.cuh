@@ -1,6 +1,7 @@
 // What the kernels over 2-D tiles in shared memory share: the tile probes
-// of tile.cu and the two substage kernels, vi_tile.cuh (vector-invariant)
-// and cons_tile.cuh (conservative): a block's shape, the index map of a
+// of tile.cu, the tile-tendency probe (tendency_tile.cuh) and the two
+// substage kernels, vi_tile.cuh (vector-invariant) and cons_tile.cuh
+// (conservative): a block's shape, the index map of a
 // tile's axis, the region loops, the load of the state windows, the
 // Laplacian in box coordinates, and the launch of a substage kernel with
 // its dynamic shared memory.
@@ -42,6 +43,7 @@ __device__ __forceinline__ void wait_copies() {
 // padded array.
 template <Axis A>
 struct Map {
+  static constexpr Axis kAxis = A;
   int i0, n;
   // shift by m
   __device__ __forceinline__ int sh(int a, int m) const {

@@ -38,6 +38,11 @@
 //      and their update. The peak is 8 box arrays (10 with a biharmonic
 //      closure) beside the windows: 69,312 B a block for 32×32 f32, 3
 //      blocks an SM.
+//   The two phases are device functions, vi_mass_tracer and vi_momentum,
+//   templated on the tile's columns, the layout of the state windows and
+//   an epilogue that takes each G as (field, G, a, b): here the Le–Moin
+//   update; the tile-tendency probe (tendency_tile.cuh) runs the same
+//   phases with an epilogue that writes G.
 //   Each region is one loop over its rectangle with a compile-time width,
 //   so every thread of a warp runs the same code and the loop divides by
 //   a constant; the intermediates read over about the same region share
@@ -157,119 +162,157 @@ __device__ __forceinline__ void vi_vorticity(const Params<T>& p,
   }
 }
 
-// s, g_prev, s_out, g_out as in Launch; p.nx, p.ny the padded extents.
-// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kTileY) of the
-// unpadded output.
-template <typename T, Axis X, Axis Y, bool Opt>
-__global__ void __launch_bounds__(kTileThreads, kViMinBlocks)
-vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
-            T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
-            int tx, T dt, T gk, T zk) {
-  p = vi_options<Opt>(p);
-  constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
-  constexpr int R = kViRadius, TY = kTileY, BC = kViBoxCols;
+// The state windows of a tile as the phases read them: field k at local
+// (a, b), a in [-Lo, rows - Lo), b in [-Lo, Cols - Lo), plane k of the
+// block's shared memory. The substage's windows are kViRadius wide.
+template <typename T, int Lo, int Cols>
+struct FixedWindows {
+  const T* win;
+  int plane;
+  __device__ __forceinline__ T operator()(int k, int a, int b) const {
+    return win[k * plane + (a + Lo) * Cols + b + Lo];
+  }
+};
+
+// What the two phases share of a (tx, TY) tile: the kernel's parameters
+// (after vi_options), the state windows st (FixedWindows or another
+// layout with the same call), the box arrays of (tx + 6) × (TY + 6) slots
+// from `box` on, `plane` slots apart, the index maps of both axes, the
+// extent (ex, ey) of the tile's points inside the output and the
+// reciprocal spacings.
+template <typename T, Axis X, Axis Y, int TY, typename W>
+struct ViTile {
+  static_assert(kTileThreads % TY == 0, "a row of points is whole warps "
+                "or a whole number of rows is a warp");
+  static constexpr int R = kViRadius, BC = TY + 2 * R;
+  const Params<T>& p;
+  W st;
+  T* box;
+  int plane;
+  Map<X> M;
+  Map<Y> N;
+  int tx, ex, ey;
+  T rdx, rdy;
+  __device__ __forceinline__ static int slot(int a, int b) {
+    return (a + R) * BC + b + R;
+  }
+  __device__ __forceinline__ T* bx(int t) const { return box + t * plane; }
+};
+
+// f(a, b) at each of the tile's points: one column a thread, so a warp
+// takes 32 neighbouring words of a row (TY >= 32) or 32 / TY whole rows.
+template <int TY, typename F>
+__device__ __forceinline__ void each_tile_point(int ex, int ey, const F& f) {
+  const int b = threadIdx.x % TY;
+  for (int a = threadIdx.x / TY; a < ex && b < ey; a += kTileThreads / TY) {
+    f(a, b);
+  }
+}
+
+// Phase 1, mass and tracer: Uf, Fx, Vf, Fy (and ∇²A) in box arrays 0–3
+// (4), then Gh and GA at the tile's points, handed to epi(field, G, a, b)
+// one at a time.
+template <typename C, typename E>
+__device__ __forceinline__ void vi_mass_tracer(const C& tile, const E& epi) {
+  using T = decltype(tile.rdx);
+  constexpr bool WX = decltype(tile.M)::kAxis == Axis::kBounded;
+  constexpr bool WY = decltype(tile.N)::kAxis == Axis::kBounded;
+  constexpr int TY = C::BC - 2 * C::R;
   enum { H = 0, U = 1, V = 2, A = 3 };
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* const win = reinterpret_cast<T*>(smem);
-  const int plane = (tx + 2 * R) * BC;
-  T* const box = win + 4 * plane;
-  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  const int x0 = blockIdx.y * tx, y0 = blockIdx.x * TY;
-  const Map<X> M{p.hx + x0, p.nx};
-  const Map<Y> N{p.hy + y0, p.ny};
-  const int ex = min(tx, mx - x0), ey = min(TY, my - y0);
-  const T rdx = T(1) / p.dx, rdy = T(1) / p.dy;
-
-  auto slot = [&](int a, int b) { return (a + R) * BC + b + R; };
-  auto st = [&](int k, int a, int b) { return win[k * plane + slot(a, b)]; };
-  auto bx = [&](int t) { return box + t * plane; };
-
-  // 1. the state windows
-  load_windows<R, BC>(win, s, p, M, N, tx + 2 * R);
-
-  // the Le–Moin update of field k at tile point (a, b)
-  const size_t no = static_cast<size_t>(mx) * my;
-  auto update = [&](int k, T G, int a, int b) {
-    const size_t o = k * no + static_cast<size_t>(x0 + a) * my + y0 + b;
-    const T inc = g_prev ? gk * G + zk * g_prev[o] : gk * G;
-    s_out[o] = st(k, a, b) + dt * inc;
-    if (g_out) g_out[o] = G;
-  };
-  const int lane = threadIdx.x % TY, warp = threadIdx.x / TY;
-
-  // 2. mass and tracer
-  {
-    T* const Uf = bx(0);
-    T* const Vf = bx(1);
-    T* const Fx = bx(2);
-    T* const Fy = bx(3);
-    T* const LA = bx(4);
-    each_point<0, TY + 1>(0, tx + 1, [&](int a, int b) {
-      T c[6], l, r;
+  const auto& p = tile.p;
+  const auto& st = tile.st;
+  const auto& M = tile.M;
+  const auto& N = tile.N;
+  const T rdx = tile.rdx, rdy = tile.rdy;
+  auto slot = [](int a, int b) { return C::slot(a, b); };
+  T* const Uf = tile.bx(0);
+  T* const Vf = tile.bx(1);
+  T* const Fx = tile.bx(2);
+  T* const Fy = tile.bx(3);
+  T* const LA = tile.bx(4);
+  each_point<0, TY + 1>(0, tile.tx + 1, [&](int a, int b) {
+    T c[6], l, r;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) c[k] = st(H, M.sh(a, k - 3), b);
-      face_pair<WX, true>(p.mass, c, M.g(a), p.nx, l, r);
-      const T uf = upwind(st(U, a, b), l, r);
+    for (int k = 0; k < 6; ++k) c[k] = st(H, M.sh(a, k - 3), b);
+    face_pair<WX, true>(p.mass, c, M.g(a), p.nx, l, r);
+    const T uf = upwind(st(U, a, b), l, r);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) c[k] = st(A, M.sh(a, k - 3), b);
-      face_pair<WX, true>(p.tracer, c, M.g(a), p.nx, l, r);
-      Uf[slot(a, b)] = uf;
-      Fx[slot(a, b)] = upwind(uf, l, r);
+    for (int k = 0; k < 6; ++k) c[k] = st(A, M.sh(a, k - 3), b);
+    face_pair<WX, true>(p.tracer, c, M.g(a), p.nx, l, r);
+    Uf[slot(a, b)] = uf;
+    Fx[slot(a, b)] = upwind(uf, l, r);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) c[k] = st(H, a, N.sh(b, k - 3));
-      face_pair<WY, true>(p.mass, c, N.g(b), p.ny, l, r);
-      const T vf = upwind(st(V, a, b), l, r);
+    for (int k = 0; k < 6; ++k) c[k] = st(H, a, N.sh(b, k - 3));
+    face_pair<WY, true>(p.mass, c, N.g(b), p.ny, l, r);
+    const T vf = upwind(st(V, a, b), l, r);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) c[k] = st(A, a, N.sh(b, k - 3));
-      face_pair<WY, true>(p.tracer, c, N.g(b), p.ny, l, r);
-      Vf[slot(a, b)] = vf;
-      Fy[slot(a, b)] = upwind(vf, l, r);
+    for (int k = 0; k < 6; ++k) c[k] = st(A, a, N.sh(b, k - 3));
+    face_pair<WY, true>(p.tracer, c, N.g(b), p.ny, l, r);
+    Vf[slot(a, b)] = vf;
+    Fy[slot(a, b)] = upwind(vf, l, r);
+  });
+  if (p.closure == kBiharmonic) {
+    each_point<-1, TY + 1>(-1, tile.tx + 1, [&](int a, int b) {
+      LA[slot(a, b)] = tile_laplacian<false, false>(
+          [&](int i, int j) { return st(A, i, j); }, M, N, a, b, rdx, rdy);
     });
-    if (p.closure == kBiharmonic) {
-      each_point<-1, TY + 1>(-1, tx + 1, [&](int a, int b) {
-        LA[slot(a, b)] = tile_laplacian<false, false>(
-            [&](int i, int j) { return st(A, i, j); }, M, N, a, b, rdx, rdy);
-      });
-    }
-    __syncthreads();
-
-    const int b = lane;
-    for (int a = warp; a < ex && b < ey; a += kTileRows) {
-      const bool last_x = WX && M.g(a) == p.nx - 1;
-      const bool last_y = WY && N.g(b) == p.ny - 1;
-      const int ap = M.sh(a, 1), bp = N.sh(b, 1);
-      const T h0 = st(H, a, b);
-      const T Vf0 = Vf[slot(a, b)], Vf_jp = Vf[slot(a, bp)];
-      // a bounded axis has no flux through its far wall
-      const T Uf_up = last_x ? T(0) : Uf[slot(ap, b)];
-      const T Vf_up = last_y ? T(0) : Vf_jp;
-      const T divU = (Uf_up - Uf[slot(a, b)]) * rdx + (Vf_up - Vf0) * rdy;
-      const T fx_up = last_x ? T(0) : Fx[slot(ap, b)];
-      const T fy_up = last_y ? T(0) : Fy[slot(a, bp)];
-      const T div_flux = (fx_up - Fx[slot(a, b)]) * rdx
-                         + (fy_up - Fy[slot(a, b)]) * rdy;
-      T GA = (st(A, a, b) * divU - div_flux) / h0;
-      if (p.gam_bg != T(0)) {
-        GA = GA - p.gam_bg * (T(0.5) * (Vf_jp + Vf0)) / h0;
-      }
-      if (p.closure == kLaplacian) {
-        GA = GA + p.kappa * tile_laplacian<false, false>(
-                                [&](int i, int j) { return st(A, i, j); },
-                                M, N, a, b, rdx, rdy);
-      } else if (p.closure == kBiharmonic) {
-        GA = GA + (-p.kappa) * tile_laplacian<false, false>(
-                                   [&](int i, int j) {
-                                     return LA[slot(i, j)];
-                                   },
-                                   M, N, a, b, rdx, rdy);
-      }
-      update(H, -divU, a, b);
-      update(A, GA, a, b);
-    }
   }
   __syncthreads();
 
-  // 3. momentum
+  each_tile_point<TY>(tile.ex, tile.ey, [&](int a, int b) {
+    const bool last_x = WX && M.g(a) == p.nx - 1;
+    const bool last_y = WY && N.g(b) == p.ny - 1;
+    const int ap = M.sh(a, 1), bp = N.sh(b, 1);
+    const T h0 = st(H, a, b);
+    const T Vf0 = Vf[slot(a, b)], Vf_jp = Vf[slot(a, bp)];
+    // a bounded axis has no flux through its far wall
+    const T Uf_up = last_x ? T(0) : Uf[slot(ap, b)];
+    const T Vf_up = last_y ? T(0) : Vf_jp;
+    const T divU = (Uf_up - Uf[slot(a, b)]) * rdx + (Vf_up - Vf0) * rdy;
+    const T fx_up = last_x ? T(0) : Fx[slot(ap, b)];
+    const T fy_up = last_y ? T(0) : Fy[slot(a, bp)];
+    const T div_flux = (fx_up - Fx[slot(a, b)]) * rdx
+                       + (fy_up - Fy[slot(a, b)]) * rdy;
+    T GA = (st(A, a, b) * divU - div_flux) / h0;
+    if (p.gam_bg != T(0)) {
+      GA = GA - p.gam_bg * (T(0.5) * (Vf_jp + Vf0)) / h0;
+    }
+    if (p.closure == kLaplacian) {
+      GA = GA + p.kappa * tile_laplacian<false, false>(
+                              [&](int i, int j) { return st(A, i, j); },
+                              M, N, a, b, rdx, rdy);
+    } else if (p.closure == kBiharmonic) {
+      GA = GA + (-p.kappa) * tile_laplacian<false, false>(
+                                 [&](int i, int j) {
+                                   return LA[slot(i, j)];
+                                 },
+                                 M, N, a, b, rdx, rdy);
+    }
+    epi(H, -divU, a, b);
+    epi(A, GA, a, b);
+  });
+}
+
+// Phase 2, momentum: ζ, ℑu, ℑv in box arrays 0–2, K + gh, ∂xA, ∂yA + γ,
+// Bx, By (and ∇²u, ∇²v) in 3–7 (8, 9), then Gu, Gv at the tile's points,
+// with the wall masks, handed to epi(field, G, a, b) one at a time. The
+// caller synchronises the block between phase 1 and phase 2, whose box
+// arrays overlap.
+template <typename C, typename E>
+__device__ __forceinline__ void vi_momentum(const C& tile, const E& epi) {
+  using T = decltype(tile.rdx);
+  constexpr bool WX = decltype(tile.M)::kAxis == Axis::kBounded;
+  constexpr bool WY = decltype(tile.N)::kAxis == Axis::kBounded;
+  constexpr int TY = C::BC - 2 * C::R;
+  enum { H = 0, U = 1, V = 2, A = 3 };
+  const auto& p = tile.p;
+  const auto& st = tile.st;
+  const auto& M = tile.M;
+  const auto& N = tile.N;
+  const T rdx = tile.rdx, rdy = tile.rdy;
+  const int tx = tile.tx;
+  auto slot = [](int a, int b) { return C::slot(a, b); };
+  auto bx = [&](int k) { return tile.bx(k); };
   T* const zeta = bx(0);
   T* const uff = bx(1);
   T* const vff = bx(2);
@@ -319,8 +362,7 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   });
   __syncthreads();
 
-  const int b = lane;
-  for (int a = warp; a < ex && b < ey; a += kTileRows) {
+  each_tile_point<TY>(tile.ex, tile.ey, [&](int a, int b) {
     const bool last_x = WX && M.g(a) == p.nx - 1;
     const bool last_y = WY && N.g(b) == p.ny - 1;
     const int am = M.sh(a, -1), ap = M.sh(a, 1);
@@ -406,10 +448,52 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
     // no penetration: the wall-normal tendency on face 0
     if (WX && M.g(a) == 0) Gu = T(0);
     if (WY && N.g(b) == 0) Gv = T(0);
-    update(U, Gu, a, b);
-    update(V, Gv, a, b);
-  }
+    epi(U, Gu, a, b);
+    epi(V, Gv, a, b);
+  });
 }
+
+// s, g_prev, s_out, g_out as in Launch; p.nx, p.ny the padded extents.
+// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kTileY) of the
+// unpadded output.
+template <typename T, Axis X, Axis Y, bool Opt>
+__global__ void __launch_bounds__(kTileThreads, kViMinBlocks)
+vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
+            T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
+            int tx, T dt, T gk, T zk) {
+  p = vi_options<Opt>(p);
+  constexpr int R = kViRadius, TY = kTileY, BC = kViBoxCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const win = reinterpret_cast<T*>(smem);
+  const int plane = (tx + 2 * R) * BC;
+  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  const int x0 = blockIdx.y * tx, y0 = blockIdx.x * TY;
+  const Map<X> M{p.hx + x0, p.nx};
+  const Map<Y> N{p.hy + y0, p.ny};
+
+  // 1. the state windows
+  load_windows<R, BC>(win, s, p, M, N, tx + 2 * R);
+  const FixedWindows<T, R, BC> st{win, plane};
+  const ViTile<T, X, Y, TY, FixedWindows<T, R, BC>> tile{
+      p, st, win + 4 * plane, plane, M, N, tx, min(tx, mx - x0),
+      min(TY, my - y0), T(1) / p.dx, T(1) / p.dy};
+
+  // the Le–Moin update of field k at tile point (a, b)
+  const size_t no = static_cast<size_t>(mx) * my;
+  auto update = [&](int k, T G, int a, int b) {
+    const size_t o = k * no + static_cast<size_t>(x0 + a) * my + y0 + b;
+    const T inc = g_prev ? gk * G + zk * g_prev[o] : gk * G;
+    s_out[o] = st(k, a, b) + dt * inc;
+    if (g_out) g_out[o] = G;
+  };
+
+  // 2. mass and tracer
+  vi_mass_tracer(tile, update);
+  __syncthreads();
+  // 3. momentum
+  vi_momentum(tile, update);
+}
+
 
 // The kernel of a launch's axis modes, or null for a pair no launch takes
 // (a bounded axis is never exchanged).

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "swmhd_wrap_probe": ([_P] * 2 + [_I] * 9 + [_P], ("f32",)),
     # s, out, nx, ny, tx, ty, halo, split, dx, dy, g, f, stream
     "swmhd_tendency_tile": ([_P] * 2 + [_I] * 6 + [_D] * 4 + [_P], BOTH),
+    # tx, ty, halo, split, out: the tile tendency kernel's shared memory a
+    # block, registers, blocks an SM
+    "swmhd_tendency_tile_info": ([_I] * 4 + [_P], BOTH),
 }
 
 

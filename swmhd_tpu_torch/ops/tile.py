@@ -13,7 +13,8 @@ Counterparts of the three Pallas probes of ``benchmarks/``:
   tendency G of the ``bench.py`` model (vector-invariant, periodic, WENO5
   with the VelocityStencil, no closure, no background gradient) evaluated
   per 2-D tile from a window ``halo`` points wide, all of G or the part a
-  split names (:data:`SPLITS`).
+  split names (:data:`SPLITS`), by the vector-invariant substage kernel's
+  own phases (``csrc/tendency_tile.cuh``).
 
 Dispatch: on a CPU tensor a wrapper runs its plain version; on a CUDA
 tensor it launches the kernel or raises. The load probes launch the
@@ -24,16 +25,19 @@ A window over the card's opt-in shared memory per block raises
 ``ValueError`` naming both sizes (the counterpart of the Mosaic refusals
 the JAX probes printed as FAILED), whatever the plan's P; a
 model other than the probe's configuration, tiles that do not divide the
-grid and a halo under :data:`TILE_RADIUS` raise ``ValueError`` on either
-device. Each wrapper counts its launches in ``<wrapper>.launches`` and by
-shape in ``<wrapper>.launches_by_shape``, the load probes also by branch
-in ``<wrapper>.launches_by_branch``; each plain version counts its calls
-in ``<function>.calls``.
+grid, a halo under :data:`TILE_RADIUS` and, for :func:`tendency_tiles`,
+tile columns outside :data:`TILE_COLUMNS` or rows over
+:data:`TILE_MAX_ROWS` raise ``ValueError`` on either device. Each
+wrapper counts its launches in ``<wrapper>.launches`` and by shape in
+``<wrapper>.launches_by_shape``, the load probes also by branch in
+``<wrapper>.launches_by_branch``; each plain version counts its calls in
+``<function>.calls``.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 
@@ -48,8 +52,12 @@ TILE_RADIUS = 3
 # writes, in the order h, u, v, A
 SPLITS = ("full", "mom", "mt")
 SPLIT_FIELDS = {"full": (0, 1, 2, 3), "mom": (1, 2), "mt": (0, 3)}
-# the tendency's intermediates each split keeps in shared memory
-N_TILE_TMP = {"full": 12, "mom": 8, "mt": 4}
+# the box arrays each split holds in shared memory at its peak: full and
+# mom the momentum phase's 8, mt the mass and tracer phase's 4
+N_TILE_TMP = {"full": 8, "mom": 8, "mt": 4}
+# the tile columns the tendency kernel is built for, and its most rows
+TILE_COLUMNS = (8, 16, 32, 64)
+TILE_MAX_ROWS = 64
 # exp_dma.py's fifth spec field: 1 asynchronous copies, 0 loads through
 # registers
 LOADS = {0: "plain", 1: "async"}
@@ -78,8 +86,9 @@ def wrap_smem_bytes(m, tx=WRAP_TX, h=WRAP_H) -> int:
 
 
 def tile_smem_bytes(dtype, tile, halo, split) -> int:
-    """The four state windows and the split's intermediates over the
-    ``(TX + 6, TY + 6)`` box (tile.cu ``tile_smem_bytes``)."""
+    """The four state windows and the split's box arrays over the
+    ``(TX + 6, TY + 6)`` box (tendency_tile.cuh
+    ``tendency_smem_bytes``)."""
     TX, TY = tile
     word = torch.empty((), dtype=dtype).element_size()
     box = (TX + 2 * TILE_RADIUS) * (TY + 2 * TILE_RADIUS)
@@ -362,9 +371,8 @@ def _check_tiles(model, s, tile, halo, split):
             f"the tile tendency covers the bench.py model only "
             f"(vector_invariant, periodic, WENO5 with the velocity stencil, "
             f"no closure, no A background gradient), not "
-            f"[{branch_label(params.branch)}], gamma {params.gamma:g}: "
-            f"the other branches come with the shared-memory substage "
-            f"redesign (ROADMAP queue 2, next kernel work)")
+            f"[{branch_label(params.branch)}], gamma {params.gamma:g}, "
+            f"as the JAX probe runs bench.py's model only")
     g = model.grid
     TX, TY = tile
     if tuple(s.shape) != (4, g.Nx, g.Ny):
@@ -472,12 +480,39 @@ def wrap_probe(x_padded, case, plan=None):
     return out
 
 
+def _check_kernel_tile(tile):
+    """``ValueError`` for a tile the kernel is not built for: columns
+    outside :data:`TILE_COLUMNS` (compile-time), rows over
+    :data:`TILE_MAX_ROWS`."""
+    TX, TY = tile
+    if TY not in TILE_COLUMNS or TX > TILE_MAX_ROWS:
+        raise ValueError(f"the tile tendency kernel takes tiles of at most "
+                         f"{TILE_MAX_ROWS} rows and "
+                         f"{', '.join(map(str, TILE_COLUMNS))} columns; got "
+                         f"({TX}, {TY})")
+
+
+def tendency_tile_info(dtype, tile, halo, split):
+    """``(shared memory bytes a block, registers a thread, resident blocks
+    an SM)`` of the tile tendency kernel for ``tile``, ``halo`` and
+    ``split``, from the CUDA runtime."""
+    _check_kernel_tile(tile)
+    out = (ctypes.c_int * 3)()
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    err = _lib().fn("swmhd_tendency_tile_info", suffix)(
+        *tile, halo, SPLITS.index(split), ctypes.addressof(out))
+    _raise_on(err, "swmhd_tendency_tile_info",
+              tile_smem_bytes(dtype, tile, halo, split))
+    return tuple(out)
+
+
 def tendency_tiles(model, s, tile=(32, 32), halo=TILE_RADIUS, split="full"):
     """G of ``split`` (the fields of :data:`SPLIT_FIELDS`, stacked) of the
     ``bench.py`` model on stacked fields ``s``, one block per ``tile``,
     each reading the state's window ``halo`` points wide, wrapped at load
     time."""
     params = _check_tiles(model, s, tile, halo, split)
+    _check_kernel_tile(tile)
     if s.device.type == "cpu":
         return tendency_tiles_reference(model, s, tile, halo, split)
     _check_input(s, (torch.float32, torch.float64))

@@ -1,5 +1,5 @@
-// The host side of a g++ (-std=c++20) build of a substage tile kernel
-// (vi_host.cpp, cons_host.cpp): the thread and block indices, the block
+// The host side of a g++ (-std=c++20) build of a tile kernel (vi_host.cpp,
+// cons_host.cpp, tile_host.cpp): the thread and block indices, the block
 // barrier and the shared memory the stand-in cuda_runtime.h declares, and
 // a launch that runs the blocks one after another, each on kTileThreads
 // host threads that meet at a std::barrier wherever the kernel calls
@@ -22,20 +22,13 @@ alignas(16) unsigned char smem[1 << 20];
 
 namespace swmhd {
 
-// The grid of launch_tiles (tile.cuh) over the unpadded output of p,
-// block (by, bx) running block() on every thread; cudaErrorInvalidValue
-// for a tile_x out of [1, max_tile_x], an empty output or more shared
-// memory than the stand-in has.
-template <typename T, typename F>
-int run_tiles(const Params<T>& p, int tile_x, int max_tile_x, size_t bytes,
-              const F& block) {
-  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  if (tile_x < 1 || tile_x > max_tile_x || mx < 1 || my < 1
-      || bytes > sizeof(smem)) {
-    return cudaErrorInvalidValue;
-  }
-  const unsigned grid_x = (my + kTileY - 1) / kTileY;
-  const unsigned grid_y = (mx + tile_x - 1) / tile_x;
+// Blocks (by, bx) of a grid_y × grid_x grid, one after another, each
+// running block() on kTileThreads threads; cudaErrorInvalidValue for more
+// shared memory than the stand-in has.
+template <typename F>
+int run_grid(unsigned grid_x, unsigned grid_y, size_t bytes,
+             const F& block) {
+  if (bytes > sizeof(smem)) return cudaErrorInvalidValue;
   std::barrier<> barrier(kTileThreads);
   block_barrier = &barrier;
   std::vector<std::thread> threads;
@@ -55,6 +48,20 @@ int run_tiles(const Params<T>& p, int tile_x, int max_tile_x, size_t bytes,
   }
   for (auto& th : threads) th.join();
   return cudaSuccess;
+}
+
+// The grid of launch_tiles (tile.cuh) over the unpadded output of p;
+// cudaErrorInvalidValue for a tile_x out of [1, max_tile_x] or an empty
+// output.
+template <typename T, typename F>
+int run_tiles(const Params<T>& p, int tile_x, int max_tile_x, size_t bytes,
+              const F& block) {
+  const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  if (tile_x < 1 || tile_x > max_tile_x || mx < 1 || my < 1) {
+    return cudaErrorInvalidValue;
+  }
+  return run_grid((my + kTileY - 1) / kTileY, (mx + tile_x - 1) / tile_x,
+                  bytes, block);
 }
 
 // substage.cu make_params

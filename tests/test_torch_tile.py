@@ -31,6 +31,7 @@ from swmhd_tpu_torch import (BiharmonicDiffusion,
                              jacobian_lorentz_forcing)
 from swmhd_tpu_torch.convert import state_from_numpy
 from swmhd_tpu_torch.models.state import State
+from swmhd_tpu_torch.ops import substage as K
 from swmhd_tpu_torch.ops import tile as T
 from swmhd_tpu_torch.probes import build, exp_dma, exp_dma2, exp_fused2d
 
@@ -357,6 +358,8 @@ def test_load_plan_default_p_and_misaligned_base():
 
 REFUSED = {
     "halo below 3": dict(halo=2),
+    "tile columns outside the kernel's": dict(tile=(8, 4)),
+    "tile rows over the kernel's": dict(tile=(128, 16), N=128),
     "tiles that do not divide the grid": dict(tile=(12, 16)),
     "unknown split": dict(split="all"),
     "conservative": dict(model=dict(formulation="conservative",
@@ -373,7 +376,7 @@ REFUSED = {
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_tile_tendency_refusals(case):
     kw = dict(REFUSED[case])
-    model, st = build(32, torch.float64, "cpu")
+    model, st = build(kw.pop("N", 32), torch.float64, "cpu")
     if "topology_y" in kw:
         model = dataclasses.replace(model, grid=dataclasses.replace(
             model.grid, topology_y=kw.pop("topology_y")))
@@ -408,7 +411,9 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_smem_bytes_of_the_default_specs():
     """Of exp_dma.py's specs only 128,1024,8,0 exceeds an H100's 232,448 B
     of opt-in shared memory per block; the tile tendency's default specs
-    fit in f32 and, at 256², in f64."""
+    fit in f32 and, at 256², in f64. The tendency's 32×32 halo-3 block
+    takes the VI substage's 69,312 B in f32 (8 box arrays at full's and
+    mom's peak, 4 at mt's), 83,072 B at halo 8."""
     limit = 232448
     sizes = {s: T.window_smem_bytes(*map(int, s.split(",")[:4]))
              for s in exp_dma.DEFAULT_SPECS.split(";")}
@@ -421,7 +426,10 @@ def test_smem_bytes_of_the_default_specs():
         for dtype in (torch.float32, torch.float64):
             assert T.tile_smem_bytes(dtype, (int(TX), int(TY)), int(H),
                                      split) <= limit
-    assert T.tile_smem_bytes(torch.float32, (32, 32), 3, "full") == 92416
+    assert T.tile_smem_bytes(torch.float32, (32, 32), 3, "full") == 69312
+    assert T.tile_smem_bytes(torch.float32, (32, 32), 3, "mom") == 69312
+    assert T.tile_smem_bytes(torch.float32, (32, 32), 3, "mt") == 46208
+    assert T.tile_smem_bytes(torch.float32, (32, 32), 8, "full") == 83072
 
 
 def test_exp_dma_main_on_cpu(capsys):
@@ -496,6 +504,9 @@ def test_tile_kernel_matches_plain_on_card(cuda, tile, halo, split, dtype,
         assert float((got - want).abs().max()) \
             <= tol * float(want.abs().max())
     assert T.tendency_tiles.launches_by_shape == {(*tile, halo, split): 1}
+    # the probe runs the substage kernel's phases: its G is the substage's
+    G = K.substage(model, s, 0.001, 0)[1][list(T.SPLIT_FIELDS[split])]
+    assert torch.equal(got, G)
 
 
 @pytest.mark.cuda
