@@ -112,12 +112,36 @@ each printing lines of findings; any failure exits non-zero:
    a tile tendency entry also names its design (tile, shared memory,
    registers, blocks an SM), as a substage entry does.
 
+10. the adaptive step, profiling and the movie: ``WIZARD``'s scenario
+    (``128x128_two_Gaussians_high_B``) float64 through the kernel stepper
+    with a ``TimeStepWizard`` every 5 of 20 steps from a Δt above its
+    target CFL, vector-invariant and conservative without a series
+    (multistep calls) and vector-invariant with the energy series
+    (substage calls), against the same runs through the plain stepper
+    (the Δt after each adjustment within 1e-12 relative, at least two
+    changes, the state within 1e-11 of the field scale; no plain call
+    in the kernel runs); ``profiling.benchmark_step`` of the 2048²
+    vector-invariant kernel stepper, 20 steps a call, whose step time
+    must lie within 15% of phase 6's; in a process of its own (once
+    another process has used the card, a process that traced before gets
+    no kernel events in its later traces), ``profiling.trace`` of one
+    2048² substage of each formulation, which must name the
+    formulation's tile kernel, and of 10 steps of the 128² main path
+    with the energy series, whose device-busy share it prints; then, on
+    WORLD ranks of phase 8's 2048² configuration over gloo, each rank's
+    ``profiling.measure_overlap`` of one decomposed step a formulation,
+    each with exchange and compute events; ``cli run
+    64x64_two_Gaussians_high_B --stop-time 0.2 --movie`` where
+    matplotlib imports (``energy_plot.png`` and a movie), else one line
+    saying it does not.
+
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
 runs of phase 6. Phase 8's runs are the decomposed main path: each rank
 zeroes its counters just before its run and reports them just after.
 Phase 9's probe runs are the probe path: the tile counters are zeroed
-just before them and read just after. Comparisons with the plain versions
+just before them and read just after. Phase 10 zeroes the counters just
+before its wizard runs through the kernels and reads them just after. Comparisons with the plain versions
 happen outside those windows. The last two lines are a JSON object of
 per-kernel findings (one entry per entry point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -128,9 +152,12 @@ thread and resident blocks an SM from the CUDA runtime) and the result
 line ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --worker dd <dir>               (under torchrun)
+    python3 chip_smoke.py --worker trace <dir>            (under torchrun)
+    python3 chip_smoke.py --worker overlap <dir>          (under torchrun)
     python3 chip_smoke.py --worker cli <dir> <name> <formulation> [flags]
 
-run one rank of phase 8's runs and write its report to ``<dir>``.
+run one rank of phase 8's runs, or of phase 10's traces and
+``measure_overlap``, and write its report to ``<dir>``.
 
     python3 chip_smoke.py --worker time <root>
 
@@ -820,7 +847,22 @@ def worker(args):
         return time_default(K, outdir)
     rank = int(os.environ["RANK"])
     report = {}
-    if task == "cli":
+    if task == "trace":
+        report = traces(K, torch.device("cuda", 0))
+    elif task == "overlap":
+        from swmhd_tpu_torch import profiling
+        from swmhd_tpu_torch.parallel import multihost
+        from swmhd_tpu_torch.parallel.decomposition import (
+            DomainDecomposition)
+        dev = multihost.initialize("cuda")
+        for formulation in (VI, CONS):
+            model, state = bench_model(BENCH_N, torch.float32, dev,
+                                       formulation)
+            dd = DomainDecomposition(model)
+            report[formulation] = profiling.measure_overlap(
+                dd.fused_step_fn(BENCH_DT, 1), dd.shard_state(state))
+        multihost.shutdown()
+    elif task == "cli":
         from swmhd_tpu_torch import cli
         name, formulation, flags = args[2], args[3], args[4:]
         K.reset_counters()
@@ -1372,6 +1414,233 @@ def tiles_phase(smi):
     return entries
 
 
+# -- phase 10: the adaptive step, profiling and the movie ---------------------
+
+# (scenario, initial dt, target CFL, wizard cadence, steps) of the wizard
+# runs: the initial dt is above the target, so the wizard halves it at once
+# and then follows the flow
+WIZARD = ("128x128_two_Gaussians_high_B", 0.01, 0.4, 5, 20)
+MOVIE_SCENARIO = "64x64_two_Gaussians_high_B"
+ENERGY_NAMES = ("kinetic_energy", "magnetic_energy", "potential_energy",
+                "total_energy", "cross_helicity")
+
+
+def simulate(model, state, dt, steps, stepper, series=True, wizard=False):
+    """``steps`` steps of the CLI's run loop through ``stepper`` (None: the
+    plain step), with its energy series every step where ``series`` and
+    WIZARD's TimeStepWizard where ``wizard``: (Δt after each adjustment,
+    final state)."""
+    from swmhd_tpu_torch import diagnostics
+    from swmhd_tpu_torch.io import ScalarSeriesWriter
+    from swmhd_tpu_torch.simulation import (Callback, IterationInterval,
+                                            Simulation, TimeStepWizard)
+    sim = Simulation(model, dt=dt, stop_iteration=steps, stepper=stepper)
+    history = []
+    if wizard:
+        adjust_dt = TimeStepWizard(cfl=WIZARD[2])
+
+        def adjust(s):
+            adjust_dt(s)
+            history.append(s.dt)
+        sim.callbacks["wizard"] = Callback(adjust,
+                                           IterationInterval(WIZARD[3]))
+    with tempfile.TemporaryDirectory() as tmp:
+        if series:
+            h0 = state.h
+            sim.output_writers["energies"] = ScalarSeriesWriter(
+                fn=lambda m, st: {k: v for k, v in diagnostics.energy_report(
+                    m, st, h0).items() if k in ENERGY_NAMES},
+                schedule=IterationInterval(1),
+                path=os.path.join(tmp, "energies.csv"))
+        final = sim.run(state)
+    return history, final
+
+
+def launches_by_branch(K):
+    return {n: {K.branch_label(b): c for b, c in f.launches_by_branch.items()}
+            for n, f in (("swmhd_substage", K.substage),
+                         ("swmhd_multistep", K.multistep))}
+
+
+def trace_kernels(path):
+    """The names of the CUDA kernels in a torch.profiler Chrome trace."""
+    import gzip
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def wizard_runs(K, dev, smi):
+    """The wizard through the kernels against the plain stepper: without a
+    series one multistep call a chunk (K2), with the energy series three
+    substages a step (K1). The counters are zeroed before the kernel runs
+    and read after them."""
+    import torch
+    from swmhd_tpu_torch import scenarios
+    name, dt, cfl, every, steps = WIZARD
+    runs = [(VI, False), (VI, True), (CONS, False)]
+    cases = [scenarios.build(name, f, dtype=torch.float64, device=dev)[:2]
+             for f, _ in runs]
+    K.reset_counters()
+    got = []
+    for (formulation, series), (model, state) in zip(runs, cases):
+        before = (K.substage.launches, K.multistep.launches)
+        hist, final = simulate(model, state, dt, steps,
+                               K.KernelStepper(model), series, wizard=True)
+        got.append((hist, final, K.substage.launches - before[0],
+                    K.multistep.launches - before[1]))
+    plain_calls = K.substage_reference.calls + K.multistep_reference.calls
+    say(10, "wizard runs' launches by branch: "
+        + json.dumps(launches_by_branch(K))
+        + f"; plain calls {plain_calls}")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times in the wizard runs")
+    for (formulation, series), (model, state), (hist, final, subs, multis) \
+            in zip(runs, cases, got):
+        want_hist, want = simulate(model, state, dt, steps, None, series,
+                                   wizard=True)
+        dt_err = max(abs(a - b) / b for a, b in zip(hist, want_hist))
+        err = rel_err(K.stack(final), K.stack(want))
+        changes = sum(a != b for a, b in zip([dt] + hist, hist))
+        say(10, f"wizard {name} {formulation} f64"
+               f"{' with the energy series' if series else ''}, cfl {cfl} "
+               f"every {every} of {steps} steps, kernel vs plain stepper on "
+               f"{smi}: dt history {', '.join(f'{d:.9e}' for d in hist)} "
+               f"({changes} changes), rel err {dt_err:.2e} (bound 1e-12); "
+               f"state rel err {err:.2e} (bound {F64_BOUND:g}); substage "
+               f"launches {subs}, multistep launches {multis}")
+        if not (len(hist) == len(want_hist) == steps // every + 1
+                and dt_err <= 1e-12 and changes >= 2 and err <= F64_BOUND):
+            fail(f"the wizard's kernel run ({formulation}, series {series}) "
+                 f"disagrees with the plain stepper")
+        if not (subs if series else multis):
+            fail(f"the wizard's kernel run ({formulation}) launched no "
+                 f"{'substage' if series else 'multistep'} kernel")
+
+
+def traces(K, dev):
+    """The ``--worker trace`` report: the CUDA kernels in a
+    ``profiling.trace`` of one 2048² substage of each formulation, and
+    ``profiling.device_busy`` of a trace of ten steps of the 128² main
+    path with the energy series. A process of its own, alone on the
+    card: once another process has used the card, a process that traced
+    before gets no kernel events in its later traces, and one that traced
+    before the others trace loses some (torch 2.11)."""
+    import torch
+    from swmhd_tpu_torch import profiling, scenarios
+    from swmhd_tpu_torch.ops import _build
+    _build.load()
+    report = {"kernels": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for formulation in (VI, CONS):
+            model, state = bench_model(BENCH_N, torch.float32, dev,
+                                       formulation)
+            s = K.stack(state)
+            K.substage(model, s, BENCH_DT, 0)
+            torch.cuda.synchronize()
+            logdir = os.path.join(tmp, formulation)
+            with profiling.trace(logdir):
+                K.substage(model, s, BENCH_DT, 0)
+                torch.cuda.synchronize()
+            report["kernels"][formulation] = trace_kernels(
+                os.path.join(logdir, profiling.TRACE_FILE))
+            del s, state
+        model, state, sc = scenarios.build(
+            "128x128_two_Gaussians_high_B", VI, dtype=torch.float32,
+            device=dev)
+        stepper = K.KernelStepper(model)
+        simulate(model, state, sc.dt, 2, stepper)                # warm-up
+        logdir = os.path.join(tmp, "main")
+        with profiling.trace(logdir):
+            simulate(model, state, sc.dt, 10, stepper)
+        report["busy"] = profiling.device_busy(
+            os.path.join(logdir, profiling.TRACE_FILE))
+    return report
+
+
+def adaptive_phase(K, dev, smi, bench_ms_step):
+    """Phase 10 (see the module's docstring). ``bench_ms_step`` is phase
+    6's 2048² vector-invariant ms a step."""
+    import torch
+    from swmhd_tpu_torch import cli, profiling
+    t10 = time.perf_counter()
+    wizard_runs(K, dev, smi)
+
+    # benchmark_step on the 2048² vector-invariant kernel stepper
+    model, state = bench_model(BENCH_N, torch.float32, dev, VI)
+    run20 = K.KernelStepper(model).step_fn(BENCH_DT, DD_STEPS)
+    b = profiling.benchmark_step(run20, state, DD_STEPS)
+    ms_step = b.wall_s * 1e3 / b.n_steps
+    say(10, f"profiling.benchmark_step, bench {BENCH_N}^2 f32 {VI}, "
+           f"{DD_STEPS} steps a call, on {smi}: {b}; points_per_s "
+           f"{b.points_per_s:.4e}, hbm_fraction_of_light "
+           f"{b.hbm_fraction_of_light:.4f}, rel_spread {b.rel_spread:.3e}; "
+           f"{ms_step:.4f} ms/step against phase 6's {bench_ms_step:.4f} "
+           f"(CUDA events)")
+    if abs(ms_step - bench_ms_step) > 0.15 * bench_ms_step:
+        fail(f"benchmark_step's step time {ms_step:.4f} ms is not within "
+             f"15% of phase 6's {bench_ms_step:.4f} ms")
+
+    # profiling.trace in a process of its own (see traces), then
+    # measure_overlap on four gloo ranks of phase 8's 2048² configuration
+    reps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torchrun(1, ["trace", tmp])
+        torchrun(WORLD, ["overlap", tmp])
+        for task, n in (("trace", 1), ("overlap", WORLD)):
+            reps[task] = []
+            for r in range(n):
+                with open(os.path.join(tmp, f"{task}_rank{r}.json")) as f:
+                    reps[task].append(json.load(f))
+    for formulation in (VI, CONS):
+        names = reps["trace"][0]["kernels"][formulation]
+        say(10, f"profiling.trace of one {BENCH_N}^2 {formulation} "
+               f"substage on {smi}: kernels "
+               + "; ".join(n.split(">(")[0] + ">" for n in names))
+        if not any(TILE_KERNELS[formulation] in n for n in names):
+            fail(f"the trace of a {formulation} substage does not name "
+                 f"{TILE_KERNELS[formulation]}")
+    busy = reps["trace"][0]["busy"]
+    say(10, f"profiling.trace of 10 steps of the 128^2 main path "
+           f"(128x128_two_Gaussians_high_B {VI} f32, KernelStepper, "
+           f"energy series every step) on {smi}: device busy "
+           f"{busy['busy_ms']:.4f} of {busy['window_ms']:.4f} ms = "
+           f"{busy['busy_share']:.4f} of the window, "
+           f"{busy['n_kernels']} kernels")
+    for formulation in (VI, CONS):
+        per = [r[formulation] for r in reps["overlap"]]
+        say(10, f"profiling.measure_overlap of one decomposed {BENCH_N}^2 "
+               f"{formulation} step, {WORLD} ranks over gloo on {smi}: "
+               + "; ".join(
+                   f"rank {r}: comm_ms {o['comm_ms']:.4f}, compute_ms "
+                   f"{o['compute_ms']:.4f}, overlap_pct {o['overlap_pct']} "
+                   f"({o['n_comm_events']} comm, {o['n_compute_events']} "
+                   f"compute events)" for r, o in enumerate(per)))
+        if not all(o["n_comm_events"] > 0 and o["n_compute_events"] > 0
+                   for o in per):
+            fail(f"measure_overlap found no exchange or no compute "
+                 f"({formulation}): {per}")
+
+    # --movie: host post-processing, on no device path
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        say(10, f"--movie not run: matplotlib does not import here ({e})")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            cli.main(["run", MOVIE_SCENARIO, "--stop-time", "0.2",
+                      "--outdir", tmp, "--movie"])
+            made = sorted(os.listdir(tmp))
+            say(10, f"cli run {MOVIE_SCENARIO} --stop-time 0.2 --movie: "
+                   f"{', '.join(made)}")
+            if not ("energy_plot.png" in made
+                    and {"movie.mp4", "movie.mp4.frames"} & set(made)):
+                fail("--movie wrote no energy_plot.png or no movie")
+    say(10, "phase 10 launches by branch: "
+        + json.dumps(launches_by_branch(K))
+        + f"; phase 10 took {time.perf_counter() - t10:.1f} s")
+
+
 def main():
     try:
         import torch
@@ -1825,6 +2094,10 @@ def main():
     tile_entries = tiles_phase(smi)
     say(9, f"phase 9 took {time.perf_counter() - t9:.1f} s; the script "
            f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 10 ------------------------------------------------------------------
+    adaptive_phase(K, dev, smi, bench[(VI, None)][2])
+    say(10, f"the script {time.perf_counter() - t_start:.1f} s so far")
 
     if "jax" in sys.modules:
         fail("jax was imported")

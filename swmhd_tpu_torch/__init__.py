@@ -4,9 +4,10 @@ A port of :mod:`swmhd_tpu` (which stays the reference) with the same
 module and function names: the C-grid operators, WENO5-Z advection, the
 vector-invariant model with jacobian-form Lorentz forcing and the
 conservative model with divergence-form Lorentz forcing, Le–Moin RK3,
-the simulation driver, writers, checkpoints, scenarios and CLI. The RK3
-substage runs through a CUDA C++ kernel written for Hopper
-(:mod:`swmhd_tpu_torch.ops.substage`). This package never imports JAX.
+the simulation driver with its adaptive time step, writers, checkpoints,
+scenarios, CLI, profiling and plots. The RK3 substage runs through a
+CUDA C++ kernel written for Hopper (:mod:`swmhd_tpu_torch.ops.substage`).
+This package never imports JAX.
 """
 
 from .grid import Grid, PERIODIC, BOUNDED
@@ -17,6 +18,12 @@ from .physics import (FPlane, LaplacianDiffusion, BiharmonicDiffusion,
                       magnetic_field_cc, magnetic_field_faces,
                       lorentz_force_jacobian, lorentz_force_divergence)
 from .forcing import jacobian_lorentz_forcing, divergence_lorentz_forcing
+from .simulation import (Simulation, IterationInterval, TimeInterval,
+                         Callback, TimeStepWizard)
+from . import diagnostics
+from . import profiling
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Grid", "PERIODIC", "BOUNDED",
@@ -26,4 +33,6 @@ __all__ = [
     "magnetic_field_cc", "magnetic_field_faces",
     "lorentz_force_jacobian", "lorentz_force_divergence",
     "jacobian_lorentz_forcing", "divergence_lorentz_forcing",
+    "Simulation", "IterationInterval", "TimeInterval", "Callback",
+    "TimeStepWizard", "diagnostics", "profiling",
 ]

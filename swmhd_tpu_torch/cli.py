@@ -22,7 +22,8 @@ the JAX package's CLI), and each substage runs the CUDA tile substage on
 the exchanged tile (the plain step on tiles with ``--no-fused`` or on the
 CPU). Fields are written as per-rank slabs and checkpoints as sharded
 directories; rank 0 writes ``energies.csv`` and the gathered
-``final.npz``.
+``final.npz``, and with ``--movie`` renders after every rank has closed
+its writers.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ def _add_run_args(p):
     p.add_argument("--resume", default=None,
                    help="checkpoint to resume from: a file, or the "
                         "directory of a sharded checkpoint")
+    p.add_argument("--movie", action="store_true",
+                   help="render the A/speed movie and the energy plot "
+                        "after the run (needs matplotlib; the movie is an "
+                        "mp4 through ffmpeg or cv2, else .png frames)")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="on CUDA, step through the hand-written substage "
@@ -135,6 +140,8 @@ def cmd_run(args):
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(message)s")
+    if args.movie:
+        import matplotlib  # noqa: F401  (raises before the run, not after)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available "
                            "(use --device cpu for the plain CPU path)")
@@ -234,6 +241,12 @@ def cmd_run(args):
     if multihost.rank() == 0:
         checkpoint.save(os.path.join(outdir, "final.npz"), final, model.grid)
         print(f"done: {outdir} ({sim.run_wall_time:.1f}s wall, {path})")
+    if args.movie:
+        multihost.sync("movie")
+        if multihost.rank() == 0:
+            from .viz import render_scenario_outputs
+            made = render_scenario_outputs(outdir, title=args.scenario)
+            print(f"rendered: {', '.join(made)}")
     multihost.shutdown()
 
 

@@ -1,6 +1,6 @@
 """Scalar diagnostics, port of :mod:`swmhd_tpu.diagnostics`: energies,
-cross-helicity, enstrophy and the progress extrema, as tensor reductions
-that stay on the device.
+cross-helicity, enstrophy, the progress extrema and the CFL numbers, as
+tensor reductions that stay on the device, and the derived-field set.
 
 Domain integrals are ``mean(·)·Lx·Ly``; potential energy is measured
 against the initial height field.
@@ -9,12 +9,14 @@ On a tile of a domain decomposition the same functions run on the tile
 padded with a halo (see ``DomainDecomposition.tile_diagnostics``): under
 :func:`tile_reduction` each integral is the tile's share of the sum and
 each extremum the tile's, both over the tile without its halo, and the
-reduction object combines them over ranks.
+reduction object combines them over ranks. :func:`cfl_numbers` reduces
+its maxima there itself, as they are not extrema of one field.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.distributed as dist
@@ -108,6 +110,18 @@ def potential_energy(h, h0, g_acc, grid):
     return _integral(0.5 * g_acc * (h - h0) ** 2, grid)
 
 
+def total_energy(u, v, h, A, h0, g_acc, grid, A_bg_grad_y: float = 0.0):
+    return (kinetic_energy(u, v, h, grid)
+            + magnetic_energy(A, h, grid, A_bg_grad_y)
+            + potential_energy(h, h0, g_acc, grid))
+
+
+def total_energy_deviation(E, E0):
+    """|E − E₀|·100, what the reference plots as "relative energy error
+    (%)"."""
+    return abs(E - E0) * 100.0
+
+
 def cross_helicity(u, v, A, h, grid, A_bg_grad_y: float = 0.0):
     """∫ h (u·B)."""
     Bx, By = magnetic_field_cc(A, h, grid, A_bg_grad_y)
@@ -130,6 +144,68 @@ def extrema_report(u, v, h, A, grid):
         "max_A": _extremum(A, "max"),
         "min_h": _extremum(h, "min"),
     }
+
+
+def derived_fields(model, state, h0=None):
+    """The reference's derived fields: ``u``, ``v`` (velocities), speed
+    ``s`` at centers, ``Bx``, ``By`` at centers, vorticity ``omega``,
+    ``h``, ``A`` with its background γ·y added, and ``eta = h − h0`` when
+    ``h0`` is given."""
+    g = model.grid
+    gamma = model.A_background_gradient_y
+    u, v = model.velocities(state)
+    Bx, By = magnetic_field_cc(state.A, state.h, g, gamma)
+    A_total = state.A
+    if gamma:
+        A_total = state.A + gamma * g.nodes("cc")[1]
+    out = {
+        "u": u,
+        "v": v,
+        "s": torch.sqrt(op.ix_c(u, g) ** 2 + op.iy_c(v, g) ** 2),
+        "Bx": Bx,
+        "By": By,
+        "omega": op.vorticity_ff(u, v, g),
+        "h": state.h,
+        "A": A_total,
+    }
+    if h0 is not None:
+        out["eta"] = state.h - h0
+    return out
+
+
+def cfl_maxima(model, state):
+    """max|u|, max|v| (velocities) and max h: what :func:`cfl_numbers`
+    reads from the state, as extrema."""
+    u, v = model.velocities(state)
+    return {"max_abs_u": _extremum(torch.abs(u), "max"),
+            "max_abs_v": _extremum(torch.abs(v), "max"),
+            "max_h": _extremum(state.h, "max")}
+
+
+def cfl_of_maxima(model, maxima, dt):
+    """(advective, gravity-wave) CFL numbers of :func:`cfl_maxima`'s
+    values, 0-d tensors or host floats: ``(max|u|/Δx + max|v|/Δy)·Δt``
+    and ``√(g·max h)·(1/Δx + 1/Δy)·Δt``."""
+    g = model.grid
+    max_h = maxima["max_h"]
+    sqrt = torch.sqrt if torch.is_tensor(max_h) else math.sqrt
+    adv = maxima["max_abs_u"] / g.dx + maxima["max_abs_v"] / g.dy
+    wave = sqrt(model.gravitational_acceleration * max_h) \
+        * (1.0 / g.dx + 1.0 / g.dy)
+    return adv * dt, wave * dt
+
+
+def cfl_numbers(model, state, dt):
+    """(advective CFL, gravity-wave CFL) for a step of ``dt``. On a tile
+    (under :func:`tile_reduction`) the three maxima are reduced over
+    ranks first, and the two results are marked as maxima of equal
+    values, so an enclosing reduction keeps them."""
+    maxima = cfl_maxima(model, state)
+    t = _TILE[0]
+    if t is None:
+        return cfl_of_maxima(model, maxima, dt)
+    adv, wave = cfl_of_maxima(model, t.reduce(maxima), dt)
+    return t.mark(adv, "max"), t.mark(wave, "max")
 
 
 def reference_kinetic_energy(u, v, h, grid):

@@ -132,6 +132,11 @@ class Grid:
         return torch.as_tensor(fn(X, Y), dtype=self.dtype,
                                device=self.device)
 
+    def with_dtype(self, dtype) -> "Grid":
+        """The same grid, on the same device, in ``dtype`` (a
+        ``torch.dtype`` or its name)."""
+        return dataclasses.replace(self, dtype_name=dtype_name(dtype))
+
     def meta(self) -> dict:
         """The checkpoint's ``meta["grid"]`` dictionary."""
         return {"Nx": self.Nx, "Ny": self.Ny, "Lx": self.Lx, "Ly": self.Ly,

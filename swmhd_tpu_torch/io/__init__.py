@@ -1,7 +1,7 @@
 """Output writers and their readers."""
 
-from .writers import FieldWriter, ScalarSeriesWriter
+from .writers import FieldWriter, ScalarWriter, ScalarSeriesWriter
 from .readers import FieldTimeSeries, ScalarTimeSeries
 
-__all__ = ["FieldWriter", "ScalarSeriesWriter", "FieldTimeSeries",
-           "ScalarTimeSeries"]
+__all__ = ["FieldWriter", "ScalarWriter", "ScalarSeriesWriter",
+           "FieldTimeSeries", "ScalarTimeSeries"]

@@ -6,7 +6,8 @@ files and columns so either package's readers open them.
 ``decomposition`` given) each rank writes its tile as the slab
 ``<path>/<name>/<index:06d>.p<rank:05d>.npz`` (``data``, ``bounds``,
 ``shape``) and rank 0 writes ``meta.json``. :class:`ScalarSeriesWriter`
-writes a CSV of ``time, iteration, <names...>`` rows, on rank 0.
+and :class:`ScalarWriter` write a CSV of ``time, iteration, <names...>``
+rows, on rank 0.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import shutil
 from typing import Callable, Mapping
 
 import numpy as np
+import torch
 
 from ..parallel import multihost
 
@@ -132,6 +134,48 @@ class ScalarSeriesWriter:
             if int(it) % self._every == 0:
                 self._csv.writerow([float(t), int(it)]
                                    + [float(c[k]) for c in cols])
+        self._f.flush()
+
+    def close(self):
+        if self._f is not None and not self._f.closed:
+            self._f.close()
+
+
+class ScalarWriter:
+    """Scalars on a schedule → CSV rows of ``time, iteration, <names...>``.
+    ``outputs`` maps name -> callable(simulation) -> 0-d tensor or number.
+
+    Every rank evaluates every output, as a value may be reduced over
+    ranks (``sim.diagnose``); rank 0 alone opens and writes the file. The
+    values of a row reach the host in one device→host copy."""
+
+    def __init__(self, outputs: Mapping[str, Callable], schedule, path: str,
+                 overwrite_existing: bool = True):
+        self.outputs = dict(outputs)
+        self.schedule = schedule
+        self.path = path
+        self._rank = multihost.rank()
+        self._f = None
+        if self._rank != 0:
+            return
+        mode = "w" if overwrite_existing or not os.path.exists(path) else "a"
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._f = open(path, mode, newline="")
+        self._csv = csv.writer(self._f)
+        if mode == "w":
+            self._csv.writerow(["time", "iteration"] + sorted(self.outputs))
+
+    def write(self, sim):
+        st = sim.state
+        vals = [self.outputs[name](sim) for name in sorted(self.outputs)]
+        dev = next((v.device for v in vals if torch.is_tensor(v)), "cpu")
+        host = [] if not vals else torch.stack([
+            torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(())
+            for v in vals]).cpu().tolist()
+        if self._f is None:
+            return
+        self._csv.writerow([float(st.clock.time), int(st.clock.iteration)]
+                           + host)
         self._f.flush()
 
     def close(self):

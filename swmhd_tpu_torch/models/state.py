@@ -18,6 +18,13 @@ class Clock:
     time: float = 0.0
     iteration: int = 0
 
+    @staticmethod
+    def zero(dtype=None) -> "Clock":
+        """``Clock(0.0, 0)``. ``dtype`` is accepted, as in the JAX
+        package, and ignored: the host clock's time is always a Python
+        float."""
+        return Clock(0.0, 0)
+
     def tick(self, dt) -> "Clock":
         return Clock(self.time + dt, self.iteration + 1)
 
@@ -34,6 +41,10 @@ class State:
 
     def replace(self, **kw) -> "State":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def shape(self):
+        return self.h.shape
 
     def fields(self):
         return (self.h, self.u, self.v, self.A)

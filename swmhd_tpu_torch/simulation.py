@@ -207,9 +207,55 @@ class Simulation:
         return n
 
 
-def progress_callback():
+class TimeStepWizard:
+    """Adaptive Δt toward a target CFL: attach as a Callback; it rescales
+    ``sim.dt`` by ``cfl / current`` clipped to ``[min_change,
+    max_change]``, then to ``[min_dt, max_dt]``, where ``current`` is the
+    larger of :func:`~swmhd_tpu_torch.diagnostics.cfl_numbers`. A change
+    clears the simulation's steppers (a kernel stepper's step closes over
+    Δt).
+
+    The maxima come from ``sim.diagnose``: global on every rank of a
+    decomposed run (a MAX all-reduce, exact, so every rank takes the same
+    Δt), on the device until one device→host copy per adjustment. Each
+    call reads ``sim.model``, so a wizard attached to another simulation
+    uses that model's grid spacings."""
+
+    def __init__(self, cfl: float = 0.7, max_change: float = 1.1,
+                 min_change: float = 0.5, min_dt: float = 0.0,
+                 max_dt: Optional[float] = None):
+        self.cfl = cfl
+        self.max_change = max_change
+        self.min_change = min_change
+        self.min_dt = min_dt
+        self.max_dt = max_dt
+
+    def __call__(self, sim: "Simulation"):
+        from . import diagnostics
+        model = sim.model
+        maxima = _to_host(sim.diagnose(
+            lambda s: diagnostics.cfl_maxima(model, s)))
+        adv, wave = diagnostics.cfl_of_maxima(model, maxima, sim.dt)
+        current = max(adv, wave)
+        if current <= 0:
+            return
+        factor = min(self.max_change,
+                     max(self.min_change, self.cfl / current))
+        new_dt = sim.dt * factor
+        if self.max_dt is not None:
+            new_dt = min(new_dt, self.max_dt)
+        new_dt = max(new_dt, self.min_dt)
+        if abs(new_dt - sim.dt) / sim.dt > 1e-12:
+            logger.info("TimeStepWizard: dt %.3e -> %.3e (CFL %.3f)",
+                        sim.dt, new_dt, current)
+            sim.dt = new_dt
+            sim._steppers.clear()
+
+
+def progress_callback(h0=None):
     """Logs time, iteration, max|u|, max A, min h and the wall time per
-    interval; one device→host copy per report."""
+    interval; one device→host copy per report. ``h0`` is accepted, as in
+    the JAX package, and not used."""
     last_wall = [time.perf_counter()]
 
     def cb(sim: Simulation):

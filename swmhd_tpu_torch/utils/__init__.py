@@ -1,0 +1,3 @@
+from .prettytime import prettytime
+
+__all__ = ["prettytime"]

@@ -165,7 +165,8 @@ def test_port_never_imports_jax():
             "swmhd_tpu_torch.ops._build, swmhd_tpu_torch.parallel.multihost, "
             "swmhd_tpu_torch.parallel.decomposition, swmhd_tpu_torch.ops.tile, "
             "swmhd_tpu_torch.probes.exp_dma, swmhd_tpu_torch.probes.exp_dma2, "
-            "swmhd_tpu_torch.probes.exp_fused2d; "
+            "swmhd_tpu_torch.probes.exp_fused2d, swmhd_tpu_torch.viz, "
+            "swmhd_tpu_torch.profiling; "
             "bad = [m for m in sys.modules if m in ('jax', 'swmhd_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'swmhd_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
