@@ -135,13 +135,26 @@ each printing lines of findings; any failure exits non-zero:
     matplotlib imports (``energy_plot.png`` and a movie), else one line
     saying it does not.
 
+11. the validation slice (``swmhd_tpu_torch.validate.run_case``, the
+    stepper ``cli.select_stepper`` picks, the energies of
+    ``diagnostics.reference_energy_report`` every step): each of the 12
+    scenario × formulation cases in float64 for 200 steps through the
+    kernel, its 201 rows within 1e-10 of the JAX package's float64 series
+    ``validation/series/<tag>.csv``; then in float32 to their reference
+    stop times ``conservative 64x64_two_Gaussians_high_B`` (1000 steps)
+    and ``vector_invariant 128x128_low_B_low_U`` (1500 steps, walled in y,
+    A gradient −0.05), which must pass the anchors of
+    ``swmhd_tpu_torch/validation_anchors.py``; each run three substage
+    launches a step and no plain call, one line a run with its wall time.
+
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
 runs of phase 6. Phase 8's runs are the decomposed main path: each rank
 zeroes its counters just before its run and reports them just after.
 Phase 9's probe runs are the probe path: the tile counters are zeroed
 just before them and read just after. Phase 10 zeroes the counters just
-before its wizard runs through the kernels and reads them just after. Comparisons with the plain versions
+before its wizard runs through the kernels and reads them just after, and
+phase 11 just before its validation runs. Comparisons with the plain versions
 happen outside those windows. The last two lines are a JSON object of
 per-kernel findings (one entry per entry point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -1421,6 +1434,13 @@ def tiles_phase(smi):
 # and then follows the flow
 WIZARD = ("128x128_two_Gaussians_high_B", 0.01, 0.4, 5, 20)
 MOVIE_SCENARIO = "64x64_two_Gaussians_high_B"
+# phase 11: every validation case in float64 to VALIDATION_STOP (200
+# steps) against the JAX package's rows, and these float32 cases to their
+# reference stop times against the anchors (a periodic one, 1000 steps;
+# the walled one with the A gradient, 1500)
+VALIDATION_STOP, VALIDATION_BOUND = 2.0, 1e-10
+VALIDATION_F32 = [(CONS, "64x64_two_Gaussians_high_B"),
+                  (VI, "128x128_low_B_low_U")]
 ENERGY_NAMES = ("kinetic_energy", "magnetic_energy", "potential_energy",
                 "total_energy", "cross_helicity")
 
@@ -1639,6 +1659,67 @@ def adaptive_phase(K, dev, smi, bench_ms_step):
     say(10, "phase 10 launches by branch: "
         + json.dumps(launches_by_branch(K))
         + f"; phase 10 took {time.perf_counter() - t10:.1f} s")
+
+
+def validation_phase(K, dev, smi):
+    """Phase 11 (see the module's docstring)."""
+    import torch
+    from swmhd_tpu_torch import scenarios, validate
+    from swmhd_tpu_torch.validation_anchors import (
+        CASES, ENERGIES, REFERENCE, compare_series, judge, summarize)
+    t11 = time.perf_counter()
+    runs = [(f, name, VALIDATION_STOP, torch.float64) for f, name in CASES]
+    runs += [(f, name, REFERENCE[(f, name)]["stop"], torch.float32)
+             for f, name in VALIDATION_F32]
+    K.reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for formulation, name, stop, dtype in runs:
+            tag = validate.case_tag(formulation, name)
+            before = (K.substage.launches, K.substage_reference.calls
+                      + K.multistep_reference.calls)
+            try:
+                csv, path, wall = validate.run_case(
+                    formulation, name, stop, dtype, dev, True, tmp)
+            except (RuntimeError, ValueError) as e:
+                fail(f"validation run {tag} {dtype}: {e}")
+            launched = K.substage.launches - before[0]
+            plain = (K.substage_reference.calls
+                     + K.multistep_reference.calls - before[1])
+            steps = int(round(stop / scenarios.get(name).dt))
+            line = (f"{tag} {path} t={stop:g} on {smi}: {wall:.3f} s wall, "
+                    f"substage launches {launched}, plain calls {plain}")
+            ok = launched == 3 * steps and plain == 0
+            if dtype == torch.float64:
+                jax_csv = os.path.join(validate.JAX_SERIES, f"{tag}.csv")
+                try:
+                    d = compare_series(csv, jax_csv, prefix=True)
+                except ValueError as e:
+                    fail(f"validation run {tag}: {e}")
+                worst = max(d[n]["all_max"] for n in ENERGIES)
+                line += (f"; {d[ENERGIES[0]]['rows']} rows, max |dE| vs the "
+                         f"JAX f64 rows {worst:.3e} (bound "
+                         f"{VALIDATION_BOUND:g})")
+                ok &= (d[ENERGIES[0]]["rows"] == steps + 1
+                       and worst <= VALIDATION_BOUND)
+            else:
+                got = summarize(csv)
+                checks = judge(REFERENCE[(formulation, name)], got)
+                line += "; anchors " + ", ".join(
+                    f"{k} {got[k]:.5g} {'ok' if v else 'MISS'}"
+                    for k, v in checks.items())
+                ok &= all(checks.values())
+            say(11, line)
+            if not ok:
+                fail(f"validation run {tag} {dtype} failed: {line}")
+    labels = {K.branch_label(b): n
+              for b, n in K.substage.launches_by_branch.items()}
+    for b in [K.Branch(c, 0, wall_y) for c in (0, 1) for wall_y in (0, 1)]:
+        if not K.substage.launches_by_branch.get(b):
+            fail(f"swmhd_substage [{K.branch_label(b)}] was not launched by "
+                 f"the validation runs")
+    say(11, f"validation launches by branch: {json.dumps(labels)}; "
+            f"multistep launches {K.multistep.launches}; phase 11 took "
+            f"{time.perf_counter() - t11:.1f} s")
 
 
 def main():
@@ -2098,6 +2179,10 @@ def main():
     # 10 ------------------------------------------------------------------
     adaptive_phase(K, dev, smi, bench[(VI, None)][2])
     say(10, f"the script {time.perf_counter() - t_start:.1f} s so far")
+
+    # 11 ------------------------------------------------------------------
+    validation_phase(K, dev, smi)
+    say(11, f"the script {time.perf_counter() - t_start:.1f} s so far")
 
     if "jax" in sys.modules:
         fail("jax was imported")
