@@ -28,19 +28,25 @@ each printing lines of findings; any failure exits non-zero:
    ``128x128_low_B_low_U`` in both formulations, and with the closures of
    CLOSURE_FLAGS (``128x128_two_Gaussians_high_B --nu 1e-5 --kappa 1e-5
    --biharmonic``, ``128x128_low_B_low_U --formulation conservative --nu
-   1e-3 --kappa 1e-3``) (each: 101 finite energy rows, ``final.npz``, 300
-   substage launches in one branch, the closure's where there is one, no
-   plain-version call);
+   1e-3 --kappa 1e-3``) (each: 101 finite energy rows, ``final.npz``, 100
+   resident launches holding 300 substages in one branch, the closure's
+   where there is one, replayed from the chunks' CUDA graphs, no
+   one-substage launch and no plain-version call);
 6. the ``bench.py`` configuration at 2048² float32 in both formulations,
-   without and with a biharmonic closure: 20 steps through the kernel
-   stepper timed with CUDA events after a warm-up (with the closure one
-   step with a series, so through substages), and 100 steps of each
+   without and with a biharmonic closure, whose state exceeds the card's
+   L2, so the kernel stepper takes one-substage launches (the
+   counterpart of ``fused_step_fn``): 20 steps through the stepper timed
+   with CUDA events after a warm-up (with the closure one step with a
+   series, so through a graph chunk), exactly 3 launches a step in each
+   of those branches and none elsewhere; and 100 steps of each
    ``128x128_low_B_low_U`` (bounded y; conservative with the Laplacian
    closure; and with the scheme and stencil switches of SCHEME_RUNS,
-   after one step with a series) through the stepper without a series
-   (one multistep call); then,
+   after one step with a series) and of the conservative
+   ``128x128_two_Gaussians_high_B`` with the CLI's biharmonic closure
+   through the stepper without a series (one resident launch); then,
    outside the counted window, the plain versions' times, per substage and
-   per step, the 2048² states after 3 steps against each other, the
+   per step, the resident kernel's at 2048², the 2048² states after 3
+   steps against each other, the
    kernel against the plain version at 128² for the configurations of
    phase 5, of SCHEME_RUNS and ``128x128_two_Gaussians_high_B``
    conservative with the biharmonic closure (G of one substage and 10
@@ -116,18 +122,21 @@ each printing lines of findings; any failure exits non-zero:
     (``128x128_two_Gaussians_high_B``) float64 through the kernel stepper
     with a ``TimeStepWizard`` every 5 of 20 steps from a Δt above its
     target CFL, vector-invariant and conservative without a series
-    (multistep calls) and vector-invariant with the energy series
-    (substage calls), against the same runs through the plain stepper
+    (a multistep call a chunk) and vector-invariant with the energy
+    series (graph chunks), against the same runs through the plain stepper
     (the Δt after each adjustment within 1e-12 relative, at least two
     changes, the state within 1e-11 of the field scale; no plain call
-    in the kernel runs); ``profiling.benchmark_step`` of the 2048²
+    in the kernel runs; exactly 4 resident launches holding 60 substages
+    without a series, 20 holding 60 with it, no one-substage launch); ``profiling.benchmark_step`` of the 2048²
     vector-invariant kernel stepper, 20 steps a call, whose step time
     must lie within 15% of phase 6's; in a process of its own (once
     another process has used the card, a process that traced before gets
     no kernel events in its later traces), ``profiling.trace`` of one
     2048² substage of each formulation, which must name the
     formulation's tile kernel, and of 10 steps of the 128² main path
-    with the energy series, whose device-busy share it prints; then, on
+    with the energy series (the second chunk of ten of a 20-step run, a
+    replay of the chunk's CUDA graph), whose device-busy share it prints;
+    then, on
     WORLD ranks of phase 8's 2048² configuration over gloo, each rank's
     ``profiling.measure_overlap`` of one decomposed step a formulation,
     each with exchange and compute events; ``cli run
@@ -144,8 +153,26 @@ each printing lines of findings; any failure exits non-zero:
     stop times ``conservative 64x64_two_Gaussians_high_B`` (1000 steps)
     and ``vector_invariant 128x128_low_B_low_U`` (1500 steps, walled in y,
     A gradient −0.05), which must pass the anchors of
-    ``swmhd_tpu_torch/validation_anchors.py``; each run three substage
-    launches a step and no plain call, one line a run with its wall time.
+    ``swmhd_tpu_torch/validation_anchors.py``; each run one resident
+    launch a step holding three substages (graph replays), no one-substage
+    launch and no plain call, one line a run with its wall time.
+
+12. the resident kernel (``swmhd_multistep``, one cooperative launch for
+    3·n substages) bit for bit against 3·n one-substage launches
+    (``swmhd_substage``) in each formulation
+    (128² and 2048² float32 periodic, ``128x128_low_B_low_U`` walled,
+    float64 256² bounded in x and y), the 2048² vector-invariant model
+    with a biharmonic closure and ``128x128_two_Gaussians_high_B`` with
+    the CLI's biharmonic closure, each with its grid, blocks an SM, shared
+    memory and registers, and its ms a step beside a CUDA graph of
+    one-step resident launches, the loop of one-substage launches (with
+    the host's cost, and as a CUDA graph) and the bound; then
+    ``128x128_two_Gaussians_high_B`` in each formulation,
+    GRAPH_CHUNK_STEPS steps, and the 2048² configuration, 10 steps, with
+    the CLI's energy series through ``KernelStepper`` (graph replays: of
+    resident launches at 128², of one-substage launches at 2048²) against
+    the eager chunk (a step's launches, then the series), state and series
+    bit for bit, each timed.
 
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
@@ -154,8 +181,8 @@ zeroes its counters just before its run and reports them just after.
 Phase 9's probe runs are the probe path: the tile counters are zeroed
 just before them and read just after. Phase 10 zeroes the counters just
 before its wizard runs through the kernels and reads them just after, and
-phase 11 just before its validation runs. Comparisons with the plain versions
-happen outside those windows. The last two lines are a JSON object of
+phase 11 just before its validation runs. Comparisons with the plain versions,
+and phase 12's, happen outside those windows. The last two lines are a JSON object of
 per-kernel findings (one entry per entry point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s;
@@ -177,12 +204,16 @@ run one rank of phase 8's runs, or of phase 10's traces and
 times the ``swmhd_tpu_torch`` under ``<root>`` (this checkout, or an
 unpacked archive of another commit) at phase 6's and 7's shapes, each
 formulation, float32, five rounds of each: the default model's 20-step
-multistep call at 2048², its substage there (a CUDA graph of 20), 20 tile
+call of the kernel stepper at 2048² and of the resident entry point
+(``multistep``) there, its substage there (a CUDA graph of 20), 20 tile
 substages of 2048² in 2×2 tiles (with the host's cost and as a CUDA
 graph), the biharmonic model's 20-step call;
 ``128x128_low_B_low_U``'s substage and one tile of its 4×1 mesh (100
 calls, with the host's cost and as a CUDA graph), each formulation's
-tile kernel's shared memory, registers and blocks an SM; then the tile
+tile kernel's shared memory, registers and blocks an SM;
+``128x128_two_Gaussians_high_B``'s 100-step multistep call (K2) and the
+CLI's run loop with its energy series (a steady chunk of 100 steps,
+``cli_chunk_ms``); then the tile
 tendency probe at ``exp_fused2d``'s default specs at 2048² (a CUDA graph
 of 20, and its kernel's design where the tree reports it); prints one
 JSON line.
@@ -402,6 +433,18 @@ def with_options(model, options, dt):
     import swmhd_tpu_torch
     return dataclasses.replace(model, **option_kwargs(
         options, swmhd_tpu_torch, stable_nu(model.grid, dt, options)))
+
+
+def branch_cases():
+    """Phase 3's ``((formulation, topology, γ), options)``: each entry of
+    CONFIGS with no closure, a Laplacian and a biharmonic one, and bounded
+    in x and y with the other OPTIONS."""
+    cases = [(cfg, None) for cfg in CONFIGS]
+    cases += [(cfg, o) for cfg in CONFIGS for o in ("laplacian",
+                                                    "biharmonic")]
+    cases += [((f, BOUNDED_XY, -0.05), o) for f in (VI, CONS)
+              for o in OPTIONS[2:] if f == VI or o != "vorticity stencil"]
+    return cases
 
 
 def wall_model(N, dtype, device, formulation, topology, gamma):
@@ -709,10 +752,59 @@ def tile_launches(K):
 
 
 def other_calls(K):
-    """Substage launches and plain calls that are not tile launches."""
+    """What ran that is not a tile launch: one-substage launches on whole
+    grids, resident launches and the substages they hold, plain calls."""
     return (K.substage.launches - sum(tile_launches(K).values())
-            + K.multistep.launches + K.substage_reference.calls
-            + K.multistep_reference.calls)
+            + K.multistep.launches + K.multistep.substages
+            + K.substage_reference.calls + K.multistep_reference.calls)
+
+
+def resident_counts(K, before=None):
+    """The resident kernel's launches and substages held by branch, and
+    the one-substage launches: a snapshot, or with ``before`` (a snapshot)
+    ``({branch: (launches, substages)}, one-substage launches)`` since
+    it, branches without a launch left out."""
+    now = (dict(K.multistep.launches_by_branch),
+           dict(K.multistep.substages_by_branch), K.substage.launches)
+    if before is None:
+        return now
+    return ({b: (n - before[0].get(b, 0), now[1][b] - before[1].get(b, 0))
+             for b, n in now[0].items() if n != before[0].get(b, 0)},
+            now[2] - before[2])
+
+
+def cli_chunk_ms(K, model, state, dt, steps=100):
+    """ms a step of the CLI's run loop through the kernel stepper with the
+    CLI's energy series (the tree's own: ``cli.energies`` where it has
+    one, else the five names of ``diagnostics.energy_report``): the
+    second chunk of ``steps`` of a run of twice as many, by the host's
+    clock from the callback after the first chunk to the one after the
+    second, each after the chunk's series reached the host."""
+    from swmhd_tpu_torch import cli, diagnostics
+    from swmhd_tpu_torch.io import ScalarSeriesWriter
+    from swmhd_tpu_torch.simulation import (Callback, IterationInterval,
+                                            Simulation)
+    h0 = state.h.clone()
+    if hasattr(cli, "energies"):
+        def series(m, st):
+            return cli.energies(m, st, h0)
+    else:
+        def series(m, st):
+            rep = diagnostics.energy_report(m, st, h0)
+            return {k: rep[k] for k in ENERGY_NAMES}
+    stamps = {}
+    sim = Simulation(model, dt=dt, stop_iteration=2 * steps,
+                     stepper=K.KernelStepper(model))
+    sim.callbacks["clock"] = Callback(
+        lambda s: stamps.setdefault(s.state.clock.iteration,
+                                    time.perf_counter()),
+        IterationInterval(steps))
+    with tempfile.TemporaryDirectory() as tmp:
+        sim.output_writers["energies"] = ScalarSeriesWriter(
+            fn=series, schedule=IterationInterval(1),
+            path=os.path.join(tmp, "energies.csv"))
+        sim.run(state)
+    return (stamps[2 * steps] - stamps[steps]) * 1e3 / steps
 
 
 def time_default(K, root):
@@ -731,6 +823,12 @@ def time_default(K, root):
         report[f"multistep_{formulation}_ms_step"] = [
             timed(lambda: run20(state), 1)[0] / DD_STEPS for _ in range(5)]
         s = K.stack(state)
+        # the resident entry point itself (a launch loop in trees before
+        # the resident kernel), whichever route the stepper takes here
+        K.multistep(model, s, BENCH_DT, 1)
+        report[f"resident_{formulation}_ms_step"] = [
+            timed(lambda: K.multistep(model, s, BENCH_DT, DD_STEPS),
+                  1)[0] / DD_STEPS for _ in range(5)]
         report[f"substage_{formulation}_ms"] = [
             graph_timed(lambda: K.substage(model, s, BENCH_DT, 0), 20)
             for _ in range(5)]
@@ -772,6 +870,20 @@ def time_default(K, root):
                 graph_timed(fn, 100) for _ in range(5)]
         report[f"design_{formulation}"] = K.tile_info(
             torch.float32, K.Branch(int(formulation == CONS), 0, 0), 32)
+        # the 128² main path: K2 alone (100 steps a call), and the CLI's
+        # run loop with its energy series, the second chunk of 100 of a
+        # 200-step run (host clock around it, its series' host copy and
+        # rows included)
+        model, state, sc = scenarios.build("128x128_two_Gaussians_high_B",
+                                           formulation, dtype=torch.float32,
+                                           device="cuda")
+        s = K.stack(state)
+        K.multistep(model, s, sc.dt, 100)
+        report[f"multistep128_{formulation}_ms_step"] = [
+            timed(lambda: K.multistep(model, s, sc.dt, 100), 1)[0] / 100
+            for _ in range(5)]
+        report[f"cli128_{formulation}_ms_step"] = [
+            cli_chunk_ms(K, model, state, sc.dt) for _ in range(5)]
     # the tile tendency probe at its default specs, 2048² f32 (a CUDA
     # graph of 20); its design where the tree reports it
     from swmhd_tpu_torch.ops import tile as T
@@ -791,15 +903,24 @@ def time_default(K, root):
     print(json.dumps(report), flush=True)
 
 
-def design(K, branch, shape):
+def design(K, branch, shape, resident=False):
     """The kernels-line fields of a substage branch's design, one kernel
     over 2-D tiles: its tile shape on ``shape`` (the wrapper's rule on
     card 0, float32), shared memory bytes a block, registers a thread and
-    resident blocks an SM from the CUDA runtime."""
+    resident blocks an SM from the CUDA runtime; for the ``resident``
+    kernel (``swmhd_multistep``) those of its own instantiation and its
+    grid, the blocks that walk the tiles."""
     import torch
     b = K.Branch(*branch)
     tile = K.tile_shape(CONS if b.conservative else VI, *shape,
                         torch.float32, b.closure == 2, *K.card_limits(0))
+    if resident:
+        smem, regs, blocks, grid = K.resident_info(
+            torch.float32, b, tile[0], K.resident_tiles(*shape, tile[0]),
+            K.card_limits(0)[1])
+        return {"design": "resident", "tile": list(tile),
+                "smem_bytes": smem, "registers": regs,
+                "blocks_per_sm": blocks, "grid": grid}
     smem, regs, blocks = K.tile_info(torch.float32, b, tile[0])
     return {"design": "tile", "tile": list(tile), "smem_bytes": smem,
             "registers": regs, "blocks_per_sm": blocks}
@@ -950,8 +1071,9 @@ def decomposed_bench(K, nproc, tmp, smi, tile_launches, backend="gloo"):
         counts = {}
         for r in per:
             if r["other_calls"]:
-                fail(f"a rank ran {r['other_calls']} other substage calls "
-                     f"on the decomposed path")
+                fail(f"a rank ran {r['other_calls']} launches or plain "
+                     f"calls other than tile launches on the decomposed "
+                     f"path")
             for k, n in r["launches"].items():
                 b = tuple(json.loads(k))
                 counts[b] = counts.get(b, 0) + n
@@ -988,8 +1110,8 @@ def decomposed_cli(K, cli, formulation, tmp, tile_launches, flags=()):
     per_rank = []
     for r in reps:
         if r["other_calls"]:
-            fail(f"a rank ran {r['other_calls']} other substage calls in "
-                 f"the decomposed CLI run")
+            fail(f"a rank ran {r['other_calls']} launches or plain calls "
+                 f"other than tile launches in the decomposed CLI run")
         per_rank.append(sum(r["launches"].values()))
         for k, n in r["launches"].items():
             b = tuple(json.loads(k))
@@ -1445,12 +1567,15 @@ ENERGY_NAMES = ("kinetic_energy", "magnetic_energy", "potential_energy",
                 "total_energy", "cross_helicity")
 
 
-def simulate(model, state, dt, steps, stepper, series=True, wizard=False):
+def simulate(model, state, dt, steps, stepper, series=True, wizard=False,
+             at=None):
     """``steps`` steps of the CLI's run loop through ``stepper`` (None: the
-    plain step), with its energy series every step where ``series`` and
-    WIZARD's TimeStepWizard where ``wizard``: (Δt after each adjustment,
-    final state)."""
-    from swmhd_tpu_torch import diagnostics
+    plain step), with its energy series (``cli.energies``) every step
+    where ``series`` and WIZARD's TimeStepWizard where ``wizard``: (Δt
+    after each adjustment, final state). ``at``: ``(every, fn)``, a
+    callback ``fn(simulation)`` every ``every`` iterations, which also
+    bounds the chunks."""
+    from swmhd_tpu_torch import cli
     from swmhd_tpu_torch.io import ScalarSeriesWriter
     from swmhd_tpu_torch.simulation import (Callback, IterationInterval,
                                             Simulation, TimeStepWizard)
@@ -1464,13 +1589,16 @@ def simulate(model, state, dt, steps, stepper, series=True, wizard=False):
             history.append(s.dt)
         sim.callbacks["wizard"] = Callback(adjust,
                                            IterationInterval(WIZARD[3]))
+    if at is not None:
+        sim.callbacks["at"] = Callback(at[1], IterationInterval(at[0]))
     with tempfile.TemporaryDirectory() as tmp:
         if series:
             h0 = state.h
+
+            def energy_series(m, st):
+                return cli.energies(m, st, h0)
             sim.output_writers["energies"] = ScalarSeriesWriter(
-                fn=lambda m, st: {k: v for k, v in diagnostics.energy_report(
-                    m, st, h0).items() if k in ENERGY_NAMES},
-                schedule=IterationInterval(1),
+                fn=energy_series, schedule=IterationInterval(1),
                 path=os.path.join(tmp, "energies.csv"))
         final = sim.run(state)
     return history, final
@@ -1492,9 +1620,11 @@ def trace_kernels(path):
 
 def wizard_runs(K, dev, smi):
     """The wizard through the kernels against the plain stepper: without a
-    series one multistep call a chunk (K2), with the energy series three
-    substages a step (K1). The counters are zeroed before the kernel runs
-    and read after them."""
+    series one resident launch a chunk of 5 steps (4 holding 60
+    substages), with the energy series one a step replayed from CUDA
+    graphs captured anew after each change of Δt (20 holding 60), no
+    one-substage launch either way. The counters are zeroed before the
+    kernel runs and read after them."""
     import torch
     from swmhd_tpu_torch import scenarios
     name, dt, cfl, every, steps = WIZARD
@@ -1504,11 +1634,13 @@ def wizard_runs(K, dev, smi):
     K.reset_counters()
     got = []
     for (formulation, series), (model, state) in zip(runs, cases):
-        before = (K.substage.launches, K.multistep.launches)
+        before = (K.substage.launches, K.multistep.launches,
+                  K.multistep.substages)
         hist, final = simulate(model, state, dt, steps,
                                K.KernelStepper(model), series, wizard=True)
         got.append((hist, final, K.substage.launches - before[0],
-                    K.multistep.launches - before[1]))
+                    (K.multistep.launches - before[1],
+                     K.multistep.substages - before[2])))
     plain_calls = K.substage_reference.calls + K.multistep_reference.calls
     say(10, "wizard runs' launches by branch: "
         + json.dumps(launches_by_branch(K))
@@ -1527,25 +1659,32 @@ def wizard_runs(K, dev, smi):
                f"every {every} of {steps} steps, kernel vs plain stepper on "
                f"{smi}: dt history {', '.join(f'{d:.9e}' for d in hist)} "
                f"({changes} changes), rel err {dt_err:.2e} (bound 1e-12); "
-               f"state rel err {err:.2e} (bound {F64_BOUND:g}); substage "
-               f"launches {subs}, multistep launches {multis}")
+               f"state rel err {err:.2e} (bound {F64_BOUND:g}); one-substage "
+               f"launches {subs}, resident launches and substages held "
+               f"{multis}")
         if not (len(hist) == len(want_hist) == steps // every + 1
                 and dt_err <= 1e-12 and changes >= 2 and err <= F64_BOUND):
             fail(f"the wizard's kernel run ({formulation}, series {series}) "
                  f"disagrees with the plain stepper")
-        if not (subs if series else multis):
-            fail(f"the wizard's kernel run ({formulation}) launched no "
-                 f"{'substage' if series else 'multistep'} kernel")
+        want_multis = (steps if series else steps // every, 3 * steps)
+        if subs or multis != want_multis:
+            fail(f"the wizard's kernel run ({formulation}, series {series}) "
+                 f"made {multis} resident launches and substages held, "
+                 f"{subs} one-substage launches; expected {want_multis} and "
+                 f"0")
 
 
 def traces(K, dev):
     """The ``--worker trace`` report: the CUDA kernels in a
     ``profiling.trace`` of one 2048² substage of each formulation, and
     ``profiling.device_busy`` of a trace of ten steps of the 128² main
-    path with the energy series. A process of its own, alone on the
-    card: once another process has used the card, a process that traced
-    before gets no kernel events in its later traces, and one that traced
-    before the others trace loses some (torch 2.11)."""
+    path with the energy series: the second chunk of ten of a 20-step run
+    (the first captures the chunk's graphs), from the callback after the
+    first chunk to the one after the second, with the host copy of the
+    chunk's series and its rows between them. A process of its own, alone on the card: once another process
+    has used the card, a process that traced before gets no kernel events
+    in its later traces, and one that traced before the others trace
+    loses some (torch 2.11)."""
     import torch
     from swmhd_tpu_torch import profiling, scenarios
     from swmhd_tpu_torch.ops import _build
@@ -1568,14 +1707,39 @@ def traces(K, dev):
         model, state, sc = scenarios.build(
             "128x128_two_Gaussians_high_B", VI, dtype=torch.float32,
             device=dev)
-        stepper = K.KernelStepper(model)
-        simulate(model, state, sc.dt, 2, stepper)                # warm-up
         logdir = os.path.join(tmp, "main")
-        with profiling.trace(logdir):
-            simulate(model, state, sc.dt, 10, stepper)
+        window = profiling.trace(logdir)
+
+        def second_chunk(sim):
+            if sim.state.clock.iteration == 10:
+                window.__enter__()
+            elif sim.state.clock.iteration == 20:
+                window.__exit__(None, None, None)
+        simulate(model, state, sc.dt, 20, K.KernelStepper(model),
+                 at=(10, second_chunk))
         report["busy"] = profiling.device_busy(
             os.path.join(logdir, profiling.TRACE_FILE))
+        report["host"] = host_time(os.path.join(logdir, profiling.TRACE_FILE))
     return report
+
+
+def host_time(path, top=6):
+    """Where a torch.profiler Chrome trace's host time went: for the
+    CUDA runtime calls and for the host operators, the ``top`` names by
+    their summed duration, ``{category: [[name, ms, count], ...]}``."""
+    import gzip
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for cat in ("cuda_runtime", "cpu_op"):
+        sums = {}
+        for e in events:
+            if e.get("cat") == cat and "dur" in e:
+                ms, n = sums.get(e["name"], (0.0, 0))
+                sums[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+        out[cat] = [[k, ms, n] for k, (ms, n) in sorted(
+            sums.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def adaptive_phase(K, dev, smi, bench_ms_step):
@@ -1623,10 +1787,12 @@ def adaptive_phase(K, dev, smi, bench_ms_step):
     busy = reps["trace"][0]["busy"]
     say(10, f"profiling.trace of 10 steps of the 128^2 main path "
            f"(128x128_two_Gaussians_high_B {VI} f32, KernelStepper, "
-           f"energy series every step) on {smi}: device busy "
+           f"energy series every step; the second chunk of ten of a "
+           f"20-step run, replayed from CUDA graphs) on {smi}: device busy "
            f"{busy['busy_ms']:.4f} of {busy['window_ms']:.4f} ms = "
            f"{busy['busy_share']:.4f} of the window, "
-           f"{busy['n_kernels']} kernels")
+           f"{busy['n_kernels']} kernels; host time by name [name, ms, "
+           f"calls]: {json.dumps(reps['trace'][0]['host'])}")
     for formulation in (VI, CONS):
         per = [r[formulation] for r in reps["overlap"]]
         say(10, f"profiling.measure_overlap of one decomposed {BENCH_N}^2 "
@@ -1675,20 +1841,25 @@ def validation_phase(K, dev, smi):
     with tempfile.TemporaryDirectory() as tmp:
         for formulation, name, stop, dtype in runs:
             tag = validate.case_tag(formulation, name)
-            before = (K.substage.launches, K.substage_reference.calls
+            before = (K.multistep.launches, K.multistep.substages,
+                      K.substage.launches, K.substage_reference.calls
                       + K.multistep_reference.calls)
             try:
                 csv, path, wall = validate.run_case(
                     formulation, name, stop, dtype, dev, True, tmp)
             except (RuntimeError, ValueError) as e:
                 fail(f"validation run {tag} {dtype}: {e}")
-            launched = K.substage.launches - before[0]
-            plain = (K.substage_reference.calls
-                     + K.multistep_reference.calls - before[1])
+            resident, held, subs, plain = (
+                n - n0 for n, n0 in zip(
+                    (K.multistep.launches, K.multistep.substages,
+                     K.substage.launches, K.substage_reference.calls
+                     + K.multistep_reference.calls), before))
             steps = int(round(stop / scenarios.get(name).dt))
             line = (f"{tag} {path} t={stop:g} on {smi}: {wall:.3f} s wall, "
-                    f"substage launches {launched}, plain calls {plain}")
-            ok = launched == 3 * steps and plain == 0
+                    f"resident launches {resident} holding {held} "
+                    f"substages, one-substage launches {subs}, plain calls "
+                    f"{plain}")
+            ok = (resident, held, subs, plain) == (steps, 3 * steps, 0, 0)
             if dtype == torch.float64:
                 jax_csv = os.path.join(validate.JAX_SERIES, f"{tag}.csv")
                 try:
@@ -1712,14 +1883,151 @@ def validation_phase(K, dev, smi):
             if not ok:
                 fail(f"validation run {tag} {dtype} failed: {line}")
     labels = {K.branch_label(b): n
-              for b, n in K.substage.launches_by_branch.items()}
+              for b, n in K.multistep.launches_by_branch.items()}
     for b in [K.Branch(c, 0, wall_y) for c in (0, 1) for wall_y in (0, 1)]:
-        if not K.substage.launches_by_branch.get(b):
-            fail(f"swmhd_substage [{K.branch_label(b)}] was not launched by "
-                 f"the validation runs")
-    say(11, f"validation launches by branch: {json.dumps(labels)}; "
-            f"multistep launches {K.multistep.launches}; phase 11 took "
+        if not K.multistep.launches_by_branch.get(b):
+            fail(f"swmhd_multistep [{K.branch_label(b)}] was not launched "
+                 f"by the validation runs")
+    say(11, f"validation resident launches by branch: "
+            f"{json.dumps(labels)}; one-substage launches "
+            f"{K.substage.launches}; phase 11 took "
             f"{time.perf_counter() - t11:.1f} s")
+
+
+# -- phase 12: the resident kernel and the graph chunk -----------------------
+
+# the chunk with a series held against the eager chunk: steps (one
+# GRAPH_STEPS replay and a remainder)
+GRAPH_CHUNK_STEPS = 150
+
+
+def _scenario_state(name, formulation, dev, **kw):
+    import torch
+    from swmhd_tpu_torch import scenarios
+    return scenarios.build(name, formulation, dtype=torch.float32,
+                           device=dev, **kw)[:2]
+
+
+def resident_phase(K, dev, smi):
+    """Phase 12 (see the module's docstring)."""
+    import torch
+    from swmhd_tpu_torch import cli
+    from swmhd_tpu_torch.models.shallow_water import run_steps
+    t12 = time.perf_counter()
+    # (label, build, dt, steps compared, steps timed): the shapes the
+    # resident kernel is held at against its one-substage launches
+    shapes = [
+        ("128^2", lambda f: bench_model(128, torch.float32, dev, f),
+         BENCH_DT, 10, 100),
+        (f"{BENCH_N}^2", lambda f: bench_model(BENCH_N, torch.float32, dev,
+                                                f), BENCH_DT, 3, DD_STEPS),
+        ("128x128_low_B_low_U",
+         lambda f: _scenario_state("128x128_low_B_low_U", f, dev), 0.01, 10,
+         100),
+        (f"f64 {SMOKE_N}^2 bounded xy", lambda f: wall_model(
+            SMOKE_N, torch.float64, dev, f, BOUNDED_XY, -0.05), 0.005, 5,
+         20)]
+    checks = [(f"{label} {f}", lambda f=f, build=build: build(f), dt, n,
+               reps, None)
+              for label, build, dt, n, reps in shapes for f in (VI, CONS)]
+    checks.append((f"{BENCH_N}^2 {VI} biharmonic",
+                   lambda: bench_model(BENCH_N, torch.float32, dev, VI),
+                   BENCH_DT, 3, DD_STEPS, "biharmonic"))
+    checks.append((f"128x128_two_Gaussians_high_B {VI} CLI biharmonic",
+                   lambda: _scenario_state(
+                       "128x128_two_Gaussians_high_B", VI, dev,
+                       closure=cli_closure(CLOSURE_FLAGS[VI])),
+                   0.01, 10, 100, None))
+    ops = {}
+    for label, build, dt, n, reps, options in checks:
+        model, state = build()
+        if options:
+            model = with_options(model, options, dt)
+        s = K.stack(state)
+        del state
+        x = K.multistep(model, s, dt, n)
+        y = K.windowed_steps(model, s, dt, n)
+        bitwise = bool(torch.equal(x, y))
+        err = float((x - y).abs().max())
+        smem, regs, blocks, grid = K.ready(model, s)
+
+        def one_step_launches(k=reps):
+            x = s
+            for _ in range(k):
+                x = K.multistep(model, x, dt, 1)
+            return x
+        # times a step: one resident launch of `reps` steps; a CUDA graph
+        # of `reps` one-step resident launches (a graph chunk's steps on
+        # the resident route); the loop of 3·reps one-substage launches
+        # with the host's cost, and as a CUDA graph of them (a graph
+        # chunk's steps on the other route)
+        ms = timed(lambda: K.multistep(model, s, dt, reps), 1)[0] / reps
+        res_graph_ms = graph_timed(one_step_launches, 1) / reps
+        loop_ms = timed(lambda: K.windowed_steps(model, s, dt, reps),
+                        1)[0] / reps
+        loop_graph_ms = graph_timed(
+            lambda: K.windowed_steps(model, s, dt, reps), 1) / reps
+        b = K.kernel_params(model).branch
+        bound = "not computed (float64)"
+        if s.dtype == torch.float32:
+            if b not in ops:
+                ops[b] = ops_per_point(K, b, "step")
+            pts = s.shape[1] * s.shape[2]
+            bound = "{:.4f} ({})".format(*least_time(
+                2 * 4 * s.element_size() * pts / reps, ops[b] * pts))
+        tiles = K.resident_tiles(s.shape[1], s.shape[2],
+                                 K._tile_x(model, *s.shape[1:], s))
+        say(12, f"resident {label} {s.dtype} on {smi}: {n} steps in one "
+               f"launch vs {3 * n} one-substage launches: bitwise equal "
+               f"{bitwise}, max abs diff {err:.3e}; grid {grid} blocks of "
+               f"{blocks} an SM over {tiles} tiles, {smem} B shared "
+               f"memory, {regs} registers; ms/step (launches of {reps} "
+               f"steps): resident {ms:.4f}, a CUDA graph of one-step "
+               f"resident launches {res_graph_ms:.4f}, loop of one-substage "
+               f"launches {loop_ms:.4f}, the loop as a CUDA graph "
+               f"{loop_graph_ms:.4f}, bound {bound}; the stepper takes "
+               f"{'resident' if K.takes_resident(model, s) else 'one-substage'}"
+               f" launches here")
+        if not (bitwise and torch.isfinite(x).all()):
+            fail(f"the resident kernel ({label}) differs from "
+                 f"{3 * n} one-substage launches: {err:.3e}")
+        del s, x, y
+    # the chunk with the CLI's series as graph replays against the eager
+    # chunk (a step's launches, then the series): at 128² on the resident
+    # route, at 2048² on the one-substage route
+    chunks = [(f, "128x128_two_Gaussians_high_B", 0.01, GRAPH_CHUNK_STEPS,
+               lambda f: _scenario_state("128x128_two_Gaussians_high_B", f,
+                                         dev)) for f in (VI, CONS)]
+    chunks += [(f, f"{BENCH_N}^2", BENCH_DT, 10, lambda f: bench_model(
+        BENCH_N, torch.float32, dev, f)) for f in (VI, CONS)]
+    for formulation, label, dt, n, build in chunks:
+        model, state = build(formulation)
+        h0 = state.h.clone()
+
+        def series(st):
+            return cli.energies(model, st, h0)
+        stepper = K.KernelStepper(model)
+        chunk = stepper.step_fn(dt, n, series)
+        got, gs = chunk(state)
+        want, ws = run_steps(stepper.one_step(dt), dt, n, series)(state)
+        same = (all(torch.equal(a, b)
+                    for a, b in zip(got.fields(), want.fields()))
+                and all(torch.equal(gs[k], ws[k]) for k in ws))
+        graph_ms = timed(lambda: chunk(state), 1)[0] / n
+        eager_ms = timed(lambda: run_steps(
+            stepper.one_step(dt), dt, n, series)(state), 1)[0] / n
+        route = ("resident" if K.takes_resident(model, state.h)
+                 else "one-substage")
+        say(12, f"graph chunk {label} {formulation} f32, {n} steps with the "
+               f"CLI's series, {route} launches (graphs of "
+               f"{sorted(chunk.graphs)} steps) vs the eager chunk on {smi}: "
+               f"state and series bitwise equal {same}; ms/step graph "
+               f"{graph_ms:.4f}, eager {eager_ms:.4f}")
+        if not same:
+            fail(f"the graph chunk ({label}, {formulation}) differs from "
+                 f"the eager chunk")
+        del state, got, want
+    say(12, f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 
 def main():
@@ -1763,12 +2071,7 @@ def main():
               or "none"))
 
     # 3 -------------------------------------------------------------------
-    cases = [(cfg, None) for cfg in CONFIGS]
-    cases += [(cfg, o) for cfg in CONFIGS for o in ("laplacian",
-                                                    "biharmonic")]
-    cases += [((f, BOUNDED_XY, -0.05), o) for f in (VI, CONS)
-              for o in OPTIONS[2:] if f == VI or o != "vorticity stencil"]
-    for cfg, options in cases:
+    for cfg, options in branch_cases():
         for dtype, bound in ((torch.float64, F64_BOUND),
                              (torch.float32, F32_BOUND)):
             compare_branch(K, dev, cfg, dtype, bound, options)
@@ -1814,36 +2117,45 @@ def main():
     K.reset_counters()
     cli_walls = {}
     for scenario, formulation, flags in CLI_RUNS:
-        before = dict(K.substage.launches_by_branch)
+        before = resident_counts(K)
         wall, rows, has_final = cli_run(scenario, formulation, *flags)
-        launches = {b: n - before.get(b, 0)
-                    for b, n in K.substage.launches_by_branch.items()
-                    if n != before.get(b, 0)}
+        launches, subs = resident_counts(K, before)
         cli_walls[(scenario, formulation, flags)] = wall
-        labels = {K.branch_label(b): n for b, n in launches.items()}
+        labels = {K.branch_label(b): list(n) for b, n in launches.items()}
         say(5, f"cli run {scenario} {formulation} {' '.join(flags)} f32 "
                f"t=1.0: {wall:.2f} s wall, {len(rows)} energy rows, finite "
                f"{bool(np.isfinite(rows).all())}, final.npz {has_final}, "
-               f"substage launches {json.dumps(labels)}, plain calls "
-               f"{plain_calls()}")
+               f"resident launches [launches, substages held] "
+               f"{json.dumps(labels)}, one-substage launches {subs}, plain "
+               f"calls {plain_calls()}")
         if not (len(rows) == 101 and np.isfinite(rows).all()
                 and has_final):
             fail(f"the CLI run of {scenario} ({formulation}) did not write "
                  f"101 finite rows and final.npz")
-        ((b, n),) = launches.items() if len(launches) == 1 else ((None, 0),)
-        if n != 300 or (b.closure != 0) != bool(flags):
-            fail(f"expected 300 substage launches in one branch, with a "
-                 f"closure where the run has one; got {labels}")
+        ((b, n),) = (launches.items() if len(launches) == 1
+                     else ((None, (0, 0)),))
+        if (n != (100, 300) or subs or plain_calls()
+                or (b.closure != 0) != bool(flags)):
+            fail(f"expected 100 resident launches holding 300 substages in "
+                 f"one branch, with a closure where the run has one, and no "
+                 f"one-substage launch or plain call; got {labels}, {subs}, "
+                 f"{plain_calls()}")
 
     # 6 -------------------------------------------------------------------
     bench_dt, steps = BENCH_DT, DD_STEPS
-    # the bench configuration without and with a biharmonic closure; the
-    # closure's warm-up step carries a series, so it runs substages
+    # the bench configuration without and with a biharmonic closure, whose
+    # state exceeds the card's L2, so the stepper takes one-substage
+    # launches; the closure's warm-up step carries a series, so it runs a
+    # graph chunk
     bench = {}            # (formulation, options) -> (model, state, ms/step)
     for formulation, options in ((VI, None), (CONS, None),
                                  (VI, "biharmonic"), (CONS, "biharmonic")):
         model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
         model = with_options(model, options, bench_dt)
+        if K.takes_resident(model, state.h):
+            fail(f"the {BENCH_N}^2 float32 state fits the card's L2 "
+                 f"({K.l2_bytes(0)} B): the stepper would take the "
+                 f"resident kernel")
         stepper = K.KernelStepper(model)
         series = (lambda st: {"mass": st.h.sum()}) if options else None
         stepper.step_fn(bench_dt, 1, series)(state)           # warm-up
@@ -1868,26 +2180,52 @@ def main():
             fail(f"128x128_low_B_low_U ({formulation}, {kw}) went "
                  f"non-finite")
         walled.append((formulation, kw, model, state, sc.dt, ms_call / 100))
+    # the conservative formulation with the CLI's biharmonic closure at
+    # 128², 100 steps (the resident kernel's branch phase 5 leaves out)
+    model, state, sc = scenarios.build(
+        "128x128_two_Gaussians_high_B", CONS, dtype=torch.float32,
+        device=dev, closure=cli_closure(CLOSURE_FLAGS[VI]))
+    out = K.KernelStepper(model).step_fn(sc.dt, 100)(state)
+    if not all(torch.isfinite(f).all() for f in out.fields()):
+        fail("128x128_two_Gaussians_high_B (conservative, biharmonic) went "
+             "non-finite")
     launches = {"swmhd_substage": dict(K.substage.launches_by_branch),
                 "swmhd_multistep": dict(K.multistep.launches_by_branch)}
     if plain_calls():
         fail(f"plain versions ran {plain_calls()} times on the main path")
-    # the branches of the main path's runs: each formulation periodic and
-    # bounded in y; with a biharmonic closure periodic; the conservative
-    # formulation with a Laplacian closure bounded in y
-    main_branches = ([K.Branch(c, 0, wall_y) for c in (0, 1)
-                      for wall_y in (0, 1)]
-                     + [K.Branch(c, 0, 0, closure=2) for c in (0, 1)]
-                     + [K.Branch(1, 0, 1, closure=1)]
-                     + [K.kernel_params(w[2]).branch for w in walled[3:]])
+    # the branches each kernel ran on the main path: the one-substage
+    # kernel the 2048² runs' (each formulation periodic, without and with
+    # a biharmonic closure), exactly three launches for each of their
+    # 1 + DD_STEPS steps and none elsewhere; the resident kernel the 128²
+    # runs' (each formulation periodic and bounded in y; with a biharmonic
+    # closure periodic; the conservative formulation with a Laplacian
+    # closure bounded in y; the SCHEME_RUNS)
+    bench_branches = [K.Branch(c, 0, 0, closure=closure) for c in (0, 1)
+                      for closure in (0, 2)]
+    if launches["swmhd_substage"] != {b: 3 * (1 + steps)
+                                      for b in bench_branches}:
+        fail(f"expected {3 * (1 + steps)} one-substage launches in each "
+             f"{BENCH_N}^2 branch and none elsewhere; got "
+             f"{launches['swmhd_substage']}")
+    main_branches = {
+        "swmhd_substage": bench_branches,
+        "swmhd_multistep": ([K.Branch(c, 0, wall_y) for c in (0, 1)
+                             for wall_y in (0, 1)]
+                            + [K.Branch(c, 0, 0, closure=2) for c in (0, 1)]
+                            + [K.Branch(1, 0, 1, closure=1)]
+                            + [K.kernel_params(w[2]).branch
+                               for w in walled[3:]])}
     for name, counts in launches.items():
-        for b in main_branches:
+        for b in main_branches[name]:
             if not counts.get(b):
                 fail(f"{name} [{K.branch_label(b)}] was not launched on the "
                      f"main path")
     say(6, "main-path launches by branch: " + json.dumps(
         {name: {K.branch_label(b): n for b, n in counts.items()}
-         for name, counts in launches.items()}))
+         for name, counts in launches.items()})
+        + "; substages the resident launches held: " + json.dumps(
+            {K.branch_label(b): n
+             for b, n in K.multistep.substages_by_branch.items()}))
 
     # outside the counted window: plain timings and comparisons
     # branch -> {entry point: {ms, plain_ms, nbytes, points, per}}: the
@@ -1902,15 +2240,20 @@ def main():
         plain_ms_step, y = timed(
             lambda: K.multistep_reference(model, s, bench_dt, 3), 1)
         plain_ms_step /= 3
-        x = K.multistep(model, s, bench_dt, 3)
+        x = K.KernelStepper(model).advance(s, bench_dt, 3)
         err3 = rel_err(x, y)
         sub_ms, _ = timed(lambda: K.substage(model, s, bench_dt, 0), 10)
         sub_plain_ms, _ = timed(
             lambda: K.substage_reference(model, s, bench_dt, 0), 3)
+        # the resident kernel at this size, off the main path
+        K.multistep(model, s, bench_dt, 1)
+        res_ms, _ = timed(lambda: K.multistep(model, s, bench_dt, steps), 1)
         rate, plain_rate = pts / (ms_step * 1e-3), pts / (plain_ms_step * 1e-3)
         say(6, f"bench {BENCH_N}^2 f32 {formulation} periodic "
                f"{options or ''} on {smi}: "
-               f"kernel {ms_step:.4f} ms/step = {rate:.4e} points/s; plain "
+               f"stepper (one-substage launches) {ms_step:.4f} ms/step = "
+               f"{rate:.4e} points/s; resident kernel "
+               f"{res_ms / steps:.4f} ms/step; plain "
                f"{plain_ms_step:.4f} ms/step = {plain_rate:.4e} points/s; "
                f"substage kernel {sub_ms:.4f} ms, plain {sub_plain_ms:.4f} "
                f"ms; 3-step rel err {err3:.2e}")
@@ -1921,10 +2264,7 @@ def main():
             "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
                                    nbytes=48 * pts, points=pts,
                                    per="substage",
-                                   shape=(BENCH_N, BENCH_N)),
-            "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
-                                    nbytes=32 * pts / steps, points=pts,
-                                    per="step", shape=(BENCH_N, BENCH_N))}
+                                   shape=(BENCH_N, BENCH_N))}
     for formulation, kw, model, state, dt, ms_step in walled:
         s = K.stack(state)
         b = K.kernel_params(model).branch
@@ -1945,11 +2285,9 @@ def main():
                f"{n / (ms_step * 1e-3):.4e} points/s; plain "
                f"{plain_ms_step:.4f} ms/step = "
                f"{n / (plain_ms_step * 1e-3):.4e} points/s; substage kernel "
-               f"{sub_ms:.4f} ms, plain {sub_plain_ms:.4f} ms")
+               f"(off the main path here) {sub_ms:.4f} ms, plain "
+               f"{sub_plain_ms:.4f} ms")
         timings[b] = {
-            "swmhd_substage": dict(ms=sub_ms, plain_ms=sub_plain_ms,
-                                   nbytes=48 * n, points=n, per="substage",
-                                   shape=(model.grid.Nx, model.grid.Ny)),
             "swmhd_multistep": dict(ms=ms_step, plain_ms=plain_ms_step,
                                     nbytes=32 * n / 100, points=n,
                                     per="step",
@@ -1976,6 +2314,10 @@ def main():
         say(6, f"{label} f32 on {smi}: multistep kernel {k128:.4f} ms/step "
                f"= {pts / (k128 * 1e-3):.4e} points/s; plain {p128:.4f} "
                f"ms/step = {pts / (p128 * 1e-3):.4e} points/s")
+        timings.setdefault(K.kernel_params(model).branch, {})[
+            "swmhd_multistep"] = dict(ms=k128, plain_ms=p128,
+                                      nbytes=32 * pts / 100, points=pts,
+                                      per="step", shape=(128, 128))
         errors[K.kernel_params(model).branch] = compare_main_size(
             K, label, build)
     for scenario, formulation, flags in CLI_RUNS[:4]:
@@ -2184,6 +2526,10 @@ def main():
     validation_phase(K, dev, smi)
     say(11, f"the script {time.perf_counter() - t_start:.1f} s so far")
 
+    # 12 ------------------------------------------------------------------
+    resident_phase(K, dev, smi)
+    say(12, f"the script {time.perf_counter() - t_start:.1f} s so far")
+
     if "jax" in sys.modules:
         fail("jax was imported")
     ops = {}              # (branch, per) -> operations per point
@@ -2208,7 +2554,8 @@ def main():
                                 errors[b][name == "swmhd_multistep"]),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, **design(K, b, t["shape"])})
+                "library_ms": None,
+                **design(K, b, t["shape"], name == "swmhd_multistep")})
             say("kernels", f"{kernels[-1]['name']} at {t['shape']}: "
                 + json.dumps({k: v for k, v in kernels[-1].items()
                               if k not in ("name", "route", "source",

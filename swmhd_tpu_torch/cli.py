@@ -14,8 +14,11 @@
                                           # "--": torchrun would read --nu
                                           # as its --numa-binding
 
-Under ``torchrun`` (``WORLD_SIZE`` > 1) the run is decomposed over the
-ranks: the process group's backend follows the device layout
+On one card the run steps through the resident kernel where the state
+fits the card's L2, else through one-substage launches, each chunk with
+the energy series replayed from CUDA graphs
+(:class:`~swmhd_tpu_torch.ops.substage.KernelStepper`). Under
+``torchrun`` (``WORLD_SIZE`` > 1) the run is decomposed over the ranks: the process group's backend follows the device layout
 (``parallel.multihost.initialize``), the mesh is the squarest
 factorisation of the world, or ``(world, 1)`` when y is bounded (as in
 the JAX package's CLI), and each substage runs the CUDA tile substage on
@@ -61,8 +64,10 @@ def _add_run_args(p):
                         "mp4 through ffmpeg or cv2, else .png frames)")
     p.add_argument("--fused", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="on CUDA, step through the hand-written substage "
-                        "kernel (default); --no-fused runs the plain "
+                   help="on CUDA, step through the hand-written kernels "
+                        "(default: the resident kernel where the state fits "
+                        "the card's L2, chunks with a series as CUDA "
+                        "graphs); --no-fused runs the plain "
                         "PyTorch step")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--nu", type=float, default=0.0,
@@ -91,6 +96,29 @@ def cmd_list(_args):
         sc = scenarios.get(name)
         print(f"{name:34s} N={sc.N:<5d} stop_time={sc.stop_time:<6g} "
               f"{sc.description}")
+
+
+ENERGY_NAMES = ("kinetic_energy", "magnetic_energy", "potential_energy",
+                "total_energy", "cross_helicity")
+
+
+def energies(model, state, h0):
+    """The run's energy series: the :data:`ENERGY_NAMES` of
+    :func:`~swmhd_tpu_torch.diagnostics.energy_report`, computed alone
+    from one evaluation of the velocities (the JAX CLI keeps the same five
+    of the report under ``jax.jit``, which never computes the rest)."""
+    from . import diagnostics
+    g = model.grid
+    gamma = model.A_background_gradient_y
+    u, v = model.velocities(state)
+    ke = diagnostics.kinetic_energy(u, v, state.h, g)
+    me = diagnostics.magnetic_energy(state.A, state.h, g, gamma)
+    pe = diagnostics.potential_energy(state.h, h0,
+                                      model.gravitational_acceleration, g)
+    return {"kinetic_energy": ke, "magnetic_energy": me,
+            "potential_energy": pe, "total_energy": ke + me + pe,
+            "cross_helicity": diagnostics.cross_helicity(
+                u, v, state.A, state.h, g, gamma)}
 
 
 def select_stepper(model, fused: bool = True, dd=None):
@@ -128,7 +156,7 @@ def _decomposition(model):
 
 
 def cmd_run(args):
-    from . import scenarios, diagnostics, checkpoint
+    from . import scenarios, checkpoint
     from . import operators as op
     from .simulation import (
         Simulation, IterationInterval, TimeInterval, Callback,
@@ -212,15 +240,11 @@ def cmd_run(args):
         schedule=TimeInterval(args.fields_interval),
         path=os.path.join(outdir, "fields"), decomposition=dd)
 
-    energy_names = ("kinetic_energy", "magnetic_energy",
-                    "potential_energy", "total_energy", "cross_helicity")
-
-    def energies(model, state):
-        rep = diagnostics.energy_report(model, state, h0)
-        return {name: rep[name] for name in energy_names}
+    def energy_series(model, state):
+        return energies(model, state, h0)
 
     sim.output_writers["energies"] = ScalarSeriesWriter(
-        fn=energies,
+        fn=energy_series,
         schedule=IterationInterval(args.energies_every),
         path=os.path.join(outdir, "energies.csv"))
 

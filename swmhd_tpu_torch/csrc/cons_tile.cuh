@@ -137,14 +137,18 @@ bool cons_opt(const Params<T>& p) {
          || p.tracer != kWeno5;
 }
 
-// s, g_prev, s_out, g_out as in Launch; p.nx, p.ny the padded extents.
-// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kTileY) of the
-// unpadded output.
+// One substage on tile (ti, tj) of the unpadded output, the points
+// [ti·tx, ti·tx + tx) × [tj·kTileY, tj·kTileY + kTileY): s, g_prev, s_out,
+// g_out as in Launch; p.nx, p.ny the padded extents. The body of both the
+// one-substage kernel (cons_substage) and the resident one
+// (cons_resident).
 template <typename T, Axis X, Axis Y, bool Opt>
-__global__ void __launch_bounds__(kTileThreads, kConsMinBlocks)
-cons_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
-              T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
-              int tx, T dt, T gk, T zk) {
+__device__ __forceinline__ void cons_substage_tile(const T* s,
+                                                   const T* g_prev,
+                                                   T* s_out, T* g_out,
+                                                   Params<T> p, int tx, T dt,
+                                                   T gk, T zk, int ti,
+                                                   int tj) {
   p = cons_options<Opt>(p);
   constexpr bool WX = X == Axis::kBounded, WY = Y == Axis::kBounded;
   constexpr int LO = kConsLo, TY = kTileY, BC = kConsBoxCols;
@@ -154,7 +158,7 @@ cons_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   const int plane = (tx + LO + kConsHi) * BC;
   T* const box = win + 4 * plane;
   const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  const int x0 = blockIdx.y * tx, y0 = blockIdx.x * TY;
+  const int x0 = ti * tx, y0 = tj * TY;
   const Map<X> M{p.hx + x0, p.nx};
   const Map<Y> N{p.hy + y0, p.ny};
   const int ex = min(tx, mx - x0), ey = min(TY, my - y0);
@@ -456,6 +460,42 @@ cons_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   }
 }
 
+// One substage; block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 /
+// kTileY) of the unpadded output.
+template <typename T, Axis X, Axis Y, bool Opt>
+__global__ void __launch_bounds__(kTileThreads, kConsMinBlocks)
+cons_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
+              T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
+              int tx, T dt, T gk, T zk) {
+  cons_substage_tile<T, X, Y, Opt>(s, g_prev, s_out, g_out, p, tx, dt, gk,
+                                   zk, blockIdx.y, blockIdx.x);
+}
+
+// Resident blocks an SM the resident kernel's registers are sized for: as
+// many as the one-substage kernel holds in float (3, its shared memory's
+// limit at 32×32 tiles, closures included). Left alone, the loop around
+// the inlined tile body keeps about 40 more registers live (96 against 48
+// a thread in the periodic float kernel) and the kernel falls to 2 blocks
+// an SM; held to 80, it runs 3.
+template <typename T>
+constexpr int kConsResidentMinBlocks = sizeof(T) == 4 ? 3 : kConsMinBlocks;
+
+// n_steps RK3 steps of a whole domain (no halo) in one cooperative launch
+// (tile.cuh resident_substages).
+template <typename T, Axis X, Axis Y, bool Opt>
+__global__ void __launch_bounds__(kTileThreads,
+                                  (kConsResidentMinBlocks<T>))
+cons_resident(const T* in, T* out, T* work, T* gbuf, Params<T> p, int tx,
+              T dt, int n_steps) {
+  resident_substages(in, out, work, gbuf, p, tx, n_steps,
+                     [&](const T* s, const T* g_prev, T* s_out, T* g_out,
+                         T gk, T zk, int ti, int tj) {
+                       cons_substage_tile<T, X, Y, Opt>(s, g_prev, s_out,
+                                                        g_out, p, tx, dt, gk,
+                                                        zk, ti, tj);
+                     });
+}
+
 // The kernel of a launch's axis modes, or null for a pair no launch takes
 // (a bounded axis is never exchanged).
 template <typename T, bool Opt>
@@ -509,6 +549,77 @@ int cons_tile_info(int mode_x, int mode_y, int opt, int tile_x, int* out) {
                                 &err);
   return k == nullptr ? static_cast<int>(err)
                       : tile_kernel_info(k, bytes, out);
+}
+
+// The resident kernel of a whole domain's axis modes, or null for an
+// exchanged axis (a tile of a decomposition takes one-substage launches).
+template <typename T, bool Opt>
+struct ConsResidentKernel {
+  using Fn =
+      decltype(&cons_resident<T, Axis::kPeriodic, Axis::kPeriodic, Opt>);
+  template <Axis X, Axis Y>
+  static Fn go() {
+    if constexpr (X == Axis::kExchanged || Y == Axis::kExchanged) {
+      return nullptr;
+    } else {
+      return &cons_resident<T, X, Y, Opt>;
+    }
+  }
+  static Fn none() { return nullptr; }
+};
+
+template <typename T, bool Opt>
+auto cons_resident_kernel(int mode_x, int mode_y) {
+  return on_axes<ConsResidentKernel<T, Opt>>(mode_x, mode_y);
+}
+
+// The resident kernel of (mode_x, mode_y, opt) ready for a launch with
+// tiles of tile_x rows (tile.cuh resident_ready), its blocks an SM in
+// *blocks; null, with the error in *err, as cons_ready, or for an
+// exchanged axis.
+template <typename T>
+const void* cons_resident_ready(int mode_x, int mode_y, bool opt,
+                                int tile_x, int* blocks, cudaError_t* err) {
+  static size_t allowed[2][9] = {};
+  static int cached[2][9][kConsMaxTileX + 1] = {};
+  const int m = mode_x * 3 + mode_y;
+  *err = cudaErrorInvalidValue;
+  if (m < 0 || m > 8 || tile_x < 1 || tile_x > kConsMaxTileX) return nullptr;
+  const void* k = opt ? reinterpret_cast<const void*>(
+                            cons_resident_kernel<T, true>(mode_x, mode_y))
+                      : reinterpret_cast<const void*>(
+                            cons_resident_kernel<T, false>(mode_x, mode_y));
+  if (k == nullptr) return nullptr;
+  *err = resident_ready(k, cons_smem_bytes(sizeof(T), tile_x),
+                        &allowed[opt][m], &cached[opt][m][tile_x], blocks);
+  return *err == cudaSuccess ? k : nullptr;
+}
+
+template <typename T>
+cudaError_t launch_cons_resident(const Resident<T>& a) {
+  int blocks = 0;
+  cudaError_t err;
+  const void* k = cons_resident_ready<T>(a.p.mode_x, a.p.mode_y,
+                                         cons_opt(a.p), a.tile_x, &blocks,
+                                         &err);
+  return k == nullptr ? err
+                      : launch_resident(k, a,
+                                        cons_smem_bytes(sizeof(T), a.tile_x),
+                                        blocks);
+}
+
+// tile_kernel_info of the resident kernel a launch with these arguments
+// takes, and out[3] its grid over `tiles` tiles on `sms` SMs.
+template <typename T>
+int cons_resident_info(int mode_x, int mode_y, int opt, int tile_x,
+                       int tiles, int sms, int* out) {
+  int blocks = 0;
+  cudaError_t err;
+  const void* k = cons_resident_ready<T>(mode_x, mode_y, opt != 0, tile_x,
+                                         &blocks, &err);
+  if (k == nullptr) return static_cast<int>(err);
+  out[3] = resident_grid(tiles, sms, blocks);
+  return tile_kernel_info(k, cons_smem_bytes(sizeof(T), tile_x), out);
 }
 
 }  // namespace swmhd

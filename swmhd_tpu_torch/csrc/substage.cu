@@ -7,8 +7,10 @@
 // vector_invariant.cu (float) and vector_invariant_f64.cu (double); the
 // conservative one (flux-form momentum, divergence-form Lorentz force) in
 // cons_tile.cuh, instantiated in conservative.cu and conservative_f64.cu;
-// shared pieces in tile.cuh (index maps, region loops, window loads,
-// launch) and substage.cuh (parameters, reconstructions).
+// each formulation's resident kernel (n steps in one launch) instantiated
+// in vi_resident.cu, cons_resident.cu and their _f64 twins; shared pieces
+// in tile.cuh (index maps, region loops, window loads,
+// launches) and substage.cuh (parameters, reconstructions).
 //
 // Replaces three Pallas TPU kernels:
 //   - build_fused_calls / fused_step_fn of swmhd_tpu/ops/fused_step.py
@@ -46,12 +48,20 @@
 // long as nvcc contracts multiplies and adds into fmas alike in both
 // instantiations; the card's tile tests check that.
 //
-// swmhd_multistep runs its substages as a loop of launches on the caller's
-// stream, with ping-pong buffers the caller allocates: this stands in for
-// the TPU kernel's on-chip residency, which does not fit an SM. A
-// persistent cooperative kernel, or a thread-block cluster holding a 128²
-// state in distributed shared memory, is later work to be measured
-// against this loop.
+// swmhd_multistep runs its 3·n substages in one cooperative launch of the
+// formulation's resident kernel (vi_resident, cons_resident: the same
+// tile body as the one-substage kernel, in vi_tile.cuh and cons_tile.cuh):
+// a grid of every block the card holds at once, at most one a tile, each
+// block walking its tiles with a stride of the grid, a grid barrier
+// between substages (tile.cuh resident_substages). The state is not held
+// on chip: it ping-pongs between two buffers the caller allocates, with G
+// in two more, 16 words a point, which at 128² (1 MB in f32, 2 MB in f64)
+// stay in the 50 MB L2 between substages, the counterpart of the TPU
+// kernel's VMEM residency; at 2048² they do not, and the kernel is a
+// persistent form of one launch a substage. It computes what 3·n
+// swmhd_substage launches compute, the same expressions in the same
+// order. A grid the card refuses returns its error; there is no loop of
+// launches to fall back on.
 //
 // With a halo, swmhd_substage runs the same kernel on a tile padded by
 // (hx, hy) cells, each padded axis in the exchanged mode (substage.cuh):
@@ -62,7 +72,7 @@
 // conservative) works; the decomposition pads by the model's
 // exchange_halo, 6 (7 with a biharmonic closure).
 //
-// Each entry point returns cudaGetLastError() after its launches.
+// Each entry point returns the error of its launch.
 
 #include "substage.cuh"
 
@@ -89,33 +99,10 @@ cudaError_t launch_substage(const Launch<T>& a, int conservative) {
                       : launch_vector_invariant<T>(a);
 }
 
-// Le–Moin coefficients (γ_k, ζ_k).
-constexpr double kRkGamma[3] = {8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0};
-constexpr double kRkZeta[3] = {0.0, -17.0 / 60.0, -5.0 / 12.0};
-
-// n_steps RK3 steps: substage m reads the previous substage's output (the
-// input state for m = 0) and writes `out` or `work`, alternating so that
-// the last substage lands in `out`; `in` is never written. G of stage 0
-// goes to gbuf[0], G of stage 1 to gbuf[1].
 template <typename T>
-cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf,
-                             const Params<T>& p, int conservative, double dt,
-                             int n_steps, int tile_x, cudaStream_t stream) {
-  const size_t n4 = 4 * static_cast<size_t>(p.nx) * p.ny;
-  const int total = 3 * n_steps;
-  const T* src = in;
-  for (int m = 0; m < total; ++m) {
-    const int stage = m % 3;
-    T* dst = ((total - 1 - m) % 2 == 0) ? out : work;
-    const Launch<T> a{src, stage == 0 ? nullptr : gbuf + (stage - 1) * n4,
-                      dst, stage == 2 ? nullptr : gbuf + stage * n4, p,
-                      T(dt), T(kRkGamma[stage]), T(kRkZeta[stage]), tile_x,
-                      stream};
-    const cudaError_t err = launch_substage<T>(a, conservative);
-    if (err != cudaSuccess) return err;
-    src = dst;
-  }
-  return cudaSuccess;
+cudaError_t launch_resident_steps(const Resident<T>& a, int conservative) {
+  return conservative ? launch_cons_resident<T>(a)
+                      : launch_vi_resident<T>(a);
 }
 
 }  // namespace
@@ -123,11 +110,15 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf,
 
 // closure, momentum, mass, tracer, stencil: the Closure, Scheme and
 // Stencil ids of substage.cuh; tile_x: the rows of the kernel's tiles
-// (ops/substage.py tile_shape); nu, kappa: the closure's diffusivities.
+// (ops/substage.py tile_shape); nu, kappa: the closure's diffusivities;
+// sms: the card's SMs (the resident grid).
 // swmhd_tile_info: shared memory bytes a block, registers a thread and
 // resident blocks an SM (tile.cuh tile_kernel_info) into out[0..2] for
 // the kernel a launch of these arguments takes (opt: a model off the
-// default's options; biharmonic: its closure).
+// default's options; biharmonic: its closure); swmhd_resident_info the
+// same for the resident kernel, with out[3] its grid over `tiles` tiles,
+// and readies the kernel (shared memory limit, blocks an SM) so that a
+// later launch, in a stream capture too, makes no runtime query.
 #define SWMHD_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int swmhd_substage_##SUFFIX(                                    \
       const T* s_in, const T* g_prev, T* s_out, T* g_out, int nx, int ny,    \
@@ -149,14 +140,24 @@ cudaError_t launch_multistep(const T* in, T* out, T* work, T* gbuf,
       int conservative, int wall_x, int wall_y, int closure, int momentum,   \
       int mass, int tracer, int stencil, int tile_x, double dx, double dy,   \
       double g, double f, double gam_bg, double nu, double kappa, double dt, \
-      int n_steps, void* stream) {                                           \
-    return static_cast<int>(swmhd::launch_multistep<T>(                      \
+      int n_steps, int sms, void* stream) {                                  \
+    const swmhd::Resident<T> a{                                              \
         s_in, s_out, work, gbuf,                                             \
         swmhd::make_params<T>(nx, ny, 0, 0, wall_x, wall_y, closure,         \
                               momentum, mass, tracer, stencil, dx, dy, g, f, \
                               gam_bg, nu, kappa),                            \
-        conservative, dt, n_steps, tile_x,                                   \
-        static_cast<cudaStream_t>(stream)));                                 \
+        T(dt), n_steps, tile_x, sms, static_cast<cudaStream_t>(stream)};     \
+    return static_cast<int>(                                                 \
+        swmhd::launch_resident_steps<T>(a, conservative));                   \
+  }                                                                          \
+  extern "C" int swmhd_resident_info_##SUFFIX(                               \
+      int conservative, int mode_x, int mode_y, int opt, int tile_x,         \
+      int biharmonic, int tiles, int sms, int* out) {                        \
+    return conservative                                                      \
+               ? swmhd::cons_resident_info<T>(mode_x, mode_y, opt, tile_x,   \
+                                              tiles, sms, out)               \
+               : swmhd::vi_resident_info<T>(mode_x, mode_y, opt, tile_x,     \
+                                            biharmonic, tiles, sms, out);    \
   }                                                                          \
   extern "C" int swmhd_tile_info_##SUFFIX(int conservative, int mode_x,      \
                                           int mode_y, int opt, int tile_x,   \

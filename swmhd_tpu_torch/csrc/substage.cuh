@@ -68,9 +68,30 @@ struct Launch {
   cudaStream_t stream;
 };
 
-// Each formulation's translation units define its launcher and its
-// kernel's tile_kernel_info (tile.cuh) for float and double; a launcher
-// returns cudaGetLastError() after its launch.
+// n_steps RK3 steps of a whole domain (no halo) in one launch of the
+// resident kernel: input state (never written), output state, a state's
+// worth of work space and two of G, the step, the rows of the kernel's
+// tiles and the card's SMs (the grid: tile.cuh resident_grid).
+template <typename T>
+struct Resident {
+  const T* s_in;
+  T* s_out;
+  T* work;
+  T* gbuf;
+  Params<T> p;
+  T dt;
+  int n_steps;
+  int tile_x;
+  int sms;
+  cudaStream_t stream;
+};
+
+// Each formulation's translation units define its launchers and its
+// kernels' tile_kernel_info (tile.cuh) for float and double: the
+// one-substage kernel in vector_invariant.cu, conservative.cu (and their
+// _f64 twins), the resident kernel in vi_resident.cu, cons_resident.cu
+// (and theirs); a launcher returns the launch's error. A resident info
+// adds out[3], the grid of a launch over `tiles` tiles on `sms` SMs.
 template <typename T>
 cudaError_t launch_vector_invariant(const Launch<T>& a);
 template <typename T>
@@ -80,6 +101,16 @@ int vi_tile_info(int mode_x, int mode_y, int opt, int tile_x,
                  int biharmonic, int* out);
 template <typename T>
 int cons_tile_info(int mode_x, int mode_y, int opt, int tile_x, int* out);
+template <typename T>
+cudaError_t launch_vi_resident(const Resident<T>& a);
+template <typename T>
+cudaError_t launch_cons_resident(const Resident<T>& a);
+template <typename T>
+int vi_resident_info(int mode_x, int mode_y, int opt, int tile_x,
+                     int biharmonic, int tiles, int sms, int* out);
+template <typename T>
+int cons_resident_info(int mode_x, int mode_y, int opt, int tile_x,
+                       int tiles, int sms, int* out);
 
 // R::go<X, Y>(args...) for a launch's pair of axis modes: each periodic /
 // bounded pair on a whole domain, and on a tile an exchanged x with a

@@ -3,11 +3,13 @@
 // substage kernels, vi_tile.cuh (vector-invariant) and cons_tile.cuh
 // (conservative): a block's shape, the index map of a
 // tile's axis, the region loops, the load of the state windows, the
-// Laplacian in box coordinates, and the launch of a substage kernel with
-// its dynamic shared memory.
+// Laplacian in box coordinates, the launch of a substage kernel with
+// its dynamic shared memory, and the loop and the cooperative launch of
+// the resident kernels (3·n substages in one launch).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -170,6 +172,109 @@ cudaError_t launch_tiles(const void* k, const Launch<T>& a, size_t bytes) {
                   &pp, &tile_x, &dt, &gk, &zk};
   return cudaLaunchKernel(k, grid, dim3(kTileThreads), args, bytes,
                           a.stream);
+}
+
+// Le–Moin coefficients (γ_k, ζ_k) of substage k.
+template <typename T>
+__device__ __forceinline__ T rk_gamma(int k) {
+  return k == 0 ? T(8.0 / 15.0) : (k == 1 ? T(5.0 / 12.0) : T(3.0 / 4.0));
+}
+template <typename T>
+__device__ __forceinline__ T rk_zeta(int k) {
+  return k == 0 ? T(0.0) : (k == 1 ? T(-17.0 / 60.0) : T(-5.0 / 12.0));
+}
+
+// The body of a resident kernel: n_steps RK3 steps of a whole domain (no
+// halo), 3·n_steps substages, each calling body(s, g_prev, s_out, g_out,
+// γ_k, ζ_k, ti, tj) on every tile (ti, tj) of the output, the block
+// walking the tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... (row-major
+// over the (tile rows, tile columns) of the one-substage launch), with a
+// grid barrier between substages. Buffers as the loop of one-substage
+// launches kept them: substage m reads the previous substage's output (in
+// for m = 0) and writes out or work, alternating so that the last lands
+// in out; in is never written; G of stage 0 goes to gbuf[0], G of stage 1
+// to gbuf[1]. The grid must fit the card at once (launch_resident).
+template <typename T, typename Body>
+__device__ __forceinline__ void resident_substages(const T* in, T* out,
+                                                   T* work, T* gbuf,
+                                                   const Params<T>& p,
+                                                   int tx, int n_steps,
+                                                   const Body& body) {
+  const int tiles_y = (p.ny + kTileY - 1) / kTileY;
+  const int tiles = (p.nx + tx - 1) / tx * tiles_y;
+  const size_t n4 = 4 * static_cast<size_t>(p.nx) * p.ny;
+  const int total = 3 * n_steps;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const T* src = in;
+#pragma unroll 1
+  for (int m = 0; m < total; ++m) {
+    const int stage = m % 3;
+    T* const dst = (total - 1 - m) % 2 == 0 ? out : work;
+    const T* const g_prev = stage == 0 ? nullptr : gbuf + (stage - 1) * n4;
+    T* const g_out = stage == 2 ? nullptr : gbuf + stage * n4;
+#pragma unroll 1
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      body(src, g_prev, dst, g_out, rk_gamma<T>(stage), rk_zeta<T>(stage),
+           t / tiles_y, t % tiles_y);
+      // the next tile's windows overwrite what this tile's update read
+      __syncthreads();
+    }
+    // every tile of substage m is written before any block reads it
+    if (m + 1 < total) grid.sync();
+    src = dst;
+  }
+}
+
+// The grid of a resident launch over `tiles` tiles: every block resident
+// at once (blocks_per_sm on each of sms SMs), and no more than the tiles.
+inline int resident_grid(int tiles, int sms, int blocks_per_sm) {
+  return tiles < sms * blocks_per_sm ? tiles : sms * blocks_per_sm;
+}
+
+// Kernel k of a resident launch ready for `bytes` of shared memory
+// (raise_smem_limit into *allowed), with its resident blocks an SM in
+// *blocks: asked of the runtime once for each (kernel, bytes) and kept in
+// *cached, so that a launch inside a stream capture makes no query.
+// cudaErrorCooperativeLaunchTooLarge where no block fits an SM.
+inline cudaError_t resident_ready(const void* k, size_t bytes,
+                                  size_t* allowed, int* cached,
+                                  int* blocks) {
+  cudaError_t err = raise_smem_limit(k, bytes, allowed);
+  if (err != cudaSuccess) return err;
+  if (*cached == 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kTileThreads,
+                                                        bytes);
+    if (err != cudaSuccess) return err;
+    *cached = n;
+  }
+  *blocks = *cached;
+  return *blocks > 0 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
+}
+
+// Launches resident kernel k, ready for `bytes` (resident_ready), as one
+// cooperative launch of resident_grid(tiles, a.sms, blocks_per_sm) blocks
+// on a.stream. A grid the card refuses returns its error
+// (cudaErrorCooperativeLaunchTooLarge); nothing falls back to a loop.
+template <typename T>
+cudaError_t launch_resident(const void* k, const Resident<T>& a,
+                            size_t bytes, int blocks_per_sm) {
+  const Params<T>& p = a.p;
+  const int tx = a.tile_x;
+  if (p.hx || p.hy || p.nx < 1 || p.ny < 1 || tx < 1 || a.n_steps < 1
+      || a.sms < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int tiles = (p.nx + tx - 1) / tx * ((p.ny + kTileY - 1) / kTileY);
+  const dim3 grid(resident_grid(tiles, a.sms, blocks_per_sm));
+  Params<T> pp = p;
+  int tile_x = tx, n_steps = a.n_steps;
+  T dt = a.dt;
+  void* args[] = {const_cast<T**>(&a.s_in), const_cast<T**>(&a.s_out),
+                  const_cast<T**>(&a.work), const_cast<T**>(&a.gbuf),
+                  &pp, &tile_x, &dt, &n_steps};
+  return cudaLaunchCooperativeKernel(k, grid, dim3(kTileThreads), args,
+                                     bytes, a.stream);
 }
 
 // out[0] shared memory bytes a block, out[1] registers a thread, out[2]

@@ -453,21 +453,22 @@ __device__ __forceinline__ void vi_momentum(const C& tile, const E& epi) {
   });
 }
 
-// s, g_prev, s_out, g_out as in Launch; p.nx, p.ny the padded extents.
-// Block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 / kTileY) of the
-// unpadded output.
+// One substage on tile (ti, tj) of the unpadded output, the points
+// [ti·tx, ti·tx + tx) × [tj·kTileY, tj·kTileY + kTileY): s, g_prev, s_out,
+// g_out as in Launch; p.nx, p.ny the padded extents. The body of both the
+// one-substage kernel (vi_substage) and the resident one (vi_resident).
 template <typename T, Axis X, Axis Y, bool Opt>
-__global__ void __launch_bounds__(kTileThreads, kViMinBlocks)
-vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
-            T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
-            int tx, T dt, T gk, T zk) {
+__device__ __forceinline__ void vi_substage_tile(const T* s, const T* g_prev,
+                                                 T* s_out, T* g_out,
+                                                 Params<T> p, int tx, T dt,
+                                                 T gk, T zk, int ti, int tj) {
   p = vi_options<Opt>(p);
   constexpr int R = kViRadius, TY = kTileY, BC = kViBoxCols;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const win = reinterpret_cast<T*>(smem);
   const int plane = (tx + 2 * R) * BC;
   const int mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
-  const int x0 = blockIdx.y * tx, y0 = blockIdx.x * TY;
+  const int x0 = ti * tx, y0 = tj * TY;
   const Map<X> M{p.hx + x0, p.nx};
   const Map<Y> N{p.hy + y0, p.ny};
 
@@ -494,6 +495,44 @@ vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
   vi_momentum(tile, update);
 }
 
+// One substage; block (blockIdx.y, blockIdx.x) is tile (x0 / tx, y0 /
+// kTileY) of the unpadded output.
+template <typename T, Axis X, Axis Y, bool Opt>
+__global__ void __launch_bounds__(kTileThreads, kViMinBlocks)
+vi_substage(const T* __restrict__ s, const T* __restrict__ g_prev,
+            T* __restrict__ s_out, T* __restrict__ g_out, Params<T> p,
+            int tx, T dt, T gk, T zk) {
+  vi_substage_tile<T, X, Y, Opt>(s, g_prev, s_out, g_out, p, tx, dt, gk, zk,
+                                 blockIdx.y, blockIdx.x);
+}
+
+// Resident blocks an SM the resident kernel's registers are sized for: as
+// many as the one-substage kernel of the default model holds in float (3,
+// its shared memory's limit at 32×32 tiles). Left alone, the loop around
+// the inlined tile body keeps about 40 more registers live (99 against 56
+// a thread in the periodic float kernel) and the kernel falls to 2 blocks
+// an SM; held to 80, it runs 3. The other models' one-substage kernels
+// take up to 96 registers and run 2, as a biharmonic closure's shared
+// memory allows no more.
+template <typename T, bool Opt>
+constexpr int kViResidentMinBlocks =
+    sizeof(T) == 4 && !Opt ? 3 : kViMinBlocks;
+
+// n_steps RK3 steps of a whole domain (no halo) in one cooperative launch
+// (tile.cuh resident_substages).
+template <typename T, Axis X, Axis Y, bool Opt>
+__global__ void __launch_bounds__(kTileThreads,
+                                  (kViResidentMinBlocks<T, Opt>))
+vi_resident(const T* in, T* out, T* work, T* gbuf, Params<T> p, int tx,
+            T dt, int n_steps) {
+  resident_substages(in, out, work, gbuf, p, tx, n_steps,
+                     [&](const T* s, const T* g_prev, T* s_out, T* g_out,
+                         T gk, T zk, int ti, int tj) {
+                       vi_substage_tile<T, X, Y, Opt>(s, g_prev, s_out,
+                                                      g_out, p, tx, dt, gk,
+                                                      zk, ti, tj);
+                     });
+}
 
 // The kernel of a launch's axis modes, or null for a pair no launch takes
 // (a bounded axis is never exchanged).
@@ -558,6 +597,82 @@ int vi_tile_info(int mode_x, int mode_y, int opt, int tile_x,
   const void* k = vi_ready<T>(mode_x, mode_y, opt != 0, tile_x, bytes, &err);
   return k == nullptr ? static_cast<int>(err)
                       : tile_kernel_info(k, bytes, out);
+}
+
+// The resident kernel of a whole domain's axis modes, or null for an
+// exchanged axis (a tile of a decomposition takes one-substage launches).
+template <typename T, bool Opt>
+struct ViResidentKernel {
+  using Fn = decltype(&vi_resident<T, Axis::kPeriodic, Axis::kPeriodic, Opt>);
+  template <Axis X, Axis Y>
+  static Fn go() {
+    if constexpr (X == Axis::kExchanged || Y == Axis::kExchanged) {
+      return nullptr;
+    } else {
+      return &vi_resident<T, X, Y, Opt>;
+    }
+  }
+  static Fn none() { return nullptr; }
+};
+
+template <typename T, bool Opt>
+auto vi_resident_kernel(int mode_x, int mode_y) {
+  return on_axes<ViResidentKernel<T, Opt>>(mode_x, mode_y);
+}
+
+// The resident kernel of (mode_x, mode_y, opt) ready for a launch with
+// tiles of tile_x rows (tile.cuh resident_ready), its blocks an SM in
+// *blocks; null, with the error in *err, as vi_ready, or for an exchanged
+// axis.
+template <typename T>
+const void* vi_resident_ready(int mode_x, int mode_y, bool opt, int tile_x,
+                              bool biharmonic, int* blocks,
+                              cudaError_t* err) {
+  static size_t allowed[2][9] = {};
+  static int cached[2][9][2][kViMaxTileX + 1] = {};
+  const int m = mode_x * 3 + mode_y;
+  *err = cudaErrorInvalidValue;
+  if (m < 0 || m > 8 || tile_x < 1 || tile_x > kViMaxTileX) return nullptr;
+  const void* k = opt ? reinterpret_cast<const void*>(
+                            vi_resident_kernel<T, true>(mode_x, mode_y))
+                      : reinterpret_cast<const void*>(
+                            vi_resident_kernel<T, false>(mode_x, mode_y));
+  if (k == nullptr) return nullptr;
+  *err = resident_ready(k, vi_smem_bytes(sizeof(T), tile_x, biharmonic),
+                        &allowed[opt][m], &cached[opt][m][biharmonic][tile_x],
+                        blocks);
+  return *err == cudaSuccess ? k : nullptr;
+}
+
+template <typename T>
+cudaError_t launch_vi_resident(const Resident<T>& a) {
+  const Params<T>& p = a.p;
+  const bool opt = vi_opt(p);
+  const bool biharmonic = opt && p.closure == kBiharmonic;
+  int blocks = 0;
+  cudaError_t err;
+  const void* k = vi_resident_ready<T>(p.mode_x, p.mode_y, opt, a.tile_x,
+                                       biharmonic, &blocks, &err);
+  return k == nullptr ? err
+                      : launch_resident(k, a,
+                                        vi_smem_bytes(sizeof(T), a.tile_x,
+                                                      biharmonic),
+                                        blocks);
+}
+
+// tile_kernel_info of the resident kernel a launch with these arguments
+// takes, and out[3] its grid over `tiles` tiles on `sms` SMs.
+template <typename T>
+int vi_resident_info(int mode_x, int mode_y, int opt, int tile_x,
+                     int biharmonic, int tiles, int sms, int* out) {
+  int blocks = 0;
+  cudaError_t err;
+  const void* k = vi_resident_ready<T>(mode_x, mode_y, opt != 0, tile_x,
+                                       biharmonic != 0, &blocks, &err);
+  if (k == nullptr) return static_cast<int>(err);
+  out[3] = resident_grid(tiles, sms, blocks);
+  return tile_kernel_info(
+      k, vi_smem_bytes(sizeof(T), tile_x, biharmonic != 0), out);
 }
 
 }  // namespace swmhd

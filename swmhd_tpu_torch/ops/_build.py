@@ -36,11 +36,16 @@ _SIGNATURES = {
     "swmhd_substage": ([_P] * 4 + [_I] * 13 + [_D] * 10 + [_P], BOTH),
     # s_in, s_out, work, gbuf, nx, ny, conservative, wall_x, wall_y,
     # closure, momentum, mass, tracer, stencil, tile_x, dx, dy, g, f,
-    # A_bg_grad_y, nu, kappa, dt, n_steps, stream
-    "swmhd_multistep": ([_P] * 4 + [_I] * 11 + [_D] * 8 + [_I, _P], BOTH),
+    # A_bg_grad_y, nu, kappa, dt, n_steps, sms, stream: the resident kernel
+    "swmhd_multistep": ([_P] * 4 + [_I] * 11 + [_D] * 8 + [_I, _I, _P],
+                        BOTH),
     # conservative, mode_x, mode_y, opt, tile_x, biharmonic, out: the tile
     # kernel's shared memory a block, registers, blocks an SM
     "swmhd_tile_info": ([_I] * 6 + [_P], BOTH),
+    # conservative, mode_x, mode_y, opt, tile_x, biharmonic, tiles, sms,
+    # out: the resident kernel's shared memory a block, registers, blocks
+    # an SM and grid
+    "swmhd_resident_info": ([_I] * 8 + [_P], BOTH),
     # (tile.cu) the card's opt-in shared memory per block
     "swmhd_smem_limit": ([], ()),
     # x_padded, out, nx, ny, tx, ty, hx, hy, async, branch, p, box_rows,

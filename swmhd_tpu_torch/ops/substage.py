@@ -5,7 +5,7 @@ plain PyTorch versions, and the :class:`KernelStepper` that drives a
 Counterparts of the Pallas kernels of ``swmhd_tpu/ops/fused_step.py``:
 :func:`substage` of the windowed substage (``fused_step_fn``) and
 :func:`multistep` of the resident multi-step kernel
-(``resident_step_fn``). :func:`substage` with a ``halo`` is also the
+(``resident_step_fn``), one cooperative launch for 3·n substages. :func:`substage` with a ``halo`` is also the
 counterpart of the sharded substage of
 ``swmhd_tpu/parallel/decomposition.py`` (``fused_step_fn``): the same
 substage on a tile padded with a halo exchanged from its neighbours, its
@@ -32,13 +32,27 @@ formulation's Lorentz forcing, a grid under 8 points) raises
 ``<wrapper>.launches`` and, by :class:`Branch` (the templated axis modes
 :data:`PERIODIC_AXIS`, :data:`BOUNDED_AXIS` and :data:`EXCHANGED_AXIS`
 and the runtime switches; :func:`branch_label` names it), in
-``<wrapper>.launches_by_branch``; each plain version counts its calls in
-``<function>.calls``, so a run can show which path it took.
+``<wrapper>.launches_by_branch``; :func:`multistep` also counts the
+substages its launches hold in ``multistep.substages`` and
+``multistep.substages_by_branch``; each plain version counts its calls in
+``<function>.calls``, so a run can show which path it took. A launch
+captured into a CUDA graph counts once each time the graph is replayed
+(:class:`GraphChunk`).
+
+:class:`KernelStepper` picks the route as the JAX CLI does: the resident
+kernel where its working set fits on chip (here the card's L2,
+:func:`takes_resident`), else 3·n one-substage launches
+(:func:`windowed_steps`). It drives a chunk without a series as one call
+of that route and, on the card, a chunk with a per-step series as
+replays of CUDA graphs, each holding up to :data:`GRAPH_STEPS` steps of
+the route's launches and the series (:class:`GraphChunk`), the
+counterpart of the JAX package's chunk compiled once by ``jax.jit``.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -306,6 +320,29 @@ def card_limits(index):
     return limit, sms
 
 
+# words a point the resident kernel keeps live between substages: the two
+# ping-pong states and the two G buffers, four fields each
+RESIDENT_WORDS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(index):
+    """The L2 cache of CUDA card ``index`` in bytes."""
+    return torch.cuda.get_device_properties(index).L2_cache_size
+
+
+def takes_resident(model, s):
+    """Whether :class:`KernelStepper` steps the stacked CUDA fields ``s``
+    through the resident kernel: where its working set
+    (:data:`RESIDENT_WORDS` a point) fits the card's L2, as the JAX CLI
+    takes ``resident_step_fn`` where the state fits VMEM. Above it a grid
+    barrier buys nothing over a kernel boundary, and the one-substage
+    kernel, with fewer registers, is faster (PERF.md §6)."""
+    g = model.grid
+    return (RESIDENT_WORDS * s.element_size() * g.Nx * g.Ny
+            <= l2_bytes(s.device.index))
+
+
 def _tile_x(model, nx, ny, s):
     """The rows of the kernel's tiles on an unpadded ``nx × ny`` output of
     the stacked fields ``s`` (a CUDA tensor), by :func:`tile_shape` on its
@@ -330,6 +367,42 @@ def tile_info(dtype, branch, tile_x):
         int(biharmonic), ctypes.addressof(out))
     _raise_on(err, "swmhd_tile_info")
     return tuple(out)
+
+
+def resident_info(dtype, branch, tile_x, tiles, sms):
+    """``(shared memory bytes a block, registers a thread, resident blocks
+    an SM, grid)`` of the resident kernel that a :func:`multistep` launch
+    of :class:`Branch` ``branch`` with tiles of ``tile_x`` rows over
+    ``tiles`` tiles on a card of ``sms`` SMs takes, from the CUDA runtime;
+    the call also readies the kernel (its shared memory limit and blocks
+    an SM), so that a later launch makes no runtime query."""
+    b = Branch(*branch)
+    biharmonic = CLOSURES[b.closure] is BiharmonicDiffusion
+    out = (ctypes.c_int * 4)()
+    err = _lib_fn("swmhd_resident_info", dtype)(
+        b.conservative, b.mode_x, b.mode_y, int(any(b[3:])), int(tile_x),
+        int(biharmonic), int(tiles), int(sms), ctypes.addressof(out))
+    _raise_on(err, "swmhd_resident_info")
+    return tuple(out)
+
+
+def resident_tiles(nx, ny, tile_x):
+    """The tiles of a :func:`multistep` launch on an ``nx × ny`` grid."""
+    return math.ceil(nx / tile_x) * math.ceil(ny / TILE_Y)
+
+
+def ready(model, s):
+    """Ready :func:`multistep`'s launch on the stacked CUDA fields ``s``:
+    the library, the card's limits and the resident kernel (its shared
+    memory limit and blocks an SM), so that a launch inside a stream
+    capture runs no lookup and no runtime query; returns
+    :func:`resident_info` of that launch."""
+    g = model.grid
+    tile_x = _tile_x(model, g.Nx, g.Ny, s)
+    _lib_fn("swmhd_multistep", s.dtype)
+    return resident_info(s.dtype, kernel_params(model).branch, tile_x,
+                         resident_tiles(g.Nx, g.Ny, tile_x),
+                         card_limits(s.device.index)[1])
 
 
 def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
@@ -389,7 +462,9 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
 
 
 def multistep(model, s, dt, n_steps):
-    """``n_steps`` RK3 steps on stacked fields ``s`` (left unchanged)."""
+    """``n_steps`` RK3 steps on stacked fields ``s`` (left unchanged): on
+    a CUDA tensor one launch of the resident kernel, holding 3·n_steps
+    substages; a grid the card refuses raises ``RuntimeError``."""
     if s.device.type == "cpu":
         return multistep_reference(model, s, dt, n_steps)
     params = kernel_params(model)
@@ -407,22 +482,64 @@ def multistep(model, s, dt, n_steps):
     stream = torch.cuda.current_stream(s.device).cuda_stream
     err = fn(_ptr(s), _ptr(out), _ptr(work), _ptr(gbuf), g.Nx, g.Ny,
              *params[:8], _tile_x(model, g.Nx, g.Ny, s), *params[8:],
-             float(dt), int(n_steps), stream)
+             float(dt), int(n_steps), card_limits(s.device.index)[1],
+             stream)
     multistep.launches += 1
     multistep.launches_by_branch[params.branch] += 1
+    multistep.substages += 3 * n_steps
+    multistep.substages_by_branch[params.branch] += 3 * n_steps
     _raise_on(err, "swmhd_multistep")
     return out
 
 
+def windowed_steps(model, s, dt, n_steps):
+    """``n_steps`` RK3 steps on stacked fields ``s`` as 3·n_steps
+    :func:`substage` calls, G passed on as the resident kernel keeps it
+    (the counterpart of ``fused_step_fn``'s chunk)."""
+    for _ in range(n_steps):
+        g = None
+        for stage in range(3):
+            s, g = substage(model, s, dt, stage, g, write_G=stage < 2)
+    return s
+
+
+# each wrapper's counters
+_COUNTERS = {substage: ("launches", "launches_by_branch"),
+             multistep: ("launches", "launches_by_branch", "substages",
+                         "substages_by_branch")}
+
+
 def reset_counters():
-    for f in (substage, multistep):
-        f.launches = 0
-        f.launches_by_branch = collections.Counter()
+    for f, attrs in _COUNTERS.items():
+        for attr in attrs:
+            setattr(f, attr, collections.Counter()
+                    if attr.endswith("_by_branch") else 0)
     for f in (substage_reference, multistep_reference):
         f.calls = 0
 
 
 reset_counters()
+
+
+def _counts():
+    """A copy of every wrapper counter."""
+    return {(f, attr): copy.copy(getattr(f, attr))
+            for f, attrs in _COUNTERS.items() for attr in attrs}
+
+
+def _take_counts(before):
+    """What the wrappers counted since ``before`` (:func:`_counts`); the
+    counters go back to ``before``."""
+    delta = {}
+    for (f, attr), was in before.items():
+        delta[(f, attr)] = getattr(f, attr) - was
+        setattr(f, attr, was)
+    return delta
+
+
+def _add_counts(delta):
+    for (f, attr), d in delta.items():
+        setattr(f, attr, getattr(f, attr) + d)
 
 
 # -- the stepper -------------------------------------------------------------------
@@ -436,32 +553,193 @@ def unstack(s: torch.Tensor, clock: Clock) -> State:
     return State(h=h, u=u, v=v, A=A, clock=clock)
 
 
+class ClockRead(RuntimeError):
+    """A series function read the clock of a chunk captured as a CUDA
+    graph."""
+
+
+class _NoClock:
+    """The clock a series function sees in a :class:`GraphChunk`: a
+    captured graph replays no Python value, so reading the time or the
+    iteration raises :class:`ClockRead` (under ``jax.jit`` they would be
+    traced values)."""
+
+    def __getattr__(self, name):
+        raise ClockRead(
+            f"a series function read state.clock.{name} in a chunk captured "
+            f"as a CUDA graph, where the clock is no device value")
+
+
+_NO_CLOCK = _NoClock()
+GRAPH_STEPS = 100   # the most steps one captured graph holds
+
+
+def chunk_plan(n_steps, k):
+    """``[(offset, steps)]`` of a chunk of ``n_steps``: ⌊n/k⌋ replays of
+    the ``k``-step graph, then one of the remainder's."""
+    reps, rem = divmod(n_steps, k)
+    return [(i * k, k) for i in range(reps)] + ([(reps * k, rem)] if rem
+                                                  else [])
+
+
+class GraphChunk:
+    """``state -> (state, {name: (n_steps,) tensor})``: ``n_steps`` RK3
+    steps of :class:`KernelStepper` ``stepper`` on the card with the series
+    ``diagnostics`` after each, as
+    :func:`~swmhd_tpu_torch.models.shallow_water.run_steps` gives them,
+    run as replays of CUDA graphs (:meth:`KernelStepper.step_fn` on the
+    card).
+
+    A graph of j steps holds, for each step, the stepper's launches of one
+    step (:meth:`KernelStepper.advance`: one resident launch, or three
+    one-substage launches) and the series, whose values go to row j of a
+    static buffer. A chunk replays the k-step graph ⌊n/k⌋ times and a graph
+    of the remainder (:func:`chunk_plan`, k = min(n, ``k``)), copying each
+    replay's rows into the chunk's series on the device: no host copy and
+    no host sync; the caller's one device→host copy of the series is the
+    chunk's only one. The graphs are captured at the first call, after one
+    eager call of the series and the readying of the stepper's kernel
+    (:func:`ready`, :func:`tile_info`), and live as long as this object
+    (``Simulation`` keeps one a chunk length until Δt changes). The state
+    enters through a static buffer; the state returned is a clone, which a
+    later replay leaves alone. Tensors the series closes over must keep
+    their addresses. A series that syncs with the host (``.item()``, a
+    Python branch on a tensor) or reads the clock raises ``RuntimeError``
+    at capture, naming it. Each replay counts the launches its graph
+    holds. CUDA tensors only: a CPU state raises ``ValueError``."""
+
+    def __init__(self, stepper, dt, n_steps, diagnostics, k=GRAPH_STEPS):
+        self.stepper, self.dt, self.n_steps = stepper, dt, n_steps
+        self.diagnostics = diagnostics
+        self.plan = chunk_plan(n_steps, min(n_steps, k))
+        self.graphs = {}        # steps -> (replay, rows)
+        self.s = self.names = self.pool = None
+        self.failed = None
+
+    def _steps(self, j, rows):
+        """j steps from ``self.s``: column i of ``rows`` takes the series
+        after step i, ``self.s`` the state after the last."""
+        s = self.s
+        for i in range(j):
+            s = self.stepper.advance(s, self.dt, 1)
+            try:
+                vals = self.diagnostics(unstack(s, _NO_CLOCK))
+            except Exception as e:
+                self.failed = e
+                raise
+            if self.names:
+                rows[:, i].copy_(torch.stack([vals[n] for n in self.names]))
+        self.s.copy_(s)
+
+    def _warm(self, state):
+        s = stack(state)
+        if not s.is_cuda:
+            raise ValueError("a GraphChunk captures CUDA graphs: the state "
+                             "must lie on a CUDA card")
+        model = self.stepper.model
+        if takes_resident(model, s):
+            ready(model, s)
+        else:
+            tile_info(s.dtype, kernel_params(model).branch,
+                      _tile_x(model, model.grid.Nx, model.grid.Ny, s))
+        self.pool = torch.cuda.graph_pool_handle()
+        try:
+            vals = self.diagnostics(unstack(s, _NO_CLOCK))
+        except ClockRead as e:
+            raise self._refusal(e) from e
+        self.names = list(vals)
+        self.row_dtype = (torch.stack([vals[n] for n in self.names]).dtype
+                          if self.names else s.dtype)
+        self.s = torch.empty_like(s)
+
+    def _refusal(self, err):
+        """The error of a series that cannot be captured, naming it."""
+        name = getattr(self.diagnostics, "__qualname__",
+                       repr(self.diagnostics))
+        return RuntimeError(
+            f"the series function {name} cannot run in a chunk captured as "
+            f"a CUDA graph (it syncs with the host, e.g. .item() or a "
+            f"Python branch on a tensor, or reads the clock): {err}")
+
+    def _record(self, j):
+        """``(replay, rows)`` of the j-step graph."""
+        rows = torch.empty((len(self.names), j), dtype=self.row_dtype,
+                           device=self.s.device)
+        graph = torch.cuda.CUDAGraph()
+        before = _counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self._steps(j, rows)
+        except Exception as e:
+            if self.failed is None:
+                raise
+            raise self._refusal(self.failed) from e
+        finally:
+            counted = _take_counts(before)
+
+        def replay():
+            graph.replay()
+            _add_counts(counted)
+        return replay, rows
+
+    def __call__(self, state: State):
+        c = state.clock
+        if self.s is None:
+            self._warm(state)
+        self.s.copy_(stack(state))
+        series = torch.empty((len(self.names), self.n_steps),
+                             dtype=self.row_dtype, device=self.s.device)
+        for offset, j in self.plan:
+            if j not in self.graphs:
+                self.graphs[j] = self._record(j)
+            replay, rows = self.graphs[j]
+            replay()
+            series[:, offset:offset + j].copy_(rows)
+        out = unstack(self.s.clone(), Clock(c.time + self.n_steps * self.dt,
+                                            c.iteration + self.n_steps))
+        return out, dict(zip(self.names, series.unbind(0)))
+
+
 class KernelStepper:
     """``Simulation(model, ..., stepper=KernelStepper(model))`` drives a
-    run through the CUDA substage (the ``step_fn(dt, n_steps,
+    run through the CUDA kernels (the ``step_fn(dt, n_steps,
     diagnostics)`` contract of the model's own step).
 
-    A chunk without per-step diagnostics is one :func:`multistep` call.
-    With them the state has to surface after every step, so each step is
-    three :func:`substage` calls and the series stays on the device."""
+    :meth:`advance` takes the resident kernel (:func:`multistep`) where
+    :func:`takes_resident`, else one-substage launches
+    (:func:`windowed_steps`). A chunk without per-step diagnostics is one
+    :meth:`advance` call. With them the state has to surface after every
+    step: on the card the chunk is a :class:`GraphChunk`, the launches of
+    each step and the series captured in CUDA graphs; on the CPU it is
+    :meth:`one_step` through ``run_steps``, eagerly."""
 
     def __init__(self, model):
         kernel_params(model)
         self.model = model
 
+    def advance(self, s, dt, n_steps):
+        """``n_steps`` RK3 steps on stacked fields ``s`` through the route
+        :func:`takes_resident` picks on the card (the plain version on a
+        CPU tensor)."""
+        if s.is_cuda and not takes_resident(self.model, s):
+            return windowed_steps(self.model, s, dt, n_steps)
+        return multistep(self.model, s, dt, n_steps)
+
+    def one_step(self, dt):
+        """``state -> state``: one RK3 step, one :meth:`advance` call (the
+        clock is the caller's to set)."""
+        def fn(state: State) -> State:
+            return unstack(self.advance(stack(state), dt, 1), state.clock)
+        return fn
+
     def step_fn(self, dt, n_steps: int = 1, diagnostics=None):
-        model = self.model
         if diagnostics is None:
             def fn(state: State) -> State:
                 c = state.clock
-                s = multistep(model, stack(state), dt, n_steps)
+                s = self.advance(stack(state), dt, n_steps)
                 return unstack(s, Clock(c.time + n_steps * dt,
                                         c.iteration + n_steps))
             return fn
-
-        def one_step(state: State) -> State:
-            s, g = stack(state), None
-            for stage in range(3):
-                s, g = substage(model, s, dt, stage, g, write_G=stage < 2)
-            return unstack(s, state.clock)
-        return run_steps(one_step, dt, n_steps, diagnostics)
+        if torch.device(self.model.grid.device).type == "cuda":
+            return GraphChunk(self, dt, n_steps, diagnostics)
+        return run_steps(self.one_step(dt), dt, n_steps, diagnostics)

@@ -120,6 +120,9 @@ class Simulation:
             for w in writers:
                 out.update(w.fn(model, state))
             return out
+        # what a stepper names when the series cannot run in its chunk
+        diag.__qualname__ = " + ".join(
+            getattr(w.fn, "__qualname__", repr(w.fn)) for w in writers)
         return diag
 
     def _stepper(self, n_steps: int):

@@ -11,8 +11,9 @@ stepper the CLI ships), in one driver:
 Each of the 12 scenario × formulation cases of
 :data:`~swmhd_tpu_torch.validation_anchors.CASES` runs to its reference
 stop time through the stepper :func:`swmhd_tpu_torch.cli.select_stepper`
-picks (on CUDA the hand-written substage, three launches a step, which the
-driver counts; ``--no-fused`` the plain PyTorch step), with the energies
+picks (on CUDA the hand-written resident kernel, one launch of three
+substages a step replayed from CUDA graphs, which ``run_case`` counts;
+``--no-fused`` the plain PyTorch step), with the energies
 of :func:`~swmhd_tpu_torch.diagnostics.reference_energy_report` written
 every iteration. Per case it writes ``<outdir>/series/<dtype>/<tag>.csv``
 and ``<outdir>/results/<dtype>/<tag>.json`` and prints that JSON on one
@@ -66,9 +67,13 @@ def run_case(formulation, name, stop_time, dtype, device, fused, outdir):
     iteration: ``(csv, path, wall_s)``, ``path`` one of ``kernel-f32``,
     ``kernel-f64``, ``plain-f32``, ``plain-f64``.
 
-    On the kernel path the substage kernel must have launched three times
-    a step and no plain substage may have run: ``RuntimeError``
-    otherwise."""
+    On the kernel path the route the stepper takes
+    (``ops.substage.takes_resident``) must have launched exactly its
+    kernels (through the replays of the stepper's captured graphs): the
+    resident kernel once a step, holding three substages, and no
+    one-substage launch; or, where the state does not fit the card's L2,
+    three one-substage launches a step and no resident launch; with no
+    plain substage either way: ``RuntimeError`` otherwise."""
     from . import cli, diagnostics, scenarios
     from .io import ScalarSeriesWriter
     from .ops import substage as K
@@ -92,20 +97,27 @@ def run_case(formulation, name, stop_time, dtype, device, fused, outdir):
         schedule=IterationInterval(1), path=csv)
 
     def counts():
-        return (sum(K.substage.launches_by_branch.values()),
+        return (sum(K.multistep.launches_by_branch.values()),
+                sum(K.multistep.substages_by_branch.values()),
+                sum(K.substage.launches_by_branch.values()),
                 K.substage_reference.calls)
 
-    launches0, plain0 = counts()
+    before = counts()
     final = sim.run(state)
-    launches, plain = counts()
     steps = int(final.clock.iteration)
-    if path == "kernel" and (launches - launches0 != 3 * steps
-                             or plain != plain0):
-        raise RuntimeError(
-            f"{case_tag(formulation, name)}: {steps} steps on the kernel "
-            f"path launched the substage {launches - launches0} times "
-            f"(expected {3 * steps}) and ran the plain substage "
-            f"{plain - plain0} times (expected 0)")
+    resident, held, substages, plain = (
+        n - n0 for n, n0 in zip(counts(), before))
+    if path == "kernel":
+        expected = ((steps, 3 * steps, 0, 0)
+                    if K.takes_resident(model, state.h) else
+                    (0, 0, 3 * steps, 0))
+        if (resident, held, substages, plain) != expected:
+            raise RuntimeError(
+                f"{case_tag(formulation, name)}: {steps} steps on the "
+                f"kernel path made {resident} resident launches holding "
+                f"{held} substages, {substages} one-substage launches and "
+                f"{plain} plain substages; expected {expected[0]}, "
+                f"{expected[1]}, {expected[2]} and 0")
     return csv, f"{path}-f{dtype_name[-2:]}", sim.run_wall_time
 
 
@@ -192,8 +204,11 @@ def write_report(results, path):
         "`--dtype float32`, then `--merge` (`swmhd_tpu_torch/validate.py`)."
         " Each case runs to its reference stop time through the stepper "
         "`swmhd_tpu_torch.cli.select_stepper` picks: path `kernel-*` is "
-        "the hand-written CUDA substage, three launches a step, counted "
-        "by the driver with no plain substage call. The energies are "
+        "the hand-written CUDA resident kernel, one launch of three "
+        "substages a step replayed from CUDA graphs, counted by "
+        "`run_case` with no one-substage launch and no plain substage "
+        "call. "
+        "The energies are "
         "`diagnostics.reference_energy_report` every iteration "
         "(`validation/h100/series/`). Anchors, tolerances and `judge`: "
         "`swmhd_tpu_torch/validation_anchors.py`, copied from "
@@ -294,8 +309,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--fused", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="on CUDA, step through the hand-written substage "
-                         "kernel (default); --no-fused runs the plain "
+                    help="on CUDA, step through the hand-written kernels "
+                         "(default: the resident kernel where the state "
+                         "fits the card's L2, chunks with a series as CUDA "
+                         "graphs); --no-fused runs the plain "
                          "PyTorch step")
     ap.add_argument("--only", default=None,
                     help="run only the cases whose tag contains this")

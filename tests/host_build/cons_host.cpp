@@ -6,7 +6,8 @@
 //       -I tests/host_build -I swmhd_tpu_torch/csrc \
 //       tests/host_build/cons_host.cpp -o cons_host.so
 //
-// A launch runs the blocks as host_launch.h says.
+// A launch runs the blocks as host_launch.h says; the resident kernel runs
+// as one block walking every tile.
 #include "host_launch.h"
 #include "cons_tile.cuh"
 
@@ -31,8 +32,32 @@ int substage(const T* s, const T* g_prev, T* s_out, T* g_out,
                                         dt, gk, zk);
 }
 
+// n_steps RK3 steps through the resident kernel as one block (a grid of
+// one) walking every tile, as a block of the card's grid walks its share.
+template <typename T, bool Opt>
+int resident_launch(const T* in, T* out, T* work, T* gbuf,
+                    const Params<T>& p, int tx, T dt, int n_steps) {
+  const auto k = cons_resident_kernel<T, Opt>(p.mode_x, p.mode_y);
+  if (k == nullptr || tx < 1 || tx > kConsMaxTileX || n_steps < 1) {
+    return cudaErrorInvalidValue;
+  }
+  return run_grid(1, 1, cons_smem_bytes(sizeof(T), tx),
+                  [&] { k(in, out, work, gbuf, p, tx, dt, n_steps); });
+}
+
+template <typename T>
+int resident(const T* in, T* out, T* work, T* gbuf, const Params<T>& p,
+             int tile_x, T dt, int n_steps) {
+  return cons_opt(p) ? resident_launch<T, true>(in, out, work, gbuf, p, tile_x,
+                                           dt, n_steps)
+                   : resident_launch<T, false>(in, out, work, gbuf, p,
+                                               tile_x, dt, n_steps);
+}
+
 }  // namespace
 }  // namespace swmhd
 
 SWMHD_HOST_ENTRY(cons_host_substage, float, f32)
 SWMHD_HOST_ENTRY(cons_host_substage, double, f64)
+SWMHD_HOST_RESIDENT(cons_host_resident, float, f32)
+SWMHD_HOST_RESIDENT(cons_host_resident, double, f64)

@@ -3,7 +3,7 @@
 // barrier and the shared memory the stand-in cuda_runtime.h declares, and
 // a launch that runs the blocks one after another, each on kTileThreads
 // host threads that meet at a std::barrier wherever the kernel calls
-// __syncthreads. Before each block the shared memory is filled with 0xff
+// __syncthreads (and, in a grid of one block, a grid barrier). Before each block the shared memory is filled with 0xff
 // bytes, so a slot read before it is written (an intermediate outside its
 // region, a slot past a wall) is a NaN and shows in G.
 #pragma once
@@ -12,7 +12,7 @@
 
 #include "cuda_runtime.h"
 
-thread_local dim3 threadIdx, blockIdx;
+thread_local dim3 threadIdx, blockIdx, gridDim;
 std::barrier<>* block_barrier;
 namespace swmhd {
 alignas(16) unsigned char smem[1 << 20];
@@ -35,6 +35,7 @@ int run_grid(unsigned grid_x, unsigned grid_y, size_t bytes,
   for (int t = 0; t < kTileThreads; ++t) {
     threads.emplace_back([&, t] {
       threadIdx = dim3(t);
+      gridDim = dim3(grid_x, grid_y);
       for (unsigned by = 0; by < grid_y; ++by) {
         for (unsigned bx = 0; bx < grid_x; ++bx) {
           blockIdx = dim3(bx, by);
@@ -78,6 +79,25 @@ Params<T> host_params(int nx, int ny, int hx, int hy, int mode_x,
 }
 
 }  // namespace swmhd
+
+// swmhd_multistep's arguments (substage.cu) without the formulation, the
+// SMs and the stream, for a host entry point NAME_SUFFIX that calls
+// resident<T> of its file: the resident kernel as one block walking every
+// tile.
+#define SWMHD_HOST_RESIDENT(NAME, T, SUFFIX)                                 \
+  extern "C" int NAME##_##SUFFIX(                                            \
+      const T* s_in, T* s_out, T* work, T* gbuf, int nx, int ny,             \
+      int mode_x, int mode_y, int closure, int momentum, int mass,           \
+      int tracer, int stencil, int tile_x, double dx, double dy, double g,   \
+      double f, double gam_bg, double nu, double kappa, double dt,           \
+      int n_steps) {                                                         \
+    return swmhd::resident<T>(                                               \
+        s_in, s_out, work, gbuf,                                             \
+        swmhd::host_params<T>(nx, ny, 0, 0, mode_x, mode_y, closure,         \
+                              momentum, mass, tracer, stencil, dx, dy, g, f, \
+                              gam_bg, nu, kappa),                            \
+        tile_x, T(dt), n_steps);                                             \
+  }
 
 // swmhd_substage's arguments (substage.cu) without the stream, for a
 // host entry point NAME_SUFFIX that calls substage<T> of its file: nx, ny
