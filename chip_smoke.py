@@ -174,6 +174,31 @@ each printing lines of findings; any failure exits non-zero:
     the eager chunk (a step's launches, then the series), state and series
     bit for bit, each timed.
 
+13. the bench and the scaling sweep: ``python -m swmhd_tpu_torch.bench``
+    in a process of its own with ``SWMHD_BENCH_LADDER=128,512``
+    (BENCH_LADDER; the default ladder adds 4096² and 8192²), whose last
+    line must carry ``bench.py``'s keys in its order (BENCH_KEYS), a
+    positive value and fractions of the roofline in (0, 1.05], and whose
+    size lines must show the resident kernel alone at 128² and 512² (one
+    launch a call: 11) and exactly 3·steps·11 one-substage launches at
+    2048², each state finite, and ``nonfinite`` empty; then, each on the
+    bench configuration with h = 1 + 0.2·e^{-((x-1)²+y²)} (H_BUMP: with
+    h = 1, or a bump at the vortex's centre, the h equation's G is ≈0
+    and goes unchecked), K1's substage 0 at 8192²
+    float32 (LARGE_N) against its plain version (G by PERF.md §2's rule
+    against the float64 plain G, which must lie within 10% of the plain
+    float32 G in every field; the state <= 2e-5), timed; K2 at 512²
+    float32, 20 steps in one launch against the plain version's 20 steps
+    (each field <= 2e-5) and bit for bit against 60 one-substage
+    launches, counted; K3 on the two-rank sweep's 512² tiles (a 1x2 mesh
+    of a 512x1024 grid), substages 0 and 1 against the plain tile
+    version, float64 <= 1e-11 and float32 as K1; and ``python -m
+    swmhd_tpu_torch.scaling --mode weak --local 512 --steps 10
+    --max-ranks 2`` (one rank, then two ranks sharing the card over
+    gloo, each a ``torchrun`` group), whose rows for one and two ranks must
+    hold finite points/s and rank 0's launches (7 resident launches; 210
+    tile substages), and whose models take the branches held above.
+
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
 runs of phase 6. Phase 8's runs are the decomposed main path: each rank
@@ -181,9 +206,12 @@ zeroes its counters just before its run and reports them just after.
 Phase 9's probe runs are the probe path: the tile counters are zeroed
 just before them and read just after. Phase 10 zeroes the counters just
 before its wizard runs through the kernels and reads them just after, and
-phase 11 just before its validation runs. Comparisons with the plain versions,
-and phase 12's, happen outside those windows. The last two lines are a JSON object of
-per-kernel findings (one entry per entry point and branch, or probe shape,
+phase 11 just before its validation runs. In phase 13 the bench zeroes
+them just before each size's timed calls and prints them just after, and
+each scaling worker just before its timed calls. Comparisons with the
+plain versions, and phase 12's, happen outside those windows. The last
+two lines are a JSON object of per-kernel findings (one entry per entry
+point and branch, or probe shape,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s;
 a substage entry also names its design: ``"tile"``, one kernel over 2-D
@@ -224,7 +252,6 @@ compare them.
 import json
 import math
 import os
-import signal
 import subprocess
 import sys
 import tempfile
@@ -242,10 +269,6 @@ TILE_HALO = 6             # model.exchange_halo
 WORLD = 4
 # H100 SXM: device memory rate and fp32 rate outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
-# elementwise arithmetic counted towards a kernel's operations (shifts,
-# selects and copies count none)
-ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "pow",
-             "clamp", "bitwise_and", "maximum", "minimum"}
 
 VI, CONS = "vector_invariant", "conservative"
 PERIODIC = ("periodic", "periodic")
@@ -376,21 +399,30 @@ def initial_fields(xp, h_bump=0.0, walls=False):
 
 
 def bench_model(N, dtype, device, formulation=VI, topology=PERIODIC,
-                gamma=0.0, walls=False):
-    """The bench.py configuration, with :func:`initial_fields`."""
+                gamma=0.0, walls=False, M=None, h_bump=0.0):
+    """The bench.py configuration on an N×M grid (M: N), with
+    :func:`initial_fields`, and with ``h_bump`` a Gaussian of that height
+    added to h at (1, 0): off the vortex's centre, so that the vortex
+    carries it (a bump at the centre it leaves where it is, the G of h
+    ≈0)."""
     import torch
     from swmhd_tpu_torch import (Grid, ShallowWaterModel, FPlane,
                                  jacobian_lorentz_forcing,
                                  divergence_lorentz_forcing)
-    g = Grid.regular(N, N, (-5.0, 5.0), (-5.0, 5.0), topology=topology,
-                     dtype=dtype, device=device)
+    g = Grid.regular(N, M or N, (-5.0, 5.0), (-5.0, 5.0),
+                     topology=topology, dtype=dtype, device=device)
     forcing = (divergence_lorentz_forcing(gamma) if formulation == CONS
                else jacobian_lorentz_forcing(gamma))
     model = ShallowWaterModel(grid=g, formulation=formulation,
                               gravitational_acceleration=9.81,
                               coriolis=FPlane(1.0), forcing=forcing,
                               A_background_gradient_y=gamma)
-    return model, model.initial_state(**initial_fields(torch, walls=walls))
+    fields = initial_fields(torch, walls=walls)
+    if h_bump:
+        h = fields["h"]
+        fields["h"] = lambda x, y: h(x, y) + h_bump * torch.exp(
+            -((x - 1.0) ** 2 + y ** 2))
+    return model, model.initial_state(**fields)
 
 
 # the model options beyond the default model (no closure, WENO5 everywhere,
@@ -590,34 +622,14 @@ def compare_main_size(K, label, build):
 
 # -- bounds ----------------------------------------------------------------------
 
-def count_ops(fn):
-    """Elementwise arithmetic operations that ``fn()`` runs through PyTorch:
-    one per output element of each operation in ARITH_OPS."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if (func.overloadpacket.__name__.rstrip("_") in ARITH_OPS
-                    and isinstance(out, torch.Tensor)):
-                Count.n += out.numel()
-            return out
-
-    with Count():
-        fn()
-    return Count.n
-
-
 def ops_per_point(K, branch, per):
     """Arithmetic per grid point of the plain version of one substage 0
     (``per="substage"``) or one RK3 step (``per="step"``) of ``branch``
     (a ``K.Branch``; an exchanged axis counts as periodic), float32,
-    counted on the CPU at 64²."""
+    counted on the CPU at 64² (``profiling.count_ops``)."""
     import dataclasses
     import torch
+    from swmhd_tpu_torch.profiling import count_ops
     b = K.Branch(*branch)
     topology = tuple("bounded" if m == K.BOUNDED_AXIS else "periodic"
                      for m in (b.mode_x, b.mode_y))
@@ -720,28 +732,27 @@ def finite(arrays):
 
 # -- several ranks -------------------------------------------------------------------
 
+def run_checked(cmd, env=None, timeout=600, stderr=subprocess.STDOUT):
+    """``cmd`` from this checkout through the package's
+    ``multihost.run_checked`` (a process group of its own, killed whole on
+    a timeout); its standard output. Fails on a timeout or a nonzero
+    exit."""
+    from swmhd_tpu_torch.parallel import multihost
+    try:
+        return multihost.run_checked(cmd, env, timeout, HERE, stderr)
+    except RuntimeError as e:
+        fail(str(e))
+
+
 def torchrun(nproc, args, timeout=600):
     """``python -m torch.distributed.run --standalone`` of this script's
-    worker mode on ``nproc`` ranks; its output. Kills the whole process
-    group on a timeout; fails on a nonzero exit."""
+    worker mode on ``nproc`` ranks; its output (:func:`run_checked`)."""
     # "--" ends the launcher's own options: without it an argument such
     # as --nu is read as an abbreviation of one of them
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={nproc}", "--", os.path.abspath(__file__),
            "--worker", *args]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True, cwd=HERE,
-                         env=env, start_new_session=True)
-    try:
-        out, _ = p.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        p.wait()
-        fail(f"{' '.join(cmd)} did not end within {timeout} s")
-    if p.returncode != 0:
-        fail(f"{' '.join(cmd)} exited {p.returncode}:\n{out[-6000:]}")
-    return out
+    return run_checked(cmd, {"OMP_NUM_THREADS": "1"}, timeout)
 
 
 def tile_launches(K):
@@ -1215,6 +1226,7 @@ def split_ops_per_point(split):
     the CPU at 64²."""
     import torch
     from swmhd_tpu_torch.probes import build
+    from swmhd_tpu_torch.profiling import count_ops
     model, st = build(64, torch.float32, "cpu")
     return count_ops(lambda: tendency_parts(model, st, split)) / 64 ** 2
 
@@ -1691,6 +1703,12 @@ def traces(K, dev):
     _build.load()
     report = {"kernels": {}}
     with tempfile.TemporaryDirectory() as tmp:
+        # thrown away: the first trace of a process came back once with
+        # no event of the card at all, though the kernel had run
+        model, state = bench_model(64, torch.float32, dev)
+        with profiling.trace(os.path.join(tmp, "warm-up")):
+            K.substage(model, K.stack(state), BENCH_DT, 0)
+            torch.cuda.synchronize()
         for formulation in (VI, CONS):
             model, state = bench_model(BENCH_N, torch.float32, dev,
                                        formulation)
@@ -2028,6 +2046,262 @@ def resident_phase(K, dev, smi):
                  f"the eager chunk")
         del state, got, want
     say(12, f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+
+# -- phase 13: the bench and the scaling sweep ------------------------------
+
+# the ladder of the bench run here (the default 128,512,4096,8192 runs
+# outside chip_smoke); the sweep: two ranks sharing the card over gloo
+BENCH_LADDER = "128,512"
+SWEEP = ("--mode", "weak", "--local", "512", "--steps", "10",
+         "--max-ranks", "2")
+# bench.py's keys, in its order, as the bench prints them on the card,
+# and the bench's own "nonfinite"
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline",
+              "fraction_of_roofline", "binding_limit",
+              "hbm_fraction_of_light", "vpu_fraction_of_peak",
+              "hbm_gbps_at_min_traffic", "flops_per_point_measured",
+              "flops_per_point_analytic", "rel_spread", "ladder",
+              "nonfinite"]
+LARGE_N, K2_N, K2_STEPS = 8192, 512, 20
+# the bump on h of the states that phase 13 holds against the plain
+# versions, and how near the float32 plain G must lie to the float64 G,
+# each field, for the latter to hold the kernel's G (PERF.md §2)
+H_BUMP, G_F64_REACH = 0.2, 0.1
+
+
+def module_run(module, args=(), env=None, timeout=600):
+    """``python -m <module> <args>`` in a fresh process (:func:`run_checked`,
+    its errors kept apart); its standard output's lines."""
+    return run_checked([sys.executable, "-m", module, *args], env, timeout,
+                       subprocess.PIPE).strip().splitlines()
+
+
+def check_bench(smi):
+    """``python -m swmhd_tpu_torch.bench`` with the BENCH_LADDER: its JSON
+    line (bench.py's keys, a positive value, fractions in (0, 1.05]) and
+    its size lines (the resident kernel alone at 128² and 512², exactly
+    3·steps·11 one-substage launches at 2048², every state finite)."""
+    lines = module_run("swmhd_tpu_torch.bench",
+                       env={"SWMHD_BENCH_LADDER": BENCH_LADDER})
+    out = json.loads(lines[-1])
+    sizes = {s["N"]: s for s in (json.loads(ln[len("size "):])
+                                 for ln in lines if ln.startswith("size "))}
+    for N, s in sorted(sizes.items()):
+        say(13, f"bench {N}^2 on {smi}: {json.dumps(s)}")
+    say(13, f"bench line: {lines[-1]}")
+    if list(out) != BENCH_KEYS or not out["value"] > 0:
+        fail(f"the bench line's keys are {list(out)}, not {BENCH_KEYS}, or "
+             f"its value is not positive")
+    if out["nonfinite"]:
+        fail(f"the bench's state ended non-finite at {out['nonfinite']}")
+    fractions = ("fraction_of_roofline", "hbm_fraction_of_light",
+                 "vpu_fraction_of_peak")
+    if not all(0 < out[k] <= 1.05 for k in fractions):
+        fail(f"a fraction of the bench line lies outside (0, 1.05]: "
+             f"{ {k: out[k] for k in fractions} }")
+    if (sorted(sizes) != [128, 512, BENCH_N]
+            or list(out["ladder"]) != BENCH_LADDER.split(",")):
+        fail(f"the bench ran sizes {sorted(sizes)}, ladder "
+             f"{list(out['ladder'])}")
+    calls = 5 * 2 + 1      # n_calls a repetition, two repetitions, warm-up
+    for N, s in sizes.items():
+        n = s["launches"]
+        if N == BENCH_N:
+            ok = (s["path"] == "substage-cuda" and n["multistep"] == 0
+                  and n["substage"] == 3 * s["steps_per_call"] * calls)
+        else:
+            ok = (s["path"] == "resident-cuda" and n["substage"] == 0
+                  and n["multistep"] == calls and n["multistep_substages"]
+                  == 3 * s["steps_per_call"] * calls)
+        if not (ok and s["finite"]):
+            fail(f"the bench at {N}^2 took {s['path']} with launches {n}, "
+                 f"finite {s['finite']}")
+    return out
+
+
+def g_against_f64(g_k, g_p, g64, what):
+    """PERF.md §2's float32 rule for G (:func:`g_within`), each field,
+    after checking that the float64 G is a reference for every field: the
+    plain float32 G within G_F64_REACH of it, so that a kernel that
+    zeroed or negated a field (1 or 2 away) could not pass by being no
+    farther from it than twice the plain G. ``(ok, G's worst rel err
+    against the plain G, line)``."""
+    plain_far = field_errors(g_p, g64)
+    if max(plain_far) > G_F64_REACH:
+        fail(f"{what}: the plain float32 G lies {plain_far} from the "
+             f"float64 G, which then holds no field of the kernel's G")
+    ok, g_err = g_within(g_k, g_p, g64, F32_BOUND)
+    return ok, g_err, (f"G rel err by field {field_errors(g_k, g_p)}, from "
+                       f"the f64 plain G kernel {field_errors(g_k, g64)} / "
+                       f"plain {plain_far}")
+
+
+def check_large_substage(K, dev, smi):
+    """K1's substage 0 at LARGE_N² float32 against its plain version under
+    PERF.md §2's rule (:func:`g_against_f64`; the state within F32_BOUND),
+    timed beside the plain version, on the bench configuration with a
+    bump of H_BUMP on h (:func:`bench_model`): with the bench's h = 1 the
+    float64 G of h is ≈0, and the float32 G of h rounding noise that no
+    rule can hold. Returns the max abs error of G."""
+    import torch
+    model, state = bench_model(LARGE_N, torch.float32, dev, h_bump=H_BUMP)
+    s = K.stack(state)
+    del state
+    K.substage(model, s, BENCH_DT, 0)
+    ms, (s_k, g_k) = timed(lambda: K.substage(model, s, BENCH_DT, 0), 5)
+    plain_ms, (s_p, g_p) = timed(
+        lambda: K.substage_reference(model, s, BENCH_DT, 0), 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    s_err = rel_err(s_k, s_p)
+    del s, s_k, s_p
+    torch.cuda.empty_cache()
+    model64, state64 = bench_model(LARGE_N, torch.float64, dev,
+                                   h_bump=H_BUMP)
+    s64 = K.stack(state64)
+    del state64
+    g64 = K.substage_reference(model64, s64, BENCH_DT, 0)[1]
+    del s64
+    torch.cuda.empty_cache()
+    what = f"K1 at {LARGE_N}^2"
+    ok, g_err, line = g_against_f64(g_k, g_p, g64, what)
+    abs_err = float((g_k - g_p).abs().max())
+    pts = LARGE_N ** 2
+    bound = least_time(48 * pts, ops_per_point(
+        K, K.kernel_params(model).branch, "substage") * pts)
+    say(13, f"K1 substage {LARGE_N}^2 f32 VI, h bump {H_BUMP}, on {smi}: "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}); {line}; state rel err {s_err:.2e}; max abs err "
+            f"of G {abs_err:.3e}; peak device memory {peak / 2**30:.2f} GiB")
+    if not (ok and s_err <= F32_BOUND and finite([g_k])):
+        fail(f"{what} disagrees with its plain version: G {g_err:.3e}, "
+             f"state {s_err:.3e}")
+    return abs_err
+
+
+def check_resident_512(K, dev, smi):
+    """K2 at K2_N² float32, with a bump of H_BUMP on h so that the h
+    equation moves the state: K2_STEPS steps in one launch against the
+    plain version's K2_STEPS steps (each field within F32_BOUND of its
+    scale) and bit for bit against 3·K2_STEPS one-substage launches,
+    counted; then timed (ms a step of one K2_STEPS-step launch) beside the
+    bound."""
+    import torch
+    model, state = bench_model(K2_N, torch.float32, dev, h_bump=H_BUMP)
+    s = K.stack(state)
+    if not K.takes_resident(model, s):
+        fail(f"the {K2_N}^2 float32 state does not fit the card's L2: the "
+             f"stepper would not take the resident kernel")
+    before = resident_counts(K)
+    x = K.multistep(model, s, BENCH_DT, K2_STEPS)
+    y = K.windowed_steps(model, s, BENCH_DT, K2_STEPS)
+    launches, subs = resident_counts(K, before)
+    held = list(launches.values())
+    bitwise = bool(torch.equal(x, y))
+    plain = field_errors(x, K.multistep_reference(model, s, BENCH_DT,
+                                                  K2_STEPS))
+    say(13, f"K2 {K2_N}^2 f32, h bump {H_BUMP}, on {smi}: {K2_STEPS} steps "
+            f"in one launch vs the plain version: rel err by field {plain} "
+            f"(bound {F32_BOUND:g}); vs {subs} one-substage launches: "
+            f"bitwise equal {bitwise}, max abs diff "
+            f"{float((x - y).abs().max()):.3e}; resident [launches, "
+            f"substages held] {held}")
+    if not (max(plain) <= F32_BOUND and bitwise and torch.isfinite(x).all()
+            and held == [(1, 3 * K2_STEPS)] and subs == 3 * K2_STEPS):
+        fail(f"K2 at {K2_N}^2 differs from its plain version or from "
+             f"{3 * K2_STEPS} one-substage launches, or the launches were "
+             f"{held}, {subs}")
+    pts = K2_N ** 2
+    ms = timed(lambda: K.multistep(model, s, BENCH_DT, K2_STEPS),
+               1)[0] / K2_STEPS
+    bound = least_time(32 * pts / K2_STEPS, ops_per_point(
+        K, K.kernel_params(model).branch, "step") * pts)
+    say(13, f"K2 {K2_N}^2 f32 on {smi}: {ms:.4f} ms a step in a "
+            f"{K2_STEPS}-step launch; bound {bound[0]:.5f} ms ({bound[1]})")
+
+
+def check_sweep_tiles(K, dev, smi):
+    """K3 at the two-rank sweep's tiles: the sweep's grid and mesh for two
+    ranks (``scaling.grid_for``, ``make_mesh``), each tile padded by the
+    halo, substages 0 and 1 against the plain tile version, with a bump of
+    H_BUMP on h: float64 within F64_BOUND, float32 states within
+    F32_BOUND and G by :func:`g_against_f64`. The sweep's one-rank model
+    must take the branch that check_resident_512 holds, and its two-rank
+    model the branch held here."""
+    import torch
+    from swmhd_tpu_torch import scaling
+    from swmhd_tpu_torch.parallel import make_mesh
+    local = int(SWEEP[SWEEP.index("--local") + 1])
+    Nx, Ny = scaling.grid_for("weak", 2, local, None)
+    mesh = make_mesh(2)
+    mesh = (mesh.px, mesh.py)
+    cases = [bench_model(Nx, dtype, dev, M=Ny, h_bump=H_BUMP)
+             for dtype in (torch.float32, torch.float64)]
+    for n, (X, Y) in ((1, (local, local)), (2, (Nx, Ny))):
+        sweep_model = scaling.build_model(X, Y, dev)[0]
+        want = (K.kernel_params(bench_model(K2_N, torch.float32, dev)[0])
+                .branch if n == 1 else tile_branch(K, cases[0][0], mesh))
+        got = (K.kernel_params(sweep_model).branch if n == 1
+               else tile_branch(K, sweep_model, mesh))
+        if got != want:
+            fail(f"the sweep's {n}-rank model takes [{K.branch_label(got)}]"
+                 f", not the branch held here [{K.branch_label(want)}]")
+    tiles, halo = tile_layout(Nx, Ny, mesh, cases[0][0].exchange_halo)
+    what = f"K3 at the sweep's {Nx // mesh[0]}x{Ny // mesh[1]} tiles"
+    for b in tiles:
+        (m32, st32), (m64, st64) = cases
+        p = cut_tile(K.stack(st32), b, *halo)
+        got, want = tile_pair(K, m32, p, BENCH_DT, halo)
+        got64, want64 = tile_pair(K, m64, cut_tile(K.stack(st64), b, *halo),
+                                  BENCH_DT, halo)
+        ok, g_err, line = g_against_f64(got[0], want[0], want64[0], what)
+        s_err = max(rel_err(x, y) for x, y in zip(got[1:], want[1:]))
+        f64_err = max(rel_err(x, y) for x, y in zip(got64, want64))
+        say(13, f"{what} f32 [{K.branch_label(tile_branch(K, m32, mesh))}],"
+                f" tile {b} of {Nx}x{Ny} ({tuple(p.shape[1:])} read), h bump "
+                f"{H_BUMP}, on {smi}: tile kernel vs plain (substages 0 and "
+                f"1): {line}; f32 state {s_err:.2e} (bound {F32_BOUND:g}); "
+                f"f64 G and state {f64_err:.2e} (bound {F64_BOUND:g})")
+        if not (ok and finite(got) and s_err <= F32_BOUND
+                and f64_err <= F64_BOUND):
+            fail(f"{what} disagree with the plain tile version: G "
+                 f"{g_err:.3e}, f32 state {s_err:.3e}, f64 {f64_err:.3e}")
+
+
+def check_sweep(smi):
+    """``python -m swmhd_tpu_torch.scaling`` over SWEEP: a finite
+    points/s row for one rank (the resident kernel at 512²) and for two
+    ranks (tile substages on 512² tiles)."""
+    lines = module_run("swmhd_tpu_torch.scaling", SWEEP)
+    out = json.loads(lines[-1])
+    rows = {r["devices"]: r for r in out["results"]}
+    say(13, f"scaling {' '.join(SWEEP)} on {smi}: " + json.dumps(out))
+    ok = (sorted(rows) == [1, 2]
+          and all(math.isfinite(r["points_per_s"]) and r["points_per_s"] > 0
+                  for r in rows.values())
+          and rows[1]["launches"] == {"substage": 0, "multistep": 7}
+          and rows[2]["launches"] == {"substage": 3 * 10 * 7,
+                                      "multistep": 0})
+    if not ok:
+        fail(f"the scaling sweep gave {out}")
+
+
+def bench_phase(K, dev, smi):
+    """Phase 13 (see the module's docstring)."""
+    import torch
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = check_bench(smi)
+    t_bench = time.perf_counter() - t13
+    abs_err = check_large_substage(K, dev, smi)
+    check_resident_512(K, dev, smi)
+    check_sweep_tiles(K, dev, smi)
+    t_kernels = time.perf_counter() - t13 - t_bench
+    check_sweep(smi)
+    say(13, f"bench {BENCH_N}^2: {out['value']} points/s; K1 at {LARGE_N}^2 "
+            f"max abs err {abs_err:.3e}; phase 13 took "
+            f"{time.perf_counter() - t13:.1f} s (the bench {t_bench:.1f}, "
+            f"K1, K2 and K3 {t_kernels:.1f}, the sweep the rest)")
 
 
 def main():
@@ -2529,6 +2803,10 @@ def main():
     # 12 ------------------------------------------------------------------
     resident_phase(K, dev, smi)
     say(12, f"the script {time.perf_counter() - t_start:.1f} s so far")
+
+    # 13 ------------------------------------------------------------------
+    bench_phase(K, dev, smi)
+    say(13, f"the script {time.perf_counter() - t_start:.1f} s so far")
 
     if "jax" in sys.modules:
         fail("jax was imported")

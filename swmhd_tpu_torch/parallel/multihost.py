@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
+import subprocess
 
 import torch
 import torch.distributed as dist
@@ -165,3 +167,28 @@ def sync(tag: str = "") -> None:
     if world_size() > 1:
         logger.debug("barrier %s", tag)
         dist.barrier()
+
+
+def run_checked(cmd, env=None, timeout=600, cwd=None,
+                stderr=subprocess.STDOUT) -> str:
+    """Run ``cmd`` (a launcher of ranks, or any command) in a process group
+    of its own, with ``env`` added to the environment, and return its
+    standard output (the errors too, unless ``stderr`` keeps them apart).
+    On a timeout the whole group is killed, so no rank outlives it; a
+    timeout or a nonzero exit raises ``RuntimeError`` with the tail of
+    the output."""
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=stderr,
+                         text=True, cwd=cwd,
+                         env=dict(os.environ, **(env or {})),
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+        raise RuntimeError(f"{' '.join(cmd)} did not end within {timeout} s")
+    if p.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} exited {p.returncode}:\n"
+                           f"{out[-6000:]}"
+                           + (f"\n{err[-3000:]}" if err else ""))
+    return out

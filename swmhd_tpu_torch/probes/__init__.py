@@ -2,8 +2,9 @@
 ``exp_dma2.py`` and ``exp_fused2d.py``: each module runs its kernel of
 :mod:`swmhd_tpu_torch.ops.tile` over a list of specs and prints one line
 per spec (``python -m swmhd_tpu_torch.probes.exp_fused2d``; ``--device
-cpu`` runs the plain versions). :func:`build` is the port's own copy of
-``bench.build``, the model and state the tendency probe runs on.
+cpu`` runs the plain versions). ``build`` is
+:func:`swmhd_tpu_torch.bench.build`, the model and state the tendency
+probe runs on.
 """
 
 from __future__ import annotations
@@ -12,29 +13,7 @@ import time
 
 import torch
 
-from ..forcing import jacobian_lorentz_forcing
-from ..grid import Grid
-from ..models.shallow_water import VECTOR_INVARIANT, ShallowWaterModel
-from ..physics.coriolis import FPlane
-
-
-def build(N=2048, dtype=torch.float32, device="cuda"):
-    """``bench.build(N)``: the vector-invariant model on the periodic
-    [-5, 5]² grid of N² points with g = 9.81, FPlane(1) and the jacobian
-    Lorentz forcing; a vortex (u, v), h = 1 and a Gaussian dipole A."""
-    grid = Grid.regular(N, N, (-5.0, 5.0), (-5.0, 5.0), dtype=dtype,
-                        device=device)
-    model = ShallowWaterModel(
-        grid=grid, formulation=VECTOR_INVARIANT,
-        gravitational_acceleration=9.81, coriolis=FPlane(1.0),
-        forcing=jacobian_lorentz_forcing())
-    state = model.initial_state(
-        u=lambda x, y: 5 * y * torch.exp(-(x**2 + y**2)),
-        v=lambda x, y: -5 * x * torch.exp(-(x**2 + y**2)),
-        h=1.0,
-        A=lambda x, y: 0.5 * torch.exp(-((x - 0.5)**2 + y**2))
-        - 0.5 * torch.exp(-((x + 0.5)**2 + y**2)))
-    return model, state
+from ..bench import build  # noqa: F401  (the probes' model)
 
 
 def sync(device):

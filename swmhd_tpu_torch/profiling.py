@@ -8,6 +8,8 @@
 - :func:`parse_overlap` / :func:`measure_overlap`: how much of the
   exchange time of a decomposed step is covered by compute, from such a
   trace.
+- :func:`count_ops`: the elementwise arithmetic a block of PyTorch code
+  runs, the operations of a kernel's bound and of the bench's roofline.
 """
 
 from __future__ import annotations
@@ -110,6 +112,33 @@ def detect_hbm_peak(device=None) -> Optional[float]:
 
 def detect_vpu_peak(device=None) -> Optional[float]:
     return _detect(VPU_PEAK_GFLOPS, device)
+
+
+# elementwise arithmetic counted towards an operation count (shifts,
+# selects and copies count none)
+ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "pow",
+             "clamp", "bitwise_and", "maximum", "minimum"}
+
+
+def count_ops(fn: Callable) -> int:
+    """Elementwise arithmetic operations that ``fn()`` runs through PyTorch:
+    one per output element of each operation in :data:`ARITH_OPS` (its
+    in-place form too), counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket.__name__.rstrip("_") in ARITH_OPS
+                    and isinstance(out, torch.Tensor)):
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
 
 
 def benchmark_step(step_fn: Callable, state, n_steps_per_call: int,

@@ -157,19 +157,19 @@ def test_select_stepper_on_cpu_is_plain():
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, swmhd_tpu_torch, swmhd_tpu_torch.cli, "
-            "swmhd_tpu_torch.checkpoint, swmhd_tpu_torch.convert, "
-            "swmhd_tpu_torch.diagnostics, swmhd_tpu_torch.scenarios, "
-            "swmhd_tpu_torch.simulation, swmhd_tpu_torch.io, "
-            "swmhd_tpu_torch.io.readers, swmhd_tpu_torch.ops.substage, "
-            "swmhd_tpu_torch.ops._build, swmhd_tpu_torch.parallel.multihost, "
-            "swmhd_tpu_torch.parallel.decomposition, swmhd_tpu_torch.ops.tile, "
-            "swmhd_tpu_torch.probes.exp_dma, swmhd_tpu_torch.probes.exp_dma2, "
-            "swmhd_tpu_torch.probes.exp_fused2d, swmhd_tpu_torch.viz, "
-            "swmhd_tpu_torch.profiling; "
+    """Every module of swmhd_tpu_torch, found by pkgutil.walk_packages,
+    imports without jax or swmhd_tpu."""
+    code = ("import importlib, pkgutil, sys, swmhd_tpu_torch; "
+            "names = [m.name for m in pkgutil.walk_packages("
+            "swmhd_tpu_torch.__path__, 'swmhd_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "missing = {'swmhd_tpu_torch.bench', 'swmhd_tpu_torch.scaling', "
+            "'swmhd_tpu_torch.validate', 'swmhd_tpu_torch.ops.vi_tile', "
+            "'swmhd_tpu_torch.probes.exp_fused2d'} - set(names); "
             "bad = [m for m in sys.modules if m in ('jax', 'swmhd_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'swmhd_tpu.'))]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(names), sorted(missing), bad); "
+            "sys.exit(1 if bad or missing else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
