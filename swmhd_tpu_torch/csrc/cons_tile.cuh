@@ -175,11 +175,15 @@ __device__ __forceinline__ void cons_substage_tile(const T* s,
   load_windows<LO, BC>(win, s, p, M, N, tx + LO + kConsHi);
 
   // the Le–Moin update of field k at tile point (a, b)
-  const size_t no = static_cast<size_t>(mx) * my;
   auto update = [&](int k, T G, int a, int b) {
-    const size_t o = k * no + static_cast<size_t>(x0 + a) * my + y0 + b;
-    const T inc = g_prev ? gk * G + zk * g_prev[o] : gk * G;
-    s_out[o] = st(k, a, b) + dt * inc;
+    const size_t o = k * p.out_plane + static_cast<size_t>(x0 + a) * p.out_row
+                     + y0 + b;
+    // the roundings this kernel had compiled to: momentum fused γG, mass
+    // and tracer ζG_prev
+    const T inc = !g_prev ? gk * G
+                  : (k == U || k == V) ? mul_add(gk, G, zk * g_prev[o])
+                                       : mul_add(zk, g_prev[o], gk * G);
+    s_out[o] = mul_add(dt, inc, st(k, a, b));
     if (g_out) g_out[o] = G;
   };
   const int lane = threadIdx.x % TY, warp = threadIdx.x / TY;

@@ -72,6 +72,14 @@
 // conservative) works; the decomposition pads by the model's
 // exchange_halo, 6 (7 with a biharmonic closure).
 //
+// Given strides, a launch reads a slab of a padded tile and writes its
+// region of whole-tile buffers in place: the decomposition's overlap
+// split (parallel/decomposition.py split_substage) launches the interior
+// on the unpadded tile, whose own outer ring serves as its halo, then a
+// band on each exchanged edge, with no copy in or out. A point's
+// arithmetic does not depend on the region, so the split is bit for bit
+// the one launch on the padded tile.
+//
 // Each entry point returns the error of its launch.
 
 #include "substage.cuh"
@@ -80,17 +88,29 @@ namespace swmhd {
 namespace {
 
 // nx, ny: the unpadded extents; the state the kernel reads is (nx + 2hx,
-// ny + 2hy).
+// ny + 2hy); all arrays contiguous.
 template <typename T>
 Params<T> make_params(int nx, int ny, int hx, int hy, int mode_x,
                       int mode_y, int closure, int momentum, int mass,
                       int tracer, int stencil, double dx, double dy,
                       double g, double f, double gam_bg, double nu,
                       double kappa) {
+  const size_t px = nx + 2 * hx, py = ny + 2 * hy;
   return Params<T>{nx + 2 * hx, ny + 2 * hy, hx, hy, mode_x, mode_y,
                    closure, momentum, mass, tracer, stencil,
                    T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy),
-                   T(nu), T(kappa)};
+                   T(nu), T(kappa), py, px * py, static_cast<size_t>(ny),
+                   static_cast<size_t>(nx) * ny};
+}
+
+// Whether the strides of p leave the rows and fields of each array apart:
+// no stride shorter than the extent it steps over.
+template <typename T>
+bool strides_ok(const Params<T>& p) {
+  const size_t mx = p.nx - 2 * p.hx, my = p.ny - 2 * p.hy;
+  return p.in_row >= static_cast<size_t>(p.ny)
+         && p.in_plane >= p.in_row * (p.nx - 1) + p.ny
+         && p.out_row >= my && p.out_plane >= p.out_row * (mx - 1) + my;
 }
 
 template <typename T>
@@ -108,6 +128,13 @@ cudaError_t launch_resident_steps(const Resident<T>& a, int conservative) {
 }  // namespace
 }  // namespace swmhd
 
+// nx, ny: the unpadded extents of the output; hx, hy: the halo the state
+// carries around it; in_row, in_plane: the state's strides (a slab of a
+// padded tile: every row and field of it with room for nx + 2hx rows of
+// ny + 2hy values); out_row, out_plane: the strides of G_prev, s_out and
+// g_out, the pointers the output region's first point (a region of a
+// whole tile: substage.cuh Params). cudaErrorInvalidValue for strides
+// shorter than the extents they step over.
 // closure, momentum, mass, tracer, stencil: the Closure, Scheme and
 // Stencil ids of substage.cuh; tile_x: the rows of the kernel's tiles
 // (ops/substage.py tile_shape); nu, kappa: the closure's diffusivities;
@@ -122,17 +149,25 @@ cudaError_t launch_resident_steps(const Resident<T>& a, int conservative) {
 #define SWMHD_ENTRY_POINTS(T, SUFFIX)                                        \
   extern "C" int swmhd_substage_##SUFFIX(                                    \
       const T* s_in, const T* g_prev, T* s_out, T* g_out, int nx, int ny,    \
-      int hx, int hy, int conservative, int mode_x, int mode_y,              \
-      int closure, int momentum, int mass, int tracer, int stencil,          \
-      int tile_x, double dx, double dy, double g, double f, double gam_bg,   \
-      double nu, double kappa, double dt, double gk, double zk,              \
-      void* stream) {                                                        \
-    const swmhd::Launch<T> a{                                                \
-        s_in, g_prev, s_out, g_out,                                          \
-        swmhd::make_params<T>(nx, ny, hx, hy, mode_x, mode_y, closure,       \
-                              momentum, mass, tracer, stencil, dx, dy, g, f, \
-                              gam_bg, nu, kappa),                            \
-        T(dt), T(gk), T(zk), tile_x, static_cast<cudaStream_t>(stream)};     \
+      int hx, int hy, long long in_row, long long in_plane,                  \
+      long long out_row, long long out_plane, int conservative, int mode_x,  \
+      int mode_y, int closure, int momentum, int mass, int tracer,           \
+      int stencil, int tile_x, double dx, double dy, double g, double f,     \
+      double gam_bg, double nu, double kappa, double dt, double gk,          \
+      double zk, void* stream) {                                             \
+    swmhd::Params<T> p = swmhd::make_params<T>(                              \
+        nx, ny, hx, hy, mode_x, mode_y, closure, momentum, mass, tracer,     \
+        stencil, dx, dy, g, f, gam_bg, nu, kappa);                           \
+    p.in_row = in_row;                                                       \
+    p.in_plane = in_plane;                                                   \
+    p.out_row = out_row;                                                     \
+    p.out_plane = out_plane;                                                 \
+    if (nx < 1 || ny < 1 || !swmhd::strides_ok(p)) {                         \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    }                                                                        \
+    const swmhd::Launch<T> a{s_in,  g_prev, s_out,  g_out,                   \
+                             p,     T(dt),  T(gk),  T(zk),                   \
+                             tile_x, static_cast<cudaStream_t>(stream)};     \
     return static_cast<int>(swmhd::launch_substage<T>(a, conservative));     \
   }                                                                          \
   extern "C" int swmhd_multistep_##SUFFIX(                                   \

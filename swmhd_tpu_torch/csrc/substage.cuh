@@ -51,6 +51,14 @@ struct Params {
   T dx, dy, g, f, gam_bg;
   T az;                  // cell area dx·dy (divergence-form Lorentz force)
   T nu, kappa;           // the closure's diffusivities
+  // Strides in values: of the state read (between rows, between fields),
+  // and of G_prev, s_out and g_out, which the update addresses at its
+  // output point (x, y) as field·out_plane + x·out_row + y. A launch on a
+  // region of a tile reads a slab of the padded tile and writes its part
+  // of whole-tile outputs in place through them; a contiguous launch has
+  // in_row = ny, in_plane = nx·ny, out_row = ny - 2hy and out_plane =
+  // (nx - 2hx)(ny - 2hy) (substage.cu make_params).
+  size_t in_row = 0, in_plane = 0, out_row = 0, out_plane = 0;
 };
 
 // One substage: input state, G_prev (null in substage 0), outputs (g_out
@@ -156,6 +164,27 @@ __device__ __forceinline__ int clampi(int i, int n) {
 
 template <typename T>
 __device__ __forceinline__ T sq(T x) { return x * x; }
+
+// a·b + c, on the card one fma (rounded once). The Le–Moin update is
+// written with it, so that every kernel rounds the update alike: left to
+// nvcc, which product of gk·G + zk·G_prev it fused differed between the
+// one-substage and the resident instantiations once the update's
+// addressing changed (1 ulp in f64). Each update keeps the form the
+// kernels had compiled to (read off their outputs on the card). A host
+// build (no fma contraction) rounds the product and the sum apart, as the
+// plain version does.
+template <typename T>
+__device__ __forceinline__ T mul_add(T a, T b, T c) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    return __fmaf_rn(a, b, c);
+  } else {
+    return __fma_rn(a, b, c);
+  }
+#else
+  return a * b + c;
+#endif
+}
 
 // 0.5·((ũ+|ũ|)ψᴸ + (ũ−|ũ|)ψᴿ): the upwind select as arithmetic, so its
 // roundoff is that of the PyTorch version.

@@ -93,8 +93,9 @@ __device__ __forceinline__ void each_point(int a0, int a1, const F& f) {
 }
 
 // The four state windows of a tile into `win`: plane k (rows × Cols
-// slots) holds field k of the stacked state s at the local points
-// [-Lo, rows - Lo) × [-Lo, Cols - Lo), by cp.async, all issued at once,
+// slots) holds field k of the stacked state s (strides p.in_row,
+// p.in_plane) at the local points [-Lo, rows - Lo) × [-Lo, Cols - Lo),
+// by cp.async, all issued at once,
 // from the maps' wrapped, clamped or exchanged indices (Map::load), so no
 // padded copy of the state exists. Returns when the block has them.
 template <int Lo, int Cols, typename T, Axis X, Axis Y>
@@ -102,7 +103,6 @@ __device__ __forceinline__ void load_windows(T* win, const T* s,
                                              const Params<T>& p,
                                              const Map<X>& M,
                                              const Map<Y>& N, int rows) {
-  const size_t n = static_cast<size_t>(p.nx) * p.ny;
   const int plane = rows * Cols;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -111,7 +111,8 @@ __device__ __forceinline__ void load_windows(T* win, const T* s,
       const int gi = M.load(r - Lo), gj = N.load(e - r * Cols - Lo);
       __pipeline_memcpy_async(
           win + k * plane + e,
-          s + k * n + static_cast<size_t>(gi) * p.ny + gj, sizeof(T));
+          s + k * p.in_plane + static_cast<size_t>(gi) * p.in_row + gj,
+          sizeof(T));
     }
   }
   wait_copies();

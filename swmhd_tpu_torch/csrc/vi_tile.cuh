@@ -480,11 +480,12 @@ __device__ __forceinline__ void vi_substage_tile(const T* s, const T* g_prev,
       min(TY, my - y0), T(1) / p.dx, T(1) / p.dy};
 
   // the Le–Moin update of field k at tile point (a, b)
-  const size_t no = static_cast<size_t>(mx) * my;
   auto update = [&](int k, T G, int a, int b) {
-    const size_t o = k * no + static_cast<size_t>(x0 + a) * my + y0 + b;
-    const T inc = g_prev ? gk * G + zk * g_prev[o] : gk * G;
-    s_out[o] = st(k, a, b) + dt * inc;
+    const size_t o = k * p.out_plane + static_cast<size_t>(x0 + a) * p.out_row
+                     + y0 + b;
+    // the rounding this kernel had compiled to: ζG_prev fused
+    const T inc = g_prev ? mul_add(zk, g_prev[o], gk * G) : gk * G;
+    s_out[o] = mul_add(dt, inc, st(k, a, b));
     if (g_out) g_out[o] = G;
   };
 

@@ -26,14 +26,17 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
 BOTH = ("f32", "f64")
 # name -> (argtypes, the suffixes it is defined with; () for the bare name)
 _SIGNATURES = {
-    # s_in, g_prev, s_out, g_out, nx, ny, hx, hy, conservative, mode_x,
-    # mode_y, closure, momentum, mass, tracer, stencil, tile_x, dx, dy, g,
-    # f, A_bg_grad_y, nu, kappa, dt, gamma_k, zeta_k, stream
-    "swmhd_substage": ([_P] * 4 + [_I] * 13 + [_D] * 10 + [_P], BOTH),
+    # s_in, g_prev, s_out, g_out, nx, ny, hx, hy, in_row, in_plane,
+    # out_row, out_plane, conservative, mode_x, mode_y, closure, momentum,
+    # mass, tracer, stencil, tile_x, dx, dy, g, f, A_bg_grad_y, nu, kappa,
+    # dt, gamma_k, zeta_k, stream
+    "swmhd_substage": ([_P] * 4 + [_I] * 4 + [_L] * 4 + [_I] * 9
+                       + [_D] * 10 + [_P], BOTH),
     # s_in, s_out, work, gbuf, nx, ny, conservative, wall_x, wall_y,
     # closure, momentum, mass, tracer, stencil, tile_x, dx, dy, g, f,
     # A_bg_grad_y, nu, kappa, dt, n_steps, sms, stream: the resident kernel

@@ -9,7 +9,9 @@ Counterparts of the Pallas kernels of ``swmhd_tpu/ops/fused_step.py``:
 counterpart of the sharded substage of
 ``swmhd_tpu/parallel/decomposition.py`` (``fused_step_fn``): the same
 substage on a tile padded with a halo exchanged from its neighbours, its
-launches counted under the branches with an exchanged axis. The
+launches counted under the branches with an exchanged axis; with
+``out=`` and ``at=``, on a region of a tile in place (the interior and
+edge bands of the decomposition's overlap split). The
 prognostics travel stacked as one ``(4, Nx, Ny)`` tensor in the order h,
 u, v, A.
 
@@ -32,7 +34,9 @@ formulation's Lorentz forcing, a grid under 8 points) raises
 ``<wrapper>.launches`` and, by :class:`Branch` (the templated axis modes
 :data:`PERIODIC_AXIS`, :data:`BOUNDED_AXIS` and :data:`EXCHANGED_AXIS`
 and the runtime switches; :func:`branch_label` names it), in
-``<wrapper>.launches_by_branch``; :func:`multistep` also counts the
+``<wrapper>.launches_by_branch``; :func:`substage` also by what it
+computes (:func:`region_part`) in ``substage.launches_by_part``;
+:func:`multistep` also counts the
 substages its launches hold in ``multistep.substages`` and
 ``multistep.substages_by_branch``; each plain version counts its calls in
 ``<function>.calls``, so a run can show which path it took. A launch
@@ -405,8 +409,23 @@ def ready(model, s):
                          card_limits(s.device.index)[1])
 
 
+def region_part(halo, shape, at, extent):
+    """What a :func:`substage` launch computes, for
+    ``substage.launches_by_part``: ``"whole"`` (a whole domain) or
+    ``"tile"`` (a padded tile) where it writes all of its ``shape``
+    output buffers, else the part of a split tile (``parallel``'s overlap
+    split) that its ``extent`` at ``at`` covers: ``"interior"`` where it
+    stays clear of each edge of an exchanged axis, ``"band"`` where it
+    reaches one."""
+    if tuple(at) == (0, 0) and tuple(extent) == tuple(shape):
+        return "tile" if any(halo) else "whole"
+    inside = all(a > 0 and a + m < n for h, a, m, n
+                 in zip(halo, at, extent, shape) if h)
+    return "interior" if inside else "band"
+
+
 def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
-             halo=(0, 0)):
+             halo=(0, 0), out=None, at=(0, 0)):
     """One Le–Moin substage on stacked fields ``s``; returns ``(s_new,
     G)`` with ``G`` None unless ``write_G``.
 
@@ -415,31 +434,34 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
     nx + 2hx, ny + 2hy)``; ``g_prev`` and the results are ``(4, nx, ny)``.
     A padded axis must be periodic in ``model`` and is read from the halo
     (the exchanged axis mode); an axis with no pad is the whole domain's
-    and wraps or walls. The kernel's tiles are :func:`tile_shape`'s."""
+    and wraps or walls. The kernel's tiles are :func:`tile_shape`'s.
+
+    With ``out = (s_out, g_out)`` (``g_out`` None unless ``write_G``) the
+    launch computes a region of a larger tile in place: ``s`` is a slab
+    of it (a view with any strides whose rows are contiguous, such as a
+    band of the padded tile, or the unpadded tile, whose own outer ring
+    then serves as its halo), its ``(nx, ny)`` unpadded points are
+    written into ``s_out`` and ``g_out`` at ``at = (x, y)``, and
+    ``g_prev``, shaped like them, is read there; returns ``out``. Every
+    point's arithmetic is the one-launch tile's. Each launch counts in
+    ``substage.launches_by_part`` by :func:`region_part`."""
     hx, hy = halo
     g = model.grid
     for h, topo, name in ((hx, g.topology_x, "x"), (hy, g.topology_y, "y")):
         if h < 0 or (h and topo != PERIODIC):
             raise ValueError(f"a tile pads only a periodic axis: {name} is "
                              f"{topo}, halo {h}")
+    nx, ny = ((s.shape[1] - 2 * hx, s.shape[2] - 2 * hy) if s.dim() == 3
+              else (0, 0))
+    if out is not None:
+        return _substage_region(model, s, dt, stage, g_prev, write_G,
+                                halo, (nx, ny), out, at)
     if s.device.type == "cpu":
         s_new, G = substage_reference(model, s, dt, stage, g_prev, halo)
         return s_new, (G if write_G else None)
-    params = kernel_params(model)
-    branch = params.branch._replace(
-        mode_x=EXCHANGED_AXIS if hx else params.wall_x,
-        mode_y=EXCHANGED_AXIS if hy else params.wall_y)
-    nx, ny = ((s.shape[1] - 2 * hx, s.shape[2] - 2 * hy) if s.dim() == 3
-              else (0, 0))
-    if (s.shape[0] != 4 or nx < 1 or ny < 1
-            or (not hx and nx != g.Nx) or (not hy and ny != g.Ny)):
-        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}), or "
-                         f"a tile (4, nx + 2*{hx}, ny + 2*{hy}) with the "
-                         f"whole domain on an unpadded axis; got "
-                         f"{tuple(s.shape)}")
-    _check_fields(s)
-    if (stage > 0) != (g_prev is not None):
-        raise ValueError("substages 1 and 2 take G_prev; substage 0 does not")
+    params = _check_launch(model, s, stage, g_prev, halo, (nx, ny))
+    if not s.is_contiguous():
+        raise ValueError("stacked fields must be contiguous")
     shape = (4, nx, ny)
     if g_prev is not None and (tuple(g_prev.shape) != shape
                                or g_prev.dtype != s.dtype
@@ -447,18 +469,92 @@ def substage(model, s, dt, stage, g_prev=None, write_G=True, *,
                                or not g_prev.is_contiguous()):
         raise ValueError(f"G_prev must be a contiguous {shape} tensor like "
                          f"the stacked fields")
-    tile_x = _tile_x(model, nx, ny, s)
     s_out = torch.empty(shape, dtype=s.dtype, device=s.device)
     g_out = torch.empty_like(s_out) if write_G else None
+    _launch(params, model, s, g_prev, s_out, g_out, halo, (nx, ny), dt,
+            stage, region_part(halo, (nx, ny), (0, 0), (nx, ny)))
+    return s_out, g_out
+
+
+def _check_launch(model, s, stage, g_prev, halo, extent):
+    """The checks of a launch on the CUDA fields ``s`` whose unpadded
+    output is ``extent``; the model's :class:`KernelParams`."""
+    params = kernel_params(model)
+    g = model.grid
+    (hx, hy), (nx, ny) = halo, extent
+    if (s.shape[0] != 4 or nx < 1 or ny < 1
+            or (not hx and nx != g.Nx) or (not hy and ny != g.Ny)):
+        raise ValueError(f"stacked fields must be (4, {g.Nx}, {g.Ny}), or "
+                         f"a tile (4, nx + 2*{hx}, ny + 2*{hy}) with the "
+                         f"whole domain on an unpadded axis; got "
+                         f"{tuple(s.shape)}")
+    if s.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CUDA substage takes float32 or float64, "
+                         f"not {s.dtype}")
+    if (stage > 0) != (g_prev is not None):
+        raise ValueError("substages 1 and 2 take G_prev; substage 0 does not")
+    return params
+
+
+def _substage_region(model, s, dt, stage, g_prev, write_G, halo, extent,
+                     out, at):
+    """:func:`substage` with ``out``: the region ``extent`` at ``at`` of
+    the output buffers."""
+    s_out, g_out = out
+    (nx, ny), (x, y) = extent, at
+    if write_G != (g_out is not None):
+        raise ValueError("out holds g_out exactly when write_G")
+    if (s_out.dim() != 3 or s_out.shape[0] != 4 or x < 0 or y < 0
+            or x + nx > s_out.shape[1] or y + ny > s_out.shape[2]):
+        raise ValueError(f"a region of {nx}x{ny} at {tuple(at)} does not "
+                         f"lie in an output of {tuple(s_out.shape)}")
+    for t in (g_out, g_prev):
+        # the kernel takes one set of strides for the three
+        if t is not None and (t.shape != s_out.shape or t.dtype != s.dtype
+                              or t.device != s.device
+                              or (s.is_cuda and t.stride() != s_out.stride())):
+            raise ValueError(f"G_prev and g_out must be laid out like "
+                             f"s_out, {tuple(s_out.shape)} "
+                             f"{tuple(s_out.stride())}")
+
+    def region(t):
+        return None if t is None else t[:, x:x + nx, y:y + ny]
+    if s.device.type == "cpu":
+        s_new, G = substage_reference(model, s, dt, stage, region(g_prev),
+                                      halo)
+        region(s_out).copy_(s_new)
+        if g_out is not None:
+            region(g_out).copy_(G)
+        return out
+    params = _check_launch(model, s, stage, g_prev, halo, extent)
+    if s.stride(2) != 1 or s_out.stride(2) != 1 or s_out.dtype != s.dtype:
+        raise ValueError("the stacked fields and the outputs need "
+                         "contiguous rows of one dtype")
+    _launch(params, model, s, region(g_prev), region(s_out), region(g_out),
+            halo, extent, dt, stage,
+            region_part(halo, s_out.shape[1:], at, extent))
+    return out
+
+
+def _launch(params, model, s, g_prev, s_out, g_out, halo, extent, dt,
+            stage, part):
+    """One ``swmhd_substage`` launch on the current stream, each array
+    passed with its strides (``g_prev``, ``s_out`` and ``g_out`` the
+    output region's views), counted."""
+    hx, hy = halo
+    branch = params.branch._replace(
+        mode_x=EXCHANGED_AXIS if hx else params.wall_x,
+        mode_y=EXCHANGED_AXIS if hy else params.wall_y)
     fn = _lib_fn("swmhd_substage", s.dtype)
     stream = torch.cuda.current_stream(s.device).cuda_stream
-    err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), nx, ny, hx,
-             hy, *branch, tile_x, *params[8:], float(dt), RK3_GAMMA[stage],
-             RK3_ZETA[stage], stream)
+    err = fn(_ptr(s), _ptr(g_prev), _ptr(s_out), _ptr(g_out), *extent, hx,
+             hy, s.stride(1), s.stride(0), s_out.stride(1), s_out.stride(0),
+             *branch, _tile_x(model, *extent, s), *params[8:], float(dt),
+             RK3_GAMMA[stage], RK3_ZETA[stage], stream)
     substage.launches += 1
     substage.launches_by_branch[branch] += 1
+    substage.launches_by_part[part] += 1
     _raise_on(err, "swmhd_substage")
-    return s_out, g_out
 
 
 def multistep(model, s, dt, n_steps):
@@ -504,7 +600,8 @@ def windowed_steps(model, s, dt, n_steps):
 
 
 # each wrapper's counters
-_COUNTERS = {substage: ("launches", "launches_by_branch"),
+_COUNTERS = {substage: ("launches", "launches_by_branch",
+                        "launches_by_part"),
              multistep: ("launches", "launches_by_branch", "substages",
                          "substages_by_branch")}
 
@@ -513,7 +610,7 @@ def reset_counters():
     for f, attrs in _COUNTERS.items():
         for attr in attrs:
             setattr(f, attr, collections.Counter()
-                    if attr.endswith("_by_branch") else 0)
+                    if "_by_" in attr else 0)
     for f in (substage_reference, multistep_reference):
         f.calls = 0
 

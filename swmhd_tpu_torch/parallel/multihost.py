@@ -14,7 +14,10 @@ layout, once, and logs it:
   collectives below stage CUDA tensors through host memory on gloo.
 
 Nothing switches the backend afterwards. With no process group (one
-process), every collective here is a no-op on the local data.
+process), every collective here is a no-op on the local data. A halo
+exchange can be posted and finished apart (:class:`Exchange`), so that
+work launched between the two runs beside it; :func:`exchange` does both
+at once.
 """
 
 from __future__ import annotations
@@ -105,45 +108,86 @@ def all_gather(t: torch.Tensor):
     return [b.to(t.device) for b in bufs]
 
 
+class Exchange:
+    """A halo exchange (:func:`exchange`) posted by the constructor, which
+    takes at least one slab; :meth:`wait` finishes it.
+
+    On NCCL the sends and receives are enqueued at once, on NCCL's stream
+    after the current stream's work so far: a kernel launched on the
+    current stream between the post and :meth:`wait` runs beside the
+    transfer. Staged through host memory (gloo with CUDA tensors), the
+    post copies the slabs into pinned host buffers on the current stream
+    and marks the copies with an event, so kernels launched after it are
+    not waited for; :meth:`wait` waits for that event alone, runs gloo's
+    transfer on the host while the card computes, and copies what arrived
+    back on the current stream without a host sync. On CPU tensors gloo
+    transfers in its own threads from the post on."""
+
+    def __init__(self, send_low, send_high, low_rank: int, high_rank: int):
+        like = send_low if send_low is not None else send_high
+        self.device = like.device
+        self.staged = _staged(like)
+        self.reqs = []
+        # (slab, rank, tag) of the sends; the receives, keyed by the side
+        # they fill, come from the opposite neighbour's send
+        self.sends = [(t, r, tag) for t, r, tag in
+                      ((send_low, low_rank, TAG_LOW),
+                       (send_high, high_rank, TAG_HIGH)) if t is not None]
+        host = dict(device="cpu", pin_memory=True) if self.staged else dict(
+            device=like.device)
+        self.recv = {}
+        if send_high is not None:   # high_rank's low slab, sent with TAG_LOW
+            self.recv["high"] = (torch.empty(send_high.shape,
+                                             dtype=like.dtype, **host),
+                                 high_rank, TAG_LOW)
+        if send_low is not None:
+            self.recv["low"] = (torch.empty(send_low.shape, dtype=like.dtype,
+                                            **host), low_rank, TAG_HIGH)
+        if self.staged:
+            self.sends = [(torch.empty(t.shape, dtype=t.dtype, **host).copy_(
+                t, non_blocking=True), r, tag) for t, r, tag in self.sends]
+            self.copied = torch.cuda.Event()
+            self.copied.record()
+        else:
+            self.sends = [(t.contiguous(), r, tag) for t, r, tag in self.sends]
+            self._start()
+
+    def _start(self):
+        """Posts the sends, then the receives in the order of the sends
+        they match: when both neighbours are the same rank (two tiles on a
+        periodic axis), NCCL matches the messages by order and gloo by
+        tag."""
+        ops = [dist.P2POp(dist.isend, t, r, tag=tag)
+               for t, r, tag in self.sends]
+        ops += [dist.P2POp(dist.irecv, t, r, tag=tag)
+                for t, r, tag in self.recv.values()]
+        self.reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def wait(self):
+        """``(from_low, from_high)`` (:func:`exchange`), usable on the
+        current stream."""
+        if self.staged:
+            self.copied.synchronize()
+            self._start()
+        for req in self.reqs:
+            req.wait()
+        got = {k: t.to(self.device, non_blocking=True)
+               for k, (t, _, _) in self.recv.items()}
+        return got.get("low"), got.get("high")
+
+
 def exchange(send_low, send_high, low_rank: int, high_rank: int):
     """Send ``send_low`` to ``low_rank`` and ``send_high`` to ``high_rank``
     (either may be None: nothing goes that way); return ``(from_low,
     from_high)``, what ``low_rank`` sent up and ``high_rank`` sent down,
     shaped like the slab this rank sent the other way.
 
-    The receives are posted in the order of the sends they match, and
-    each message carries a tag saying which way it goes: when both
-    neighbours are the same rank (two tiles on a periodic axis), NCCL
-    matches the messages by order and gloo by tag."""
-    ops, recv = [], {}
-    like = send_low if send_low is not None else send_high
-    staged = _staged(like)
-
-    def out(t):
-        t = t.contiguous()
-        return t.cpu() if staged else t
-
-    if send_low is not None:
-        ops.append(dist.P2POp(dist.isend, out(send_low), low_rank,
-                              tag=TAG_LOW))
-    if send_high is not None:
-        ops.append(dist.P2POp(dist.isend, out(send_high), high_rank,
-                              tag=TAG_HIGH))
-    if send_high is not None:   # high_rank's low slab, sent with TAG_LOW
-        recv["high"] = torch.empty(send_high.shape, dtype=like.dtype,
-                                   device="cpu" if staged else like.device)
-        ops.append(dist.P2POp(dist.irecv, recv["high"], high_rank,
-                              tag=TAG_LOW))
-    if send_low is not None:
-        recv["low"] = torch.empty(send_low.shape, dtype=like.dtype,
-                                  device="cpu" if staged else like.device)
-        ops.append(dist.P2POp(dist.irecv, recv["low"], low_rank,
-                              tag=TAG_HIGH))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    got = {k: v.to(like.device) for k, v in recv.items()}
-    return got.get("low"), got.get("high")
+    Each message carries a tag saying which way it goes, and the receives
+    are posted in the order of the sends they match (:class:`Exchange`).
+    An :class:`Exchange` posted and waited for at once."""
+    if send_low is None and send_high is None:
+        return None, None
+    return Exchange(send_low, send_high, low_rank, high_rank).wait()
 
 
 def process_local_slab(mesh, Nx: int, Ny: int):

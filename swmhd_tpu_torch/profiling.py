@@ -300,13 +300,17 @@ def _events(path: str):
     return [e for e in evs if e.get("ph") == "X" and "dur" in e]
 
 
-def parse_overlap(path: str) -> dict:
+def parse_overlap(path: str, kernel: Optional[Callable] = None) -> dict:
     """Overlap statistics from a Chrome trace (``.json`` or ``.json.gz``):
     the JAX package's traces by its name rules (:func:`_classify`), the
-    port's by :func:`_classify_torch`."""
+    port's by :func:`_classify_torch`. With ``kernel``, a predicate on the
+    trace's kernel events (``cat`` "kernel"), also ``kernel_ms`` (their
+    device time), ``kernel_hidden_ms`` (the exchange time they cover) and
+    ``n_kernel_events``: how much of the exchange lies under chosen
+    kernels, such as the interior of the overlap split."""
     evs = _events(path)
     on_card = any(e.get("cat") in _DEVICE_CATS for e in evs)
-    comm, compute = [], []
+    comm, compute, chosen = [], [], []
     for e in evs:
         cat, name = e.get("cat"), e.get("name", "")
         kind = (_classify_torch(name, cat, on_card) if cat in _TORCH_CATS
@@ -315,11 +319,13 @@ def parse_overlap(path: str) -> dict:
             continue
         span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
         (comm if kind == "comm" else compute).append(span)
+        if kernel is not None and cat == "kernel" and kernel(e):
+            chosen.append(span)
     comm_u = _merge(comm)
     comp_u = _merge(compute)
     comm_us = sum(b - a for a, b in comm_u)
     hidden_us = sum(_covered(s, comp_u) for s in comm_u)
-    return {
+    out = {
         "comm_ms": comm_us / 1e3,
         "compute_ms": sum(b - a for a, b in comp_u) / 1e3,
         "hidden_ms": hidden_us / 1e3,
@@ -327,6 +333,13 @@ def parse_overlap(path: str) -> dict:
         "n_comm_events": len(comm),
         "n_compute_events": len(compute),
     }
+    if kernel is not None:
+        chosen_u = _merge(chosen)
+        out.update(kernel_ms=sum(b - a for a, b in chosen_u) / 1e3,
+                   kernel_hidden_ms=sum(_covered(s, chosen_u)
+                                        for s in comm_u) / 1e3,
+                   n_kernel_events=len(chosen))
+    return out
 
 
 def device_busy(path: str) -> dict:
@@ -347,10 +360,11 @@ def device_busy(path: str) -> dict:
             "n_kernels": sum(e.get("cat") == "kernel" for e in evs)}
 
 
-def measure_overlap(step_fn: Callable, state, logdir: Optional[str] = None
-                    ) -> dict:
+def measure_overlap(step_fn: Callable, state, logdir: Optional[str] = None,
+                    kernel: Optional[Callable] = None) -> dict:
     """Run ``step_fn`` once under :func:`trace` and return
-    :func:`parse_overlap` of the trace. A warm-up call comes first, under
+    :func:`parse_overlap` of the trace (with ``kernel``, its statistics of
+    the chosen kernels too). A warm-up call comes first, under
     a trace of its own, so the measured trace holds steady-state work
     and no profiler start-up: a rank whose profiler starts first would
     otherwise count its wait for the others' as exchange. In a run of
@@ -372,7 +386,7 @@ def measure_overlap(step_fn: Callable, state, logdir: Optional[str] = None
         path = os.path.join(tmp, TRACE_FILE)
         if not os.path.exists(path):
             return {"overlap_pct": None, "error": "no trace written"}
-        return parse_overlap(path)
+        return parse_overlap(path, kernel)
     finally:
         if logdir is None:
             shutil.rmtree(tmp, ignore_errors=True)

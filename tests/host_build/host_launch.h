@@ -72,10 +72,24 @@ Params<T> host_params(int nx, int ny, int hx, int hy, int mode_x,
                       int tracer, int stencil, double dx, double dy,
                       double g, double f, double gam_bg, double nu,
                       double kappa) {
+  const size_t px = nx + 2 * hx, py = ny + 2 * hy;
   return Params<T>{nx + 2 * hx, ny + 2 * hy, hx, hy, mode_x, mode_y,
                    closure, momentum, mass, tracer, stencil,
                    T(dx), T(dy), T(g), T(f), T(gam_bg), T(dx * dy),
-                   T(nu), T(kappa)};
+                   T(nu), T(kappa), py, px * py, static_cast<size_t>(ny),
+                   static_cast<size_t>(nx) * ny};
+}
+
+// host_params with the strides of a launch on a region (substage.cu
+// swmhd_substage)
+template <typename T>
+Params<T> with_strides(Params<T> p, long long in_row, long long in_plane,
+                       long long out_row, long long out_plane) {
+  p.in_row = in_row;
+  p.in_plane = in_plane;
+  p.out_row = out_row;
+  p.out_plane = out_plane;
+  return p;
 }
 
 }  // namespace swmhd
@@ -101,8 +115,26 @@ Params<T> host_params(int nx, int ny, int hx, int hy, int mode_x,
 
 // swmhd_substage's arguments (substage.cu) without the stream, for a
 // host entry point NAME_SUFFIX that calls substage<T> of its file: nx, ny
-// are the unpadded extents.
+// are the unpadded extents, every array contiguous; and NAME_region_SUFFIX
+// with the strides of a launch on a region (in_row, in_plane, out_row,
+// out_plane after hy).
 #define SWMHD_HOST_ENTRY(NAME, T, SUFFIX)                                    \
+  extern "C" int NAME##_region_##SUFFIX(                                     \
+      const T* s, const T* g_prev, T* s_out, T* g_out, int nx, int ny,       \
+      int hx, int hy, long long in_row, long long in_plane,                  \
+      long long out_row, long long out_plane, int mode_x, int mode_y,        \
+      int closure, int momentum, int mass, int tracer, int stencil,          \
+      int tile_x, double dx, double dy, double g, double f, double gam_bg,   \
+      double nu, double kappa, double dt, double gk, double zk) {            \
+    return swmhd::substage<T>(                                               \
+        s, g_prev, s_out, g_out,                                             \
+        swmhd::with_strides(                                                 \
+            swmhd::host_params<T>(nx, ny, hx, hy, mode_x, mode_y, closure,   \
+                                  momentum, mass, tracer, stencil, dx, dy,   \
+                                  g, f, gam_bg, nu, kappa),                  \
+            in_row, in_plane, out_row, out_plane),                           \
+        tile_x, T(dt), T(gk), T(zk));                                        \
+  }                                                                          \
   extern "C" int NAME##_##SUFFIX(                                            \
       const T* s, const T* g_prev, T* s_out, T* g_out, int nx, int ny,       \
       int hx, int hy, int mode_x, int mode_y, int closure, int momentum,     \

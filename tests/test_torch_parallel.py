@@ -31,7 +31,8 @@ import torch
 import torch_dist_worker as W
 import swmhd_tpu
 import swmhd_tpu_torch
-from chip_smoke import OPTIONS, bench_model, initial_fields, option_kwargs
+from chip_smoke import (OPTIONS, bench_model, cut_tile, initial_fields,
+                        option_kwargs, split_against_tile, tile_layout)
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
                        divergence_lorentz_forcing as jdivforce)
@@ -158,6 +159,14 @@ def run(tmp_path_factory):
             m = jax_case(formulation, topo, "biharmonic")[0]
             refs[("biharmonic", formulation, topo)] = jax_steps(
                 m, cases[(formulation, topo)][1], W.DT, W.STEPS)
+        for _, formulation, topo, options in W.OVERLAP:
+            key = ("overlap", formulation, topo, options)
+            if key not in refs:
+                jdd = JDomainDecomposition(
+                    jax_case(formulation, topo, options)[0],
+                    jmake_mesh(shape=(2, 2)), overlap=True)
+                refs[key] = jax.device_get(jdd.step_fn(W.DT, W.STEPS)(
+                    jdd.shard_state(cases[(formulation, topo)][1])))
         m, s = cases[("vector_invariant", "PP")]
         refs["6 steps"] = jax_steps(m, refs[("vector_invariant", "PP")],
                                     W.DT, W.STEPS)
@@ -216,6 +225,26 @@ def test_biharmonic_decomposed_step_matches_jax(run, kind, formulation,
         work / (W.name(f"biharmonic_{kind}", formulation, topo, mesh)
                 + ".npz"), refs[("biharmonic", formulation, topo)])
     assert it == W.STEPS
+
+
+@pytest.mark.parametrize("kind,formulation,topo,options", W.OVERLAP,
+                         ids=[W.overlap_name(*c) for c in W.OVERLAP])
+def test_overlap_step_matches_jax_and_the_ordinary_step(
+        run, kind, formulation, topo, options):
+    """Four ranks on a 2x2 mesh, the overlap split (the interior while
+    the exchange is in flight, then the edge bands): JAX's
+    ``DomainDecomposition(..., overlap=True).step_fn`` on four CPU devices
+    and the port's own step without the split, each within 1e-12 (the
+    same arithmetic at every point: bit for bit is what the CPU gives)."""
+    work, refs, _ = run
+    got = work / (W.overlap_name(kind, formulation, topo, options) + ".npz")
+    _, it = assert_state_close(got, refs[("overlap", formulation, topo,
+                                          options)])
+    assert it == W.STEPS
+    with np.load(work / (W.overlap_name(kind, formulation, topo, options,
+                                        overlap=False) + ".npz")) as o:
+        assert_state_close(got, dataclasses.make_dataclass(
+            "Ordinary", FIELDS)(*(o[k] for k in FIELDS)))
 
 
 @pytest.mark.parametrize("stepper", ["plain", "fused"])
@@ -452,10 +481,15 @@ def test_meshes_and_what_is_not_ported():
     with pytest.raises(ValueError, match="does not hold"):
         make_mesh(4, shape=(3, 1))
     tm = bench_model(16, torch.float64, "cpu")[0]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        DomainDecomposition(tm, Mesh(1, 1), overlap=True)
+    # overlap is accepted; the split needs 3 * halo <= min(nx, ny)
+    dd = DomainDecomposition(tm, Mesh(1, 1), overlap=True)
+    assert dd.overlap and not dd.split
+    assert DomainDecomposition(tm, Mesh(1, 1), halo=5, overlap=True).split
+    assert not DomainDecomposition(tm, Mesh(1, 1), halo=5).split
     with pytest.raises(ValueError, match="needs 4 processes"):
         DomainDecomposition(tm, Mesh(2, 2))
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        DomainDecomposition(tm, Mesh(2, 2), overlap=True)
     assert tm.exchange_halo == 6 and DomainDecomposition(tm).halo == 6
 
 
@@ -471,6 +505,80 @@ def test_single_process_decomposition_steps_like_the_model():
         assert torch.allclose(K.stack(got), K.stack(want), rtol=0,
                               atol=1e-13)
         assert got.clock == want.clock
+
+
+@pytest.mark.parametrize("formulation", W.FORMULATIONS)
+@pytest.mark.parametrize("topo", sorted(W.TOPOLOGIES))
+def test_single_process_split_steps_like_the_ordinary_step(formulation,
+                                                          topo):
+    """A 1x1 mesh of a 24² grid (3 · 6 <= 24): the split pads by local
+    wraps or clamps, and both steppers (the kernel stepper where x is
+    periodic) give the ordinary step bit for bit."""
+    tm, st = bench_model(24, torch.float64, "cpu", formulation,
+                         W.TOPOLOGIES[topo], W.gamma(topo), walls=True)
+    a, b = DomainDecomposition(tm), DomainDecomposition(tm, overlap=True)
+    assert b.split and not a.split
+    kinds = ["step_fn"] + (["fused_step_fn"] if topo == "PP" else [])
+    for kind in kinds:
+        want = getattr(a, kind)(W.DT, 2)(a.shard_state(st))
+        got = getattr(b, kind)(W.DT, 2)(b.shard_state(st))
+        assert torch.equal(K.stack(got), K.stack(want)), kind
+        assert got.clock == want.clock
+
+
+@pytest.mark.parametrize("formulation", W.FORMULATIONS)
+@pytest.mark.parametrize("options,halo", [(None, 6), ("biharmonic", 7)])
+def test_split_of_the_tile_substage_reference_is_one_tile_substage(
+        formulation, options, halo):
+    """The interior on the unpadded tile and the four bands on slabs of
+    the padded tile, each written in place through ``substage(...,
+    out=, at=)``, on the last tile of a 2x2 cut of a 256² state (sliced
+    with wrap): G and the state of substages 0 and 1 equal one tile
+    substage's (its plain version here), within 1e-12 and, as every
+    point's arithmetic is the same, bit for bit; each region call is a
+    plain call and no launch."""
+    tm, st = bench_model(256, torch.float64, "cpu", formulation)
+    tm = dataclasses.replace(tm, **option_kwargs(
+        options, swmhd_tpu_torch, W.BIHARMONIC_NU))
+    assert tm.exchange_halo == halo
+    tiles, pad = tile_layout(256, 256, (2, 2), halo)
+    p = cut_tile(K.stack(st), tiles[-1], *pad)
+    K.reset_counters()
+    worst, bitwise = split_against_tile(K, tm, p, W.DT, pad)
+    assert worst <= 1e-12 and bitwise, worst
+    # 2 tile substages, 2 splits of an interior and four bands
+    assert K.substage_reference.calls == 2 + 2 * 5
+    assert K.substage.launches == 0
+
+
+def test_region_outside_the_output_is_refused():
+    tm, st = bench_model(24, torch.float64, "cpu")
+    s = K.stack(st)
+    out = (torch.empty_like(s), torch.empty_like(s))
+    with pytest.raises(ValueError, match="does not lie"):
+        K.substage(tm, s, W.DT, 0, halo=(0, 0), out=out, at=(1, 0))
+    with pytest.raises(ValueError, match="exactly when write_G"):
+        K.substage(tm, s, W.DT, 0, write_G=False, out=out)
+    with pytest.raises(ValueError, match="laid out like"):
+        K.substage(tm, s, W.DT, 1, s[:, :, :12], out=out)
+
+
+def test_region_parts_name_interior_and_bands():
+    from swmhd_tpu_torch.parallel.decomposition import band_slabs
+    part = K.region_part
+    assert part((0, 0), (24, 24), (0, 0), (24, 24)) == "whole"
+    assert part((6, 6), (32, 32), (0, 0), (32, 32)) == "tile"
+    assert part((6, 6), (32, 32), (6, 6), (20, 20)) == "interior"
+    assert part((0, 6), (64, 32), (0, 6), (64, 20)) == "interior"
+    bands = band_slabs(32, 32, 6, 6)
+    assert [b[2] for b in bands] == [(0, 0), (26, 0), (0, 0), (0, 26)]
+    assert [(r.stop - r.start, c.stop - c.start) for r, c, _ in bands] == [
+        (18, 44), (18, 44), (44, 18), (44, 18)]
+    extents = [(6, 32), (6, 32), (32, 6), (32, 6)]
+    assert {part((6, 6), (32, 32), at, e)
+            for (_, _, at), e in zip(bands, extents)} == {"band"}
+    assert [b[2] for b in band_slabs(16, 64, 6, 0)] == [(0, 0), (10, 0)]
+    assert [b[2] for b in band_slabs(64, 16, 0, 6)] == [(0, 0), (0, 10)]
 
 
 # -- the readers ------------------------------------------------------------------
@@ -570,3 +678,31 @@ def test_tile_kernel_is_the_substage_kernel_on_a_tile(cuda, formulation,
         K.kernel_params(tm).branch._replace(
             mode_x=E if px > 1 else K.PERIODIC_AXIS,
             mode_y=E if py > 1 else K.kernel_params(tm).wall_y)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("formulation", W.FORMULATIONS)
+@pytest.mark.parametrize("topo,mesh,options", [
+    ("PP", (2, 2), None), ("PP", (2, 2), "biharmonic"), ("PB", (4, 1), None),
+    ("PB", (4, 1), "biharmonic"), ("PP", (1, 2), None)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_split_launches_are_the_tile_launch(cuda, formulation, topo, mesh,
+                                            options, dtype):
+    """On the card the overlap split's launches (the interior on the
+    unpadded tile, a band on each slab of the padded tile, each writing
+    its region in place) give G and the state of substages 0 and 1 bit
+    for bit as the one tile launch does, on the last tile of ``mesh`` of
+    a 128² grid at the model's halo (6; 7 with the biharmonic closure),
+    with walls where the tile holds whole rows."""
+    tm, st = bench_model(128, dtype, cuda, formulation, W.TOPOLOGIES[topo],
+                         W.gamma(topo), walls=True)
+    tm = dataclasses.replace(tm, **option_kwargs(
+        options, swmhd_tpu_torch, W.BIHARMONIC_NU if options else 0.0))
+    tiles, pad = tile_layout(128, 128, mesh, tm.exchange_halo)
+    p = cut_tile(K.stack(st), tiles[-1], *pad)
+    K.reset_counters()
+    worst, bitwise = split_against_tile(K, tm, p, W.DT, pad)
+    assert bitwise, worst
+    bands = 2 * sum(h > 0 for h in pad)
+    assert K.substage.launches_by_part == {"tile": 2, "interior": 2,
+                                           "band": 2 * bands}

@@ -171,6 +171,26 @@ def test_parse_overlap_torch_rules(tmp_path):
     assert got["hidden_ms"] == pytest.approx(10e-3)
 
 
+def test_parse_overlap_of_chosen_kernels(tmp_path):
+    """With a kernel predicate: the chosen kernels' device time and the
+    exchange they cover (the interior of the overlap split under a gloo
+    transfer), beside the totals, which do not change."""
+    evs = [x("void swmhd::vi_substage<float, 2, 2>", 0, 100, cat="kernel",
+             args={"grid": [32, 127, 1]}),
+           x("void swmhd::vi_substage<float, 2, 2>", 120, 10, cat="kernel",
+             args={"grid": [32, 1, 1]}),
+           x("c10d::recv_", 50, 75, cat="cpu_op"),
+           x("gloo:send", 20, 10, cat="user_annotation")]
+    path = write_trace(str(tmp_path / "k.json"), evs)
+    got = profiling.parse_overlap(
+        path, kernel=lambda e: e["args"]["grid"][1] > 1)
+    assert got == {**profiling.parse_overlap(path),
+                   "kernel_ms": pytest.approx(0.1),
+                   "kernel_hidden_ms": pytest.approx(60e-3),  # 20..30, 50..100
+                   "n_kernel_events": 1}
+    assert got["hidden_ms"] == pytest.approx(65e-3)   # and 120..125
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     model = small_model()
     state = model.initial_state(h=1.0)

@@ -51,7 +51,8 @@ def jax_scaling(monkeypatch):
 
 
 def jax_rows(mod, mode, monkeypatch, capsys):
-    """The JAX sweep's rows over 8 devices at RATES (no overlap rows)."""
+    """The JAX sweep's rows over 8 devices at RATES, with and without
+    overlap above one device."""
     monkeypatch.setattr(jax, "devices", lambda: [
         types.SimpleNamespace(device_kind="fake")] * 8)
     monkeypatch.setattr(
@@ -63,16 +64,16 @@ def jax_rows(mod, mode, monkeypatch, capsys):
                                       "512"])
     mod.main()
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    return [r for r in out["results"] if not r["overlap"]]
+    return out["results"]
 
 
 def port_rows(mode, monkeypatch, capsys):
     """The port's rows over 8 ranks with each rank count's run stubbed
     at RATES."""
     monkeypatch.setattr(
-        scaling, "run_ranks", lambda n, Nx, Ny, steps, device: {
-            "points_per_s": RATES[(n, False)], "launches": {},
-            "overlap_pct": None,
+        scaling, "run_ranks", lambda n, Nx, Ny, steps, device, overlap: {
+            "points_per_s": RATES[(n, overlap)], "launches": {},
+            "split": overlap, "overlap_pct": None,
             "comm_ms": None, "device_kind": "fake"})
     out = scaling.main(["--mode", mode, "--local", "64", "--global-size",
                         "512", "--max-ranks", "8", "--device", "cpu"])
@@ -84,11 +85,20 @@ def port_rows(mode, monkeypatch, capsys):
 
 @pytest.mark.parametrize("mode", ["weak", "strong"])
 def test_rows_match_the_jax_sweep(mode, jax_scaling, monkeypatch, capsys):
-    """For n = 1, 2, 4, 8: the same grid, points/s and efficiency as
-    ``benchmarks/scaling.py:93-111`` at the same rates."""
+    """For n = 1, 2, 4, 8, above one without and with overlap: the same
+    rows, grid, points/s and efficiency as ``benchmarks/scaling.py:93-111``
+    at the same rates; every row carries its launches, and above one rank
+    its split, overlap share and exchange time."""
     want = jax_rows(jax_scaling, mode, monkeypatch, capsys)
     got = port_rows(mode, monkeypatch, capsys)
-    assert [r["devices"] for r in got] == [1, 2, 4, 8]
+    assert [(r["devices"], r["overlap"]) for r in got] == [
+        (1, False), (2, False), (2, True), (4, False), (4, True),
+        (8, False), (8, True)]
+    assert len(got) == len(want)
+    for r in got:
+        assert "launches" in r
+        assert ({"split", "overlap_pct", "comm_ms"} <= set(r)) == (
+            r["devices"] > 1)
     for g, w in zip(got, want):
         assert {k: g[k] for k in ("devices", "grid", "overlap",
                                   "points_per_s", "efficiency")} == {
@@ -130,7 +140,21 @@ def test_two_rank_worker_on_cpu():
     overlap of a traced call."""
     rep = scaling.run_ranks(2, 16, 32, 2, "cpu")
     assert rep["device_kind"] == "cpu"
-    assert rep["launches"] == {"substage": 0, "multistep": 0}
+    assert rep["launches"] == {"substage": 0, "multistep": 0,
+                               "substage_by_part": {}}
+    assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
+    assert rep["comm_ms"] > 0
+    assert 0.0 <= rep["overlap_pct"] <= 100.0
+
+
+def test_two_rank_worker_with_the_split_on_cpu():
+    """Two ranks on 24² tiles (a 1×2 mesh, 3 · 6 <= 24) with overlap: the
+    split is taken (its launches are plain calls here), and rank 0's
+    traced call has exchange events."""
+    rep = scaling.run_ranks(2, 24, 48, 2, "cpu", overlap=True)
+    assert rep["split"] is True
+    assert rep["launches"] == {"substage": 0, "multistep": 0,
+                               "substage_by_part": {}}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["comm_ms"] > 0
     assert 0.0 <= rep["overlap_pct"] <= 100.0
@@ -141,7 +165,8 @@ def test_one_rank_worker_on_cpu():
     never holds the card: the plain step, no overlap measured."""
     rep = scaling.run_ranks(1, 16, 16, 2, "cpu")
     assert rep["device_kind"] == "cpu"
-    assert rep["launches"] == {"substage": 0, "multistep": 0}
+    assert rep["launches"] == {"substage": 0, "multistep": 0,
+                               "substage_by_part": {}}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["overlap_pct"] is None and rep["comm_ms"] is None
 
@@ -189,12 +214,18 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_two_ranks_share_the_card():
+@pytest.mark.parametrize("overlap", [False, True])
+def test_two_ranks_share_the_card(overlap):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    rep = scaling.run_ranks(2, 64, 128, 5, "cuda")
+    rep = scaling.run_ranks(2, 64, 128, 5, "cuda", overlap)
     assert rep["device_kind"] == torch.cuda.get_device_name(0)
-    # rank 0's tile substages: 3 a step, 5 steps a call, 7 calls
-    assert rep["launches"] == {"substage": 105, "multistep": 0}
+    # rank 0's tile substages: 3 a step, 5 steps a call, 7 calls; with
+    # the split (64² tiles of a 1×2 mesh) an interior and two bands each
+    parts = ({"interior": 105, "band": 210} if overlap
+             else {"tile": 105})
+    assert rep["split"] == overlap
+    assert rep["launches"] == {"substage": sum(parts.values()),
+                               "multistep": 0, "substage_by_part": parts}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["comm_ms"] > 0

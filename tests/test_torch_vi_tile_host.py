@@ -57,9 +57,8 @@ def _gxx():
     return gxx
 
 
-def build_host(tmp_path_factory, name):
-    """The two entry points of ``tests/host_build/<name>.cpp`` built with
-    g++, by dtype."""
+def compile_host(tmp_path_factory, name):
+    """``tests/host_build/<name>.cpp`` built with g++, loaded."""
     out = tmp_path_factory.mktemp(name) / f"{name}.so"
     build = subprocess.run(
         [_gxx(), "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
@@ -67,7 +66,13 @@ def build_host(tmp_path_factory, name):
          os.path.join(SHIM, f"{name}.cpp"), "-o", str(out)],
         capture_output=True, text=True)
     assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def build_host(tmp_path_factory, name, lib=None):
+    """The two entry points of ``tests/host_build/<name>.cpp`` built with
+    g++ (or of ``lib``, that build loaded), by dtype."""
+    lib = lib or compile_host(tmp_path_factory, name)
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fns = {}
     for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):

@@ -31,6 +31,16 @@ FUSED = [(f, "PP", (2, 2)) for f in FORMULATIONS] + [
 BIHARMONIC = [("vector_invariant", "PP", (2, 2)),
               ("conservative", "PB", (4, 1))]
 BIHARMONIC_NU = 5e-4       # ν·dt/dx⁴ ≈ 0.004 at 64²
+# (kind, formulation, topology key, options) of the overlap split on a 2x2
+# mesh (32² tiles: 3·halo <= 32 at halo 6 and 7): the plain step ("plain")
+# and the kernel stepper ("fused", its plain tile version here)
+OVERLAP = [("plain", "vector_invariant", "PP", None),
+           ("plain", "vector_invariant", "PB", None),
+           ("plain", "vector_invariant", "BB", None),
+           ("plain", "conservative", "PP", None),
+           ("fused", "vector_invariant", "PP", None),
+           ("fused", "conservative", "PP", None),
+           ("fused", "vector_invariant", "PP", "biharmonic")]
 SCENARIO = "64x64_low_B_low_U"
 SERIES_STEPS = 4
 FIELD_STEPS, FIELD_EVERY = 2 * STEPS, STEPS
@@ -46,6 +56,11 @@ def key(formulation, topo):
 
 def name(kind, formulation, topo, mesh):
     return f"{kind}_{formulation}_{topo}_{mesh[0]}x{mesh[1]}"
+
+
+def overlap_name(kind, formulation, topo, options, overlap=True):
+    return (f"{'overlap' if overlap else 'ordinary'}_{kind}_{formulation}_"
+            f"{topo}" + (f"_{options}" if options else ""))
 
 
 def main():
@@ -163,6 +178,40 @@ def main():
             out = fn(DT, STEPS)(dd.shard_state(state))
             save(name(f"biharmonic_{kind}", formulation, topo, mesh),
                  dd.gather_state(out))
+
+    # -- the overlap split (2x2 mesh) beside the ordinary step; on a 4x1
+    # mesh (16-row tiles, 3·6 > 16) the rule refuses it
+    for kind, formulation, topo, options in OVERLAP:
+        model, state = case(formulation, topo)
+        if options:
+            model = dataclasses.replace(model, **option_kwargs(
+                options, swmhd_tpu_torch, BIHARMONIC_NU))
+        for overlap in (False, True):
+            dd = DomainDecomposition(model, make_mesh(shape=(2, 2)),
+                                     overlap=overlap)
+            assert dd.split == overlap, (overlap, dd.split)
+            fn = dd.step_fn if kind == "plain" else dd.fused_step_fn
+            K.reset_counters()
+            out = fn(DT, STEPS)(dd.shard_state(state))
+            if kind == "fused":
+                # a substage: the interior and four bands, or one launch
+                assert K.substage_reference.calls == (
+                    (5 if overlap else 1) * 3 * STEPS), \
+                    K.substage_reference.calls
+            save(overlap_name(kind, formulation, topo, options, overlap),
+                 dd.gather_state(out))
+    model, state = case("vector_invariant", "PP")
+    refused = {}
+    for overlap in (False, True):
+        dd = DomainDecomposition(model, make_mesh(shape=(4, 1)),
+                                 overlap=overlap)
+        assert not dd.split and dd.overlap == overlap
+        tile = dd.shard_state(state)
+        K.reset_counters()
+        refused[overlap] = [K.stack(fn(DT, STEPS)(tile))
+                            for fn in (dd.step_fn, dd.fused_step_fn)]
+        assert K.substage_reference.calls == 3 * STEPS
+    assert all(torch.equal(a, b) for a, b in zip(*refused.values()))
 
     # -- a Simulation with an energy series through both steppers
     model, state = case("vector_invariant", "PP")
