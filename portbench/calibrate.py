@@ -1,0 +1,88 @@
+"""Readings that the limits of ``correct`` are set from: the program's
+numbers on many seeds, and the control's, the plain reference computed in
+bfloat16 (the step below the configurations' float32) put in the
+program's place and judged by the harness's own comparison, on the first
+few. A control that comes out correct makes the exit code 1.
+
+    python3 portbench/calibrate.py --workload jacobian.128.series \\
+        --seeds 101,102,103 --control-seeds 3 --seconds 15 \\
+        --out calib.jsonl
+
+``--witness plain,float32`` puts, on the control seeds, second witnesses
+of the program's numbers in its place as well: the port's own plain step
+(no kernel) from the program's state, and the reference in float32.
+
+One process reads every seed; each seed is one run of the cell's window
+(:func:`portbench.harness.run_cell`) of ``--seconds``, long enough to
+reach the chunks the cell checks. Prints one JSON line a seed and appends
+it to ``--out``. The benchmark's own runs never run it.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="portbench/calibrate.py")
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--control-seeds", type=int, default=3)
+    ap.add_argument("--seconds", type=float, default=15.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--witness", default="",
+                    help="comma-separated: plain, float32")
+    args = ap.parse_args(argv)
+
+    from portbench.run import use_caches
+    use_caches()
+    import torch
+    from portbench import harness
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("portbench/calibrate.py: no CUDA card", file=sys.stderr)
+        return 2
+    cell = harness.find_cell(args.workload)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    witnesses = [{"plain": "plain", "float32": torch.float32}[w]
+                 for w in args.witness.split(",") if w]
+    rc = 0
+    for i, seed in enumerate(seeds):
+        others = ((torch.bfloat16, *witnesses) if i < args.control_seeds
+                  else ())
+        t0 = time.perf_counter()
+        out = harness.run_cell(cell, seed, args.seconds, False,
+                               time.perf_counter(), device=args.device,
+                               others=others)
+        control = out.others.get("bfloat16")
+        if control is not None and control["correct"] is not False:
+            print(f"seed {seed}: the bfloat16 control came out correct",
+                  file=sys.stderr)
+            rc = 1
+        row = {"workload": cell.name, "seed": seed,
+               "correct": out.line["correct"],
+               "attempted": out.line["attempted"],
+               "program": out.readings, "others": out.others,
+               "metrics": out.line["metrics"],
+               "memory_peak_bytes": out.line["device"]["memory_peak_bytes"],
+               "kind": out.line["device"]["kind"],
+               "seconds": time.perf_counter() - t0}
+        line = json.dumps(row)
+        print(line, flush=True)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+"""A tiny cell for the CPU tests: the real configurations, a 32² traffic
+of ``data/``, a BENCHMARK.json of its own."""
+
+import json
+import os
+import shutil
+import time
+
+from portbench import harness
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "data")
+ROOT = os.path.dirname(os.path.dirname(HERE))
+
+
+def tiny_cell(tmp_path, traffic, config="jacobian", name=None):
+    """The harness's Cell of ``traffic`` (a file of ``data/traffic``)
+    under ``config``; its own file is ``data/workloads/<traffic>.json``."""
+    name = name or traffic
+    bench = harness.load(os.path.join(ROOT, "BENCHMARK.json"))
+    bench["workloads"] = [{"name": name, "config": config,
+                           "traffic": traffic, "chips": 1, "why": "test"}]
+    for m in bench["per_layer"]:
+        m.pop("workloads", None)
+    root = tmp_path / "root"
+    shutil.copytree(os.path.join(ROOT, "portbench", "configs"),
+                    root / "portbench" / "configs")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return harness.find_cell(name, root=str(root), pkg=DATA)
+
+
+def run_tiny(tmp_path, cell, seed=2 ** 31 + 11, seconds=1.0, trace=False,
+             **kw):
+    return harness.run_cell(cell, seed, seconds, trace, time.perf_counter(),
+                            device="cpu", work_dir=str(tmp_path / "work"),
+                            **kw)
