@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 import time
 
+from .. import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -120,6 +122,13 @@ def load() -> Library:
     key = digest.hexdigest()[:16]
     if key in _LOADED:
         return _LOADED[key]
+    with tracing.span("library_load", setup=True):
+        return _build_and_load(key, sources)
+
+
+def _build_and_load(key, sources) -> Library:
+    """The library of hash ``key``, built from ``sources`` where
+    ``BUILD_DIR`` lacks it, loaded and kept in ``_LOADED``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     target = os.path.join(BUILD_DIR, f"libswmhd_{key}.so")
     seconds, log = 0.0, ""

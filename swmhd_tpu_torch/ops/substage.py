@@ -65,6 +65,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..grid import BOUNDED, PERIODIC
 from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
                                     VECTOR_INVARIANT, VELOCITY_STENCIL,
@@ -300,7 +301,9 @@ def tile_shape(formulation, nx, ny, dtype, biharmonic, smem_limit, sms):
 def _lib_fn(name, dtype):
     # once per process: _build.load() hashes the sources on every call
     from . import _build
-    return _build.load().fn(name, "f32" if dtype == torch.float32 else "f64")
+    with tracing.span("kernel_ready", setup=True):
+        return _build.load().fn(name,
+                                "f32" if dtype == torch.float32 else "f64")
 
 
 def _ptr(t):
@@ -318,9 +321,10 @@ def card_limits(index):
     ``index``: the limit the kernels refuse a tile over
     (``swmhd_smem_limit``) and the runtime's SM count."""
     from . import _build
-    with torch.cuda.device(index):
-        limit = _build.load().fn("swmhd_smem_limit")()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    with tracing.span("kernel_ready", setup=True):
+        with torch.cuda.device(index):
+            limit = _build.load().fn("swmhd_smem_limit")()
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
     return limit, sms
 
 
@@ -366,9 +370,10 @@ def tile_info(dtype, branch, tile_x):
     opt = any(b[3:])        # a switch off the default model's
     biharmonic = CLOSURES[b.closure] is BiharmonicDiffusion
     out = (ctypes.c_int * 3)()
-    err = _lib_fn("swmhd_tile_info", dtype)(
-        b.conservative, b.mode_x, b.mode_y, int(opt), int(tile_x),
-        int(biharmonic), ctypes.addressof(out))
+    with tracing.span("kernel_ready", setup=True):
+        err = _lib_fn("swmhd_tile_info", dtype)(
+            b.conservative, b.mode_x, b.mode_y, int(opt), int(tile_x),
+            int(biharmonic), ctypes.addressof(out))
     _raise_on(err, "swmhd_tile_info")
     return tuple(out)
 
@@ -402,11 +407,12 @@ def ready(model, s):
     capture runs no lookup and no runtime query; returns
     :func:`resident_info` of that launch."""
     g = model.grid
-    tile_x = _tile_x(model, g.Nx, g.Ny, s)
-    _lib_fn("swmhd_multistep", s.dtype)
-    return resident_info(s.dtype, kernel_params(model).branch, tile_x,
-                         resident_tiles(g.Nx, g.Ny, tile_x),
-                         card_limits(s.device.index)[1])
+    with tracing.span("kernel_ready", setup=True):
+        tile_x = _tile_x(model, g.Nx, g.Ny, s)
+        _lib_fn("swmhd_multistep", s.dtype)
+        return resident_info(s.dtype, kernel_params(model).branch, tile_x,
+                             resident_tiles(g.Nx, g.Ny, tile_x),
+                             card_limits(s.device.index)[1])
 
 
 def region_part(halo, shape, at, extent):
@@ -703,7 +709,10 @@ class GraphChunk:
     their addresses. A series that syncs with the host (``.item()``, a
     Python branch on a tensor) or reads the clock raises ``RuntimeError``
     at capture, naming it. Each replay counts the launches its graph
-    holds. CUDA tensors only: a CPU state raises ``ValueError``."""
+    holds. CUDA tensors only: a CPU state raises ``ValueError``. The
+    warm-up and each capture are set-up spans (``swmhd.graph_warm``,
+    ``swmhd.graph_capture``), each replay a ``swmhd.graph_replay`` span
+    (:mod:`swmhd_tpu_torch.tracing`)."""
 
     def __init__(self, stepper, dt, n_steps, diagnostics, k=GRAPH_STEPS):
         self.stepper, self.dt, self.n_steps = stepper, dt, n_steps
@@ -729,25 +738,27 @@ class GraphChunk:
         self.s.copy_(s)
 
     def _warm(self, state):
-        s = stack(state)
-        if not s.is_cuda:
-            raise ValueError("a GraphChunk captures CUDA graphs: the state "
-                             "must lie on a CUDA card")
-        model = self.stepper.model
-        if takes_resident(model, s):
-            ready(model, s)
-        else:
-            tile_info(s.dtype, kernel_params(model).branch,
-                      _tile_x(model, model.grid.Nx, model.grid.Ny, s))
-        self.pool = torch.cuda.graph_pool_handle()
-        try:
-            vals = self.diagnostics(unstack(s, _NO_CLOCK))
-        except ClockRead as e:
-            raise self._refusal(e) from e
-        self.names = list(vals)
-        self.row_dtype = (torch.stack([vals[n] for n in self.names]).dtype
-                          if self.names else s.dtype)
-        self.s = torch.empty_like(s)
+        with tracing.span("graph_warm", setup=True):
+            s = stack(state)
+            if not s.is_cuda:
+                raise ValueError("a GraphChunk captures CUDA graphs: the "
+                                 "state must lie on a CUDA card")
+            model = self.stepper.model
+            if takes_resident(model, s):
+                ready(model, s)
+            else:
+                tile_info(s.dtype, kernel_params(model).branch,
+                          _tile_x(model, model.grid.Nx, model.grid.Ny, s))
+            self.pool = torch.cuda.graph_pool_handle()
+            try:
+                vals = self.diagnostics(unstack(s, _NO_CLOCK))
+            except ClockRead as e:
+                raise self._refusal(e) from e
+            self.names = list(vals)
+            self.row_dtype = (
+                torch.stack([vals[n] for n in self.names]).dtype
+                if self.names else s.dtype)
+            self.s = torch.empty_like(s)
 
     def _refusal(self, err):
         """The error of a series that cannot be captured, naming it."""
@@ -765,7 +776,8 @@ class GraphChunk:
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with tracing.span("graph_capture", setup=True), \
+                    torch.cuda.graph(graph, pool=self.pool):
                 self._steps(j, rows)
         except Exception as e:
             if self.failed is None:
@@ -790,7 +802,8 @@ class GraphChunk:
             if j not in self.graphs:
                 self.graphs[j] = self._record(j)
             replay, rows = self.graphs[j]
-            replay()
+            with tracing.span("graph_replay"):
+                replay()
             series[:, offset:offset + j].copy_(rows)
         out = unstack(self.s.clone(), Clock(c.time + self.n_steps * self.dt,
                                             c.iteration + self.n_steps))

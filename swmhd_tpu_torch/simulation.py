@@ -17,6 +17,7 @@ from typing import Callable as _Callable, Dict, Optional
 
 import torch
 
+from . import tracing
 from .models.state import Clock, State
 from .utils.prettytime import prettytime
 
@@ -66,7 +67,8 @@ def _to_host(d: Dict[str, torch.Tensor]) -> Dict[str, list]:
     names = sorted(d)
     if not names:
         return {}
-    host = torch.stack([d[n] for n in names]).cpu().tolist()
+    with tracing.span("to_host"):
+        host = torch.stack([d[n] for n in names]).cpu().tolist()
     return dict(zip(names, host))
 
 
@@ -128,8 +130,9 @@ class Simulation:
     def _stepper(self, n_steps: int):
         fn = self._steppers.get(n_steps)
         if fn is None:
-            fn = self.stepper.step_fn(self.dt, n_steps,
-                                      diagnostics=self._diag_fn())
+            with tracing.span("stepper_build", setup=True):
+                fn = self.stepper.step_fn(self.dt, n_steps,
+                                          diagnostics=self._diag_fn())
             self._steppers[n_steps] = fn
         return fn
 
@@ -145,19 +148,25 @@ class Simulation:
 
     def _fire(self, iteration: int, t: float, force: bool = False):
         series = set(id(w) for w in self._series_writers())
-        for cb in self.callbacks.values():
-            if cb.schedule.is_due(iteration, t, self.dt) or force:
-                cb.fn(self)
-        for w in self.output_writers.values():
-            if id(w) in series:
-                continue
-            if w.schedule.is_due(iteration, t, self.dt) or force:
-                w.write(self)
+        with tracing.span("fire"):
+            for cb in self.callbacks.values():
+                if cb.schedule.is_due(iteration, t, self.dt) or force:
+                    cb.fn(self)
+            for w in self.output_writers.values():
+                if id(w) in series:
+                    continue
+                if w.schedule.is_due(iteration, t, self.dt) or force:
+                    w.write(self)
 
     def run(self, state: State) -> State:
-        """Advance to stop_time / stop_iteration, firing schedules."""
+        """Advance to stop_time / stop_iteration, firing schedules. The
+        closing log line counts the run's graph captures and stepper
+        builds and its set-up seconds (:func:`tracing.setup_totals`): a
+        Δt change (:class:`TimeStepWizard`) builds the stepper, and on the
+        card captures its graphs, again."""
         self.state = state
         t0_wall = time.perf_counter()
+        setup0 = tracing.setup_totals()
 
         it = int(state.clock.iteration)
         t = float(state.clock.time)
@@ -176,27 +185,35 @@ class Simulation:
             for s in self._schedules():
                 n = min(n, s.steps_until_due(it, t, self.dt))
             n = max(1, n)
-            # the host's f64 time is exact; the chunk counts from it
-            self.state = self.state.replace(clock=Clock(t, it))
-            out = self._stepper(n)(self.state)
-            if series_writers:
-                self.state, series = out
-                times = [t + self.dt * k for k in range(1, n + 1)]
-                iters = [it + k for k in range(1, n + 1)]
-                series = _to_host(series)
-                for w in series_writers:
-                    w.write_series(times, iters, series)
-            else:
-                self.state = out
-            it += n
-            t += n * self.dt
-            self._fire(it, t)
+            with tracing.span("chunk"):
+                # the host's f64 time is exact; the chunk counts from it
+                self.state = self.state.replace(clock=Clock(t, it))
+                with tracing.span("step"):
+                    out = self._stepper(n)(self.state)
+                if series_writers:
+                    self.state, series = out
+                    times = [t + self.dt * k for k in range(1, n + 1)]
+                    iters = [it + k for k in range(1, n + 1)]
+                    series = _to_host(series)
+                    with tracing.span("series_write"):
+                        for w in series_writers:
+                            w.write_series(times, iters, series)
+                else:
+                    self.state = out
+                it += n
+                t += n * self.dt
+                self._fire(it, t)
 
         if self.state.h.is_cuda:
             torch.cuda.synchronize(self.state.h.device)
         self.run_wall_time = time.perf_counter() - t0_wall
-        logger.info("simulation finished in %s (%d iterations)",
-                    prettytime(self.run_wall_time), it)
+        setup = tracing.setup_delta(setup0)
+        logger.info("simulation finished in %s (%d iterations; %d graph "
+                    "captures, %d stepper builds, %s of set-up)",
+                    prettytime(self.run_wall_time), it,
+                    setup.get("swmhd.graph_capture", (0,))[0],
+                    setup.get("swmhd.stepper_build", (0,))[0],
+                    prettytime(sum(s for _, s in setup.values())))
         for w in self.output_writers.values():
             w.close()
         return self.state
