@@ -30,8 +30,9 @@ each printing lines of findings; any failure exits non-zero:
    --biharmonic``, ``128x128_low_B_low_U --formulation conservative --nu
    1e-3 --kappa 1e-3``) (each: 101 finite energy rows, ``final.npz``, 100
    resident launches holding 300 substages in one branch, the closure's
-   where there is one, replayed from the chunks' CUDA graphs, no
-   one-substage launch and no plain-version call);
+   where there is one, replayed from the chunks' CUDA graphs, 102 launches
+   of the energy series kernel (the first row, the capture's warm-up, one
+   a step), no one-substage launch and no plain-version call);
 6. the ``bench.py`` configuration at 2048² float32 in both formulations,
    without and with a biharmonic closure, whose state exceeds the card's
    L2, so the kernel stepper takes one-substage launches (the
@@ -188,7 +189,15 @@ each printing lines of findings; any failure exits non-zero:
     the CLI's energy series through ``KernelStepper`` (graph replays: of
     resident launches at 128², of one-substage launches at 2048²) against
     the eager chunk (a step's launches, then the series), state and series
-    bit for bit, each timed.
+    bit for bit, each timed; then the energy series kernel
+    (``ops.energies.energy_series``, one launch a state) against its plain
+    version on ``128x128_two_Gaussians_high_B``, ``128x128_low_B_low_U``
+    (walled in y, A gradient −0.05) and the 2048² configuration, each
+    formulation, after 10 steps against the initial height (five values
+    within SERIES_F32_TOL of the larger of each and the five's median),
+    the kernel and the plain version each timed as a CUDA graph of
+    SERIES_REPS calls beside the kernel's bound, 20 B a point over 3.35
+    TB/s (``python3 chip_smoke.py --worker series .`` runs this alone).
 
 13. the bench and the scaling sweep: ``python -m swmhd_tpu_torch.bench``
     in a process of its own with ``SWMHD_BENCH_LADDER=128,512``
@@ -1166,6 +1175,10 @@ def worker(args):
     from swmhd_tpu_torch.ops import substage as K
     if task == "time":
         return time_default(K, outdir)
+    if task == "series":
+        return series_phase(torch.device("cuda", 0), command_output(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"]))
     rank = int(os.environ["RANK"])
     report = {}
     if task == "trace":
@@ -2170,6 +2183,56 @@ def validation_phase(K, dev, smi):
 GRAPH_CHUNK_STEPS = 150
 
 
+# the energy series kernel against its plain version: float32 values
+# within this share of the larger of each and the five values' median
+# (sums in double against torch.mean's float32), and the calls a timing
+# graph holds
+SERIES_F32_TOL, SERIES_REPS = 1e-5, 200
+
+
+def series_phase(dev, smi):
+    """Phase 12's energy series lines (see the module's docstring)."""
+    import torch
+    from swmhd_tpu_torch.ops import energies as E
+    from swmhd_tpu_torch.ops import substage as K
+    cases = [("128x128_two_Gaussians_high_B", 0.01, lambda f: _scenario_state(
+                 "128x128_two_Gaussians_high_B", f, dev)),
+             ("128x128_low_B_low_U", 0.01, lambda f: _scenario_state(
+                 "128x128_low_B_low_U", f, dev)),
+             (f"{BENCH_N}^2", BENCH_DT, lambda f: bench_model(
+                 BENCH_N, torch.float32, dev, f))]
+    for label, dt, build in cases:
+        for formulation in (VI, CONS):
+            model, state = build(formulation)
+            h0 = state.h
+            state = K.unstack(K.multistep(model, K.stack(state), dt, 10),
+                              state.clock)
+            before = E.energy_series.launches
+            got = E.energy_series(model, state, h0)
+            launched = E.energy_series.launches - before
+            want = E.energy_series_reference(model, state, h0)
+            g = torch.stack(list(got.values())).double()
+            w = torch.stack([want[n] for n in got]).double()
+            scale = torch.maximum(w.abs(), w.abs().median())
+            err = float(((g - w).abs() / scale).max())
+            ms = graph_timed(lambda: E.energy_series(model, state, h0),
+                             SERIES_REPS)
+            plain_ms = graph_timed(
+                lambda: E.energy_series_reference(model, state, h0),
+                SERIES_REPS)
+            points = model.grid.Nx * model.grid.Ny
+            bound_ms = 20 * points / PEAK_BYTES_S * 1e3
+            say(12, f"energy series {label} {formulation} f32 on {smi}: "
+                   f"{launched} launch, max error {err:.3e} of the larger "
+                   f"of each value and the median (limit "
+                   f"{SERIES_F32_TOL:g}); ms a state (CUDA graph of "
+                   f"{SERIES_REPS}): kernel {ms:.5f}, bound {bound_ms:.5f} "
+                   f"(20 B a point, bytes), plain {plain_ms:.5f}")
+            if launched != 1 or not err <= SERIES_F32_TOL:
+                fail(f"the energy series kernel ({label}, {formulation}) "
+                     f"launched {launched} times, error {err:.3e}")
+
+
 def _scenario_state(name, formulation, dev, **kw):
     import torch
     from swmhd_tpu_torch import scenarios
@@ -2296,6 +2359,7 @@ def resident_phase(K, dev, smi):
             fail(f"the graph chunk ({label}, {formulation}) differs from "
                  f"the eager chunk")
         del state, got, want
+    series_phase(dev, smi)
     say(12, f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
 
@@ -2655,22 +2719,25 @@ def main():
         return wall, rows, has_final
 
     def plain_calls():
-        return K.substage_reference.calls + K.multistep_reference.calls
+        return (K.substage_reference.calls + K.multistep_reference.calls
+                + K.energy_series_reference.calls)
 
     K.reset_counters()
     cli_walls = {}
     for scenario, formulation, flags in CLI_RUNS:
         before = resident_counts(K)
+        series_before = K.energy_series.launches
         wall, rows, has_final = cli_run(scenario, formulation, *flags)
         launches, subs = resident_counts(K, before)
+        series = K.energy_series.launches - series_before
         cli_walls[(scenario, formulation, flags)] = wall
         labels = {K.branch_label(b): list(n) for b, n in launches.items()}
         say(5, f"cli run {scenario} {formulation} {' '.join(flags)} f32 "
                f"t=1.0: {wall:.2f} s wall, {len(rows)} energy rows, finite "
                f"{bool(np.isfinite(rows).all())}, final.npz {has_final}, "
                f"resident launches [launches, substages held] "
-               f"{json.dumps(labels)}, one-substage launches {subs}, plain "
-               f"calls {plain_calls()}")
+               f"{json.dumps(labels)}, one-substage launches {subs}, energy "
+               f"series launches {series}, plain calls {plain_calls()}")
         if not (len(rows) == 101 and np.isfinite(rows).all()
                 and has_final):
             fail(f"the CLI run of {scenario} ({formulation}) did not write "
@@ -2678,11 +2745,12 @@ def main():
         ((b, n),) = (launches.items() if len(launches) == 1
                      else ((None, (0, 0)),))
         if (n != (100, 300) or subs or plain_calls()
-                or (b.closure != 0) != bool(flags)):
+                or (b.closure != 0) != bool(flags) or series != 102):
             fail(f"expected 100 resident launches holding 300 substages in "
-                 f"one branch, with a closure where the run has one, and no "
-                 f"one-substage launch or plain call; got {labels}, {subs}, "
-                 f"{plain_calls()}")
+                 f"one branch, with a closure where the run has one, 102 "
+                 f"energy series launches (the first row, the capture's "
+                 f"warm-up, one a step) and no one-substage launch or plain "
+                 f"call; got {labels}, {subs}, {series}, {plain_calls()}")
 
     # 6 -------------------------------------------------------------------
     bench_dt, steps = BENCH_DT, DD_STEPS

@@ -38,6 +38,8 @@ import sys
 
 import torch
 
+from .ops.energies import ENERGY_NAMES
+
 
 def _add_run_args(p):
     p.add_argument("scenario")
@@ -98,27 +100,20 @@ def cmd_list(_args):
               f"{sc.description}")
 
 
-ENERGY_NAMES = ("kinetic_energy", "magnetic_energy", "potential_energy",
-                "total_energy", "cross_helicity")
-
-
 def energies(model, state, h0):
-    """The run's energy series: the :data:`ENERGY_NAMES` of
-    :func:`~swmhd_tpu_torch.diagnostics.energy_report`, computed alone
-    from one evaluation of the velocities (the JAX CLI keeps the same five
-    of the report under ``jax.jit``, which never computes the rest)."""
-    from . import diagnostics
-    g = model.grid
-    gamma = model.A_background_gradient_y
-    u, v = model.velocities(state)
-    ke = diagnostics.kinetic_energy(u, v, state.h, g)
-    me = diagnostics.magnetic_energy(state.A, state.h, g, gamma)
-    pe = diagnostics.potential_energy(state.h, h0,
-                                      model.gravitational_acceleration, g)
-    return {"kinetic_energy": ke, "magnetic_energy": me,
-            "potential_energy": pe, "total_energy": ke + me + pe,
-            "cross_helicity": diagnostics.cross_helicity(
-                u, v, state.A, state.h, g, gamma)}
+    """The run's energy series, :data:`ENERGY_NAMES` of
+    :func:`~swmhd_tpu_torch.diagnostics.energy_report` (the JAX CLI keeps
+    the same five of the report under ``jax.jit``, which never computes the
+    rest): one launch of the kernel
+    (:func:`~swmhd_tpu_torch.ops.energies.energy_series`) for a float32 or
+    float64 state on a CUDA card, unless the state is the tile of a
+    decomposed run (:func:`~swmhd_tpu_torch.diagnostics.tile_reduction`),
+    else the plain version
+    (:func:`~swmhd_tpu_torch.ops.energies.energy_series_reference`)."""
+    from .ops import energies as E
+    if E.takes_kernel(state):
+        return E.energy_series(model, state, h0)
+    return E.energy_series_reference(model, state, h0)
 
 
 def select_stepper(model, fused: bool = True, dd=None):

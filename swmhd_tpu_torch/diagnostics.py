@@ -77,6 +77,11 @@ def tile_reduction(halo: int):
         _TILE[0] = prev
 
 
+def on_tile() -> bool:
+    """Whether diagnostics run on a tile, under :func:`tile_reduction`."""
+    return _TILE[0] is not None
+
+
 def _integral(field, grid):
     t = _TILE[0]
     if t is None:

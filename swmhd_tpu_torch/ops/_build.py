@@ -64,6 +64,9 @@ _SIGNATURES = {
     # tx, ty, halo, split, out: the tile tendency kernel's shared memory a
     # block, registers, blocks an SM
     "swmhd_tendency_tile_info": ([_I] * 4 + [_P], BOTH),
+    # h, u, v, A, h0, out, scratch, nx, ny, rows, conservative, mode_x,
+    # mode_y, dx, dy, lx, ly, g, A_bg_grad_y, stream: the energy series
+    "swmhd_energy_series": ([_P] * 7 + [_I] * 6 + [_D] * 6 + [_P], BOTH),
 }
 
 

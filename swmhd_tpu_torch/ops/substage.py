@@ -41,7 +41,8 @@ substages its launches hold in ``multistep.substages`` and
 ``multistep.substages_by_branch``; each plain version counts its calls in
 ``<function>.calls``, so a run can show which path it took. A launch
 captured into a CUDA graph counts once each time the graph is replayed
-(:class:`GraphChunk`).
+(:class:`GraphChunk`), the energy series' launches
+(:func:`~swmhd_tpu_torch.ops.energies.energy_series`) among them.
 
 :class:`KernelStepper` picks the route as the JAX CLI does: the resident
 kernel where its working set fits on chip (here the card's L2,
@@ -72,6 +73,7 @@ from ..models.shallow_water import (RK3_GAMMA, RK3_ZETA, CONSERVATIVE,
                                     VORTICITY_STENCIL, run_steps)
 from ..models.state import Clock, State
 from ..physics.diffusion import BiharmonicDiffusion, LaplacianDiffusion
+from .energies import energy_series, energy_series_reference
 
 
 class TileLayout(NamedTuple):
@@ -605,11 +607,12 @@ def windowed_steps(model, s, dt, n_steps):
     return s
 
 
-# each wrapper's counters
+# each wrapper's counters, the energy series' too (ops/energies.py)
 _COUNTERS = {substage: ("launches", "launches_by_branch",
                         "launches_by_part"),
              multistep: ("launches", "launches_by_branch", "substages",
-                         "substages_by_branch")}
+                         "substages_by_branch"),
+             energy_series: ("launches",)}
 
 
 def reset_counters():
@@ -617,7 +620,8 @@ def reset_counters():
         for attr in attrs:
             setattr(f, attr, collections.Counter()
                     if "_by_" in attr else 0)
-    for f in (substage_reference, multistep_reference):
+    for f in (substage_reference, multistep_reference,
+              energy_series_reference):
         f.calls = 0
 
 

@@ -19,6 +19,7 @@ import torch
 
 from . import tracing
 from .models.state import Clock, State
+from .ops.energies import energy_series, energy_series_reference
 from .utils.prettytime import prettytime
 
 logger = logging.getLogger("swmhd_tpu_torch")
@@ -161,12 +162,15 @@ class Simulation:
     def run(self, state: State) -> State:
         """Advance to stop_time / stop_iteration, firing schedules. The
         closing log line counts the run's graph captures and stepper
-        builds and its set-up seconds (:func:`tracing.setup_totals`): a
-        Δt change (:class:`TimeStepWizard`) builds the stepper, and on the
-        card captures its graphs, again."""
+        builds, the energy series' kernel launches and plain calls
+        (:mod:`~swmhd_tpu_torch.ops.energies`; graph replays count theirs)
+        and its set-up seconds (:func:`tracing.setup_totals`): a Δt change
+        (:class:`TimeStepWizard`) builds the stepper, and on the card
+        captures its graphs, again."""
         self.state = state
         t0_wall = time.perf_counter()
         setup0 = tracing.setup_totals()
+        series0 = (energy_series.launches, energy_series_reference.calls)
 
         it = int(state.clock.iteration)
         t = float(state.clock.time)
@@ -209,10 +213,13 @@ class Simulation:
         self.run_wall_time = time.perf_counter() - t0_wall
         setup = tracing.setup_delta(setup0)
         logger.info("simulation finished in %s (%d iterations; %d graph "
-                    "captures, %d stepper builds, %s of set-up)",
+                    "captures, %d stepper builds, %d energy series launches, "
+                    "%d plain energy series calls, %s of set-up)",
                     prettytime(self.run_wall_time), it,
                     setup.get("swmhd.graph_capture", (0,))[0],
                     setup.get("swmhd.stepper_build", (0,))[0],
+                    energy_series.launches - series0[0],
+                    energy_series_reference.calls - series0[1],
                     prettytime(sum(s for _, s in setup.values())))
         for w in self.output_writers.values():
             w.close()
