@@ -16,6 +16,10 @@ One process reads every seed; each seed is one run of the cell's window
 (:func:`portbench.harness.run_cell`) of ``--seconds``, long enough to
 reach the chunks the cell checks. Prints one JSON line a seed and appends
 it to ``--out``. The benchmark's own runs never run it.
+
+A cell on several cards runs in as many ranks (:mod:`portbench.ranks`),
+each reading every seed; rank 0 prints and appends the lines. Where the
+ranks outnumber the cards they share them over gloo, as the CLI does.
 """
 
 import argparse
@@ -25,6 +29,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANKS_TIMEOUT_S = 3500      # every seed of a cell on several cards
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
@@ -50,6 +55,17 @@ def main(argv=None):
         print("portbench/calibrate.py: no CUDA card", file=sys.stderr)
         return 2
     cell = harness.find_cell(args.workload)
+    ranks = None
+    if cell.chips > 1:
+        from portbench.ranks import Ranks, launch
+        if "RANK" not in os.environ:
+            rc, outs = launch([sys.executable, os.path.abspath(__file__),
+                               *(sys.argv[1:] if argv is None else argv)],
+                              cell.chips, setup_timeout=RANKS_TIMEOUT_S)
+            sys.stdout.write(outs[0])
+            return rc
+        ranks = Ranks(args.device)
+    device = args.device if ranks is None else ranks.device
     seeds = [int(s) for s in args.seeds.split(",")]
     witnesses = [{"plain": "plain", "float32": torch.float32}[w]
                  for w in args.witness.split(",") if w]
@@ -59,8 +75,10 @@ def main(argv=None):
                   else ())
         t0 = time.perf_counter()
         out = harness.run_cell(cell, seed, args.seconds, False,
-                               time.perf_counter(), device=args.device,
-                               others=others)
+                               time.perf_counter(), device=device,
+                               others=others, ranks=ranks)
+        if out.line is None:            # a rank other than 0
+            continue
         control = out.others.get("bfloat16")
         if control is not None and control["correct"] is not False:
             print(f"seed {seed}: the bfloat16 control came out correct",
@@ -81,6 +99,8 @@ def main(argv=None):
                         exist_ok=True)
             with open(args.out, "a") as f:
                 f.write(line + "\n")
+    if ranks is not None:
+        ranks.close()
     return rc
 
 

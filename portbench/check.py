@@ -19,12 +19,20 @@ be all but zero). A number that is not finite is infinite.
 What takes the program's place is judged by the same code: the control
 (the reference in a lower precision) and the port's own plain step, a
 second witness of the program's numbers (``portbench/calibrate.py``).
+
+A cell decomposed over ranks is compared by every rank on its own tile
+(:class:`Block`): the reference follows the chunk on the tile with a halo
+wide enough that what the wrap at the block's edge spoils never reaches
+the tile, which is then the reference's value there bit for bit; each
+field's two maxima are taken over the ranks before the gap is formed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import statistics
+from typing import Callable, Optional
 
 import torch
 
@@ -33,13 +41,27 @@ from .reference import swmhd as R
 
 FIELDS = ("h", "u", "v", "A")
 
+# cells a substage of the reference reaches along an axis: 3 in the
+# vector-invariant formulation, 4 in the conservative one
+# (portbench/tests/test_portbench_blocks.py measures them)
+REACH = 4
 
-def state_gaps(P, Rf, S) -> list:
-    """Of stacked fields, each field's max|P − R| / max|R − S|."""
+
+def state_gaps(P, Rf, S, reduce=None) -> list:
+    """Of stacked fields, each field's max|P − R| / max|R − S|; with
+    ``reduce`` (maxima over ranks of a 1-D float64 tensor) each maximum
+    is over every rank's tile."""
+    nums = [float((p.double() - r.double()).abs().max())
+            for p, r in zip(P, Rf)]
+    dens = [float((r.double() - s.double()).abs().max())
+            for r, s in zip(Rf, S)]
+    if reduce is not None:
+        both = reduce(torch.tensor([x if math.isfinite(x) else math.inf
+                                    for x in nums + dens],
+                                   dtype=torch.float64)).tolist()
+        nums, dens = both[:len(nums)], both[len(nums):]
     out = []
-    for p, r, s in zip(P, Rf, S):
-        num = float((p.double() - r.double()).abs().max())
-        den = float((r.double() - s.double()).abs().max())
+    for num, den in zip(nums, dens):
         if not math.isfinite(num) or not math.isfinite(den):
             out.append(math.inf)
         elif num > 0:
@@ -77,11 +99,67 @@ def energy_gap(P: dict, Rr: dict) -> float:
     return worst
 
 
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A rank's tile ``[x0, x0 + nx) × [y0, y0 + ny)`` of a periodic ``n``²
+    grid with ``halo`` cells around it, wrapped: what the reference
+    follows for that rank. An axis on which the tile and its halo would
+    cover the grid is taken whole, starting at the tile. ``reduce`` takes
+    the maxima over ranks of a 1-D float64 tensor."""
+    n: int
+    x0: int
+    nx: int
+    y0: int
+    ny: int
+    halo: int
+    reduce: Optional[Callable] = None
+
+    def _axis(self, start, size):
+        """``(offset of the tile, global indices)`` along one axis."""
+        h = self.halo if size + 2 * self.halo < self.n else 0
+        length = size + 2 * h if h else self.n
+        return h, (start - h + torch.arange(length)) % self.n
+
+    def cut(self, a):
+        """The block of global fields ``a`` (``(..., n, n)``)."""
+        (_, ix), (_, iy) = self._axis(self.x0, self.nx), self._axis(
+            self.y0, self.ny)
+        return a.index_select(-2, ix.to(a.device)).index_select(
+            -1, iy.to(a.device))
+
+    def crop(self, b):
+        """The tile of block fields ``b``."""
+        hx, hy = self._axis(self.x0, self.nx)[0], self._axis(
+            self.y0, self.ny)[0]
+        return b[..., hx:hx + self.nx, hy:hy + self.ny]
+
+    @property
+    def shape(self):
+        return (len(self._axis(self.x0, self.nx)[1]),
+                len(self._axis(self.y0, self.ny)[1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class _BlockGrid(R.Grid):
+    """The reference's grid of a block: the global grid's spacing."""
+    spacing: float = 0.0
+
+    @property
+    def dx(self):
+        return self.spacing
+
+    @property
+    def dy(self):
+        return self.spacing
+
+
 class Judge:
     """The reference of one cell and run: its model, its own initial
-    state of the seeded inputs, and the limits of the cell's file."""
+    state of the seeded inputs, and the limits of the cell's file. With
+    ``block`` the reference follows that block of the grid, and the
+    numbers are those of its tile taken with every rank's."""
 
-    def __init__(self, cell, perturb: dict, device):
+    def __init__(self, cell, perturb: dict, device, block=None):
         conf, tr = cell.config, cell.traffic
         R.check_scheme(conf)
         ini = tr["initial"]
@@ -90,6 +168,11 @@ class Judge:
                              float(conf["f"]), float(ini["A_bg_grad_y"]))
         self.init = R.initial_state(self.model, ini, perturb, torch.float64,
                                     device)
+        self.block = block
+        if block is not None:
+            self.init = tuple(block.cut(f) for f in self.init)
+            self.model = dataclasses.replace(self.model, grid=_BlockGrid(
+                block.shape[0], grid.L, grid.topology_y, spacing=grid.dx))
         self.dt = float(tr["dt"])
         self.series = bool(tr.get("series_every"))
         self.limits = cell.check["limits"]
@@ -133,7 +216,12 @@ class Judge:
                 got, rows = other(start, steps)
             S = torch.stack(tuple(f.to(self.device, torch.float64)
                                   for f in start))
-            gaps = state_gaps(got.to(self.device), ref, S)
+            if self.block is None:
+                gaps = state_gaps(got.to(self.device), ref, S)
+            else:
+                crop = self.block.crop
+                gaps = state_gaps(crop(got.to(self.device)), crop(ref),
+                                  crop(S), self.block.reduce)
             nums = {"chunk": k, "state_gap": max(gaps),
                     "field": FIELDS[gaps.index(max(gaps))]}
             if self.series:

@@ -27,13 +27,13 @@ from typing import Callable, Optional
 
 import torch
 
+from . import forbidden_modules
 from . import traffic as traffic_gen
 from . import tracefile
-from .check import Judge, decide
+from .check import REACH, Judge, decide
 
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
-FORBIDDEN = ("jax", "jaxlib", "flax", "swmhd_tpu")
 
 
 def load(path):
@@ -73,13 +73,6 @@ def find_cell(name: str, root: str = ROOT, pkg: str = PKG) -> Cell:
                 check=load(os.path.join(pkg, "workloads", name + ".json")),
                 end_to_end=[m for m in bench["end_to_end"] if here(m)],
                 per_layer=[m for m in bench["per_layer"] if here(m)])
-
-
-def forbidden_modules():
-    """Top-level names in ``sys.modules`` that must not load: JAX, its
-    companions and the JAX package (compared whole: the port's name
-    begins with the JAX package's)."""
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
 # -- the program under test ---------------------------------------------------------
@@ -149,10 +142,16 @@ class Recorder:
     progress report). The window closes at the first chunk's end past
     ``seconds``; in a traced run ``trace_chunks`` chunks follow it under
     the profiler, inside one scenario run and none its first, so that the
-    profiler's start, stop and after-effects touch none of the window."""
+    profiler's start, stop and after-effects touch none of the window.
+
+    Ranks of a decomposed run each drive one: ``agree`` puts rank 0's
+    decision to close in every rank's place (from it the traced chunks
+    and the end follow alike on all), and ``snapshot``, a collective
+    there, is taken at the same chunks on all."""
 
     def __init__(self, seconds, checked, trace_chunks=0, chunk_steps=1,
-                 run_steps=1, on_trace=None):
+                 run_steps=1, on_trace=None, snapshot=_stacked,
+                 agree=bool):
         if trace_chunks and (trace_chunks + 1) * chunk_steps > run_steps:
             raise ValueError(f"{trace_chunks} traced chunks, none a run's "
                              f"first, do not fit in a run of {run_steps} "
@@ -162,6 +161,8 @@ class Recorder:
         self.trace_chunks = trace_chunks
         self.chunk_steps, self.run_steps = chunk_steps, run_steps
         self.on_trace = on_trace          # fn(start: bool)
+        self.snapshot = snapshot          # fn(state) -> what is compared
+        self.agree = agree                # fn(this clock's close) -> close
         self.profiling = False            # the profiler runs
         self.traced_from = None           # the first traced chunk
         self.timing = False
@@ -211,9 +212,10 @@ class Recorder:
             self.spans.append(self.open)
             self.open = {}
             if k in self.checked:
-                self.post[k] = _stacked(sim.state)
+                self.post[k] = self.snapshot(sim.state)
             k += 1
-            if self.t_end is None and now - self.t0 >= self.seconds:
+            if self.t_end is None and self.agree(now - self.t0
+                                                 >= self.seconds):
                 self.t_end, self.n_window = now, k
             if self.t_end is not None:
                 if (self.profiling
@@ -233,7 +235,7 @@ class Recorder:
             self.mark = (now, it)
         # at iteration 0 the run's first chunk counts from start_run
         if k in self.checked:
-            self.pre[k] = (_stacked(sim.state), it)
+            self.pre[k] = (self.snapshot(sim.state), it)
 
     def want_rows(self):
         """Whether the series rows now being written are of a checked
@@ -272,6 +274,9 @@ class TimedStepper:
 
     def __init__(self, inner, recorder):
         self.inner, self.recorder = inner, recorder
+        if hasattr(inner, "tile_diagnostics"):
+            # a decomposed stepper's: the simulation's reports are global
+            self.tile_diagnostics = inner.tile_diagnostics
 
     def step_fn(self, dt, n_steps=1, diagnostics=None):
         fn = self.inner.step_fn(dt, n_steps, diagnostics=diagnostics)
@@ -289,18 +294,30 @@ class TimedStepper:
 
 @dataclasses.dataclass
 class Outcome:
-    line: dict
+    line: dict                     # None on a rank other than 0
     readings: list                 # the program's numbers, a checked chunk
     others: dict                   # what took the program's place -> its
                                    # {correct, checks, readings}
+    snapshots: dict = dataclasses.field(default_factory=dict)
+                                   # with keep_snapshots: checked chunk ->
+                                   # the state (a rank's tile) at its end
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              t_start: float, device: str = "cuda",
              stepper_hook: Optional[Callable] = None,
              series_hook: Optional[Callable] = None,
-             work_dir: Optional[str] = None, others=()) -> Outcome:
+             work_dir: Optional[str] = None, others=(), ranks=None,
+             keep_snapshots: bool = False) -> Outcome:
     """One run: set-up, the window, the comparison and the metrics.
+
+    With ``ranks`` (:class:`portbench.ranks.Ranks`) this process is one
+    rank of a decomposed run, built as ``cli.cmd_run`` builds it under
+    ``torchrun``: the global model and state, ``cli._decomposition``,
+    this rank's tile, the stepper ``cli.select_stepper(model, dd=dd)``.
+    Rank 0's clock closes the window for all; every rank traces its card
+    and compares its own tile; rank 0's trace gives the per-layer
+    metrics, and its line the result, ``device`` over all the ranks.
 
     ``stepper_hook(stepper, model)`` and ``series_hook(fn)`` replace what
     the CLI would select (tests plant faults through them). ``others``
@@ -332,6 +349,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     model, state0 = build_program(cell, perturb, device)
     h0 = state0.h
     n_points = int(tr["N"]) ** 2
+    dd, tile_points, chips = None, None, 1 if on_card else 0
+    if ranks is not None:
+        h0 = None
+        dd, state0 = ranks.decompose(
+            cell, model, state0,
+            3 * REACH * int(tr["progress_every"]))
+        tile_points, chips = dd.nx * dd.ny, ranks.world if on_card else 0
     mark("model")
 
     profiler = {}
@@ -362,9 +386,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                    trace_chunks=int(tr["trace"]["chunks"]) if trace else 0,
                    chunk_steps=chunk_steps,
                    run_steps=round(float(tr["stop_time"]) / float(tr["dt"])),
-                   on_trace=on_trace)
+                   on_trace=on_trace,
+                   snapshot=_stacked if ranks is None else ranks.snapshot,
+                   agree=bool if ranks is None else ranks.agree)
 
-    stepper = cli.select_stepper(model)[0]
+    stepper = cli.select_stepper(model, dd=dd)[0]
     if stepper is None:
         stepper = model
     if stepper_hook is not None:
@@ -412,6 +438,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     sim.stop_iteration = int(tr.get("warm_chunks", 2)) * chunk_steps
     one_run()
     sim.stop_iteration = None
+    if ranks is not None:
+        ranks.settle()
     mark("warm")
 
     rec.timing = True
@@ -431,37 +459,64 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
           + f" window {setup_s!r}", file=sys.stderr, flush=True)
 
     kernel_kind = torch.cuda.get_device_name() if on_card else "cpu"
-    trace_path = None
+    trace_path = tf = None
     if "prof" in profiler:
         trace_path = os.path.join(work, "trace.json")
         profiler["prof"].export_chrome_trace(trace_path)
+        tf = tracefile.Trace(trace_path)
+        os.remove(trace_path)
+    busy = (tf.busy_s(), tf.window_s()) if tf is not None else None
+    if ranks is not None:
+        # the fullest card's peak, each card's busy and traced seconds
+        mine = {"peak": int(peak), "busy": busy}
+        every = ranks.gather(mine)
+        peak = max(r["peak"] for r in every)
+        if busy is not None:
+            busy = tuple(statistics.mean(r["busy"][i] for r in every)
+                         for i in (0, 1))
+        if ranks.rank != 0:
+            tf = None
     # free the program's state before the reference runs
     dtype = state0.h.dtype
-    del sim, stepper, state0, model
+    del sim, stepper, state0, model, dd
     if on_card:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
-    judge = Judge(cell, perturb, device)
+    t_ref = time.perf_counter()
+    judge = Judge(cell, perturb, device,
+                  None if ranks is None else ranks.block)
     checks, failed, readings = judge.compare(rec)
+    print(f"reference_s {time.perf_counter() - t_ref!r} reference_peak_bytes "
+          f"{torch.cuda.max_memory_allocated() if on_card else 0}",
+          file=sys.stderr)
     for r in readings:
         print("checked " + " ".join(f"{k} {v!r}" for k, v in r.items()),
               file=sys.stderr)
     judged = {}
     for o in others:
+        if o == "plain" and ranks is not None:
+            raise ValueError("no plain witness of a decomposed run")
         other = (plain_witness(cell, perturb, device, dtype, judge.series)
                  if o == "plain" else judge.control(o))
         c, f, r = judge.compare(rec, other)
         judged[str(o).replace("torch.", "")] = {
             "correct": decide(c, f), "checks": c, "readings": r}
 
+    snapshots = ({k: judge.block.crop(v) if judge.block else v
+                  for k, v in rec.post.items()} if keep_snapshots else {})
+    shutil.rmtree(work, ignore_errors=True)
+    if ranks is not None and ranks.rank != 0:
+        return Outcome(line=None, readings=readings, others=judged,
+                       snapshots=snapshots)
+
     metrics, dev, breakdown = {}, {
         "platform": "gpu" if on_card else "cpu", "kind": kernel_kind,
-        "count": 1 if on_card else 0, "memory_peak_bytes": int(peak)}, None
+        "count": chips, "memory_peak_bytes": int(peak)}, None
     if not trace:
         metrics = end_to_end(cell, window, t_end - rec.t0, setup_s,
                              n_points)
-    elif trace_path is not None:
-        tf = tracefile.Trace(trace_path)
+    elif tf is not None:
         first, last = profiler["first"], profiler["stopped"]
         ctx = Context(cell=cell, trace=tf,
                       chunks=rec.chunks[first:last],
@@ -470,21 +525,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                                         profiler["counts"])),
                       kind=kernel_kind,
                       window_steps=sum(c[2] for c in window),
-                      window_seconds=t_end - rec.t0)
+                      window_seconds=t_end - rec.t0,
+                      window_chunks=window,
+                      tile_points=tile_points, chips=max(chips, 1))
         metrics = per_layer(cell, ctx)
-        dev["busy_s"] = tf.busy_s()
-        dev["window_s"] = tf.window_s()
+        dev["busy_s"], dev["window_s"] = busy
         breakdown = {"device_ops": tf.top_ops(10),
                      "idle_gaps": tf.idle_by_host(10)}
-        os.remove(trace_path)
-    shutil.rmtree(work, ignore_errors=True)
 
     line = {"correct": decide(checks, failed), "attempted": len(window),
             "failed": failed, "metrics": metrics, "device": dev}
     if breakdown is not None:
         line["breakdown"] = breakdown
     line["checks"] = checks
-    return Outcome(line=line, readings=readings, others=judged)
+    return Outcome(line=line, readings=readings, others=judged,
+                   snapshots=snapshots)
 
 
 def plain_witness(cell, perturb, device, dtype, series):
@@ -546,7 +601,9 @@ class Context:
     ``(start, end, steps)`` and the harness's host spans of each, the
     trace, the launch counters' growth over it, the grid's points, the
     card's name, and the steps and wall time of the window, which runs
-    before the traced chunks as an untraced run's does."""
+    before the traced chunks as an untraced run's does. In a decomposed
+    run the trace, the spans and the counters are rank 0's, whose card
+    computes ``tile_points`` of the grid's points, one of ``chips``."""
     cell: Cell
     trace: object
     chunks: list
@@ -556,6 +613,16 @@ class Context:
     kind: str
     window_steps: int = 0          # the window's steps, untraced
     window_seconds: float = 0.0    # and its wall time
+    window_chunks: list = dataclasses.field(default_factory=list)
+                                   # the window's chunks (start, end, steps)
+    tile_points: Optional[int] = None   # the traced card's points, where
+                                        # it holds a tile
+    chips: int = 1                 # the cards the grid is spread over
+
+    @property
+    def traced_points(self):
+        """The points whose kernels the trace holds."""
+        return self.tile_points or self.n_points
 
     @property
     def steps(self):

@@ -1,7 +1,9 @@
 """The stepper kernels' share of their roofline, %: the least time the
 card could take for the traced steps (the larger of the frozen operations
 over the float32 peak and 96 B a point-step over the device-memory peak)
-over the device time of the stepper's kernels in the trace."""
+over the device time of the stepper's kernels in the trace. Of a
+decomposed run, the traced card's tile and its kernels (K3 is the
+one-substage kernel on a tile with a halo)."""
 
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ def read(ctx):
     bw = roofline.peak(roofline.HBM_PEAK_GBPS, ctx.kind)
     if seconds <= 0 or fp is None or bw is None:
         return None
-    point_steps = ctx.n_points * ctx.steps
+    point_steps = ctx.traced_points * ctx.steps
     least = max(roofline.ops_per_point_step(ctx.cell) * point_steps
                 / (fp * 1e9),
                 roofline.BYTES_PER_POINT_STEP * point_steps / (bw * 1e9))

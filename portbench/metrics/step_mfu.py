@@ -1,7 +1,8 @@
-"""The whole step's share of the card's float32 peak, %: the frozen
+"""The whole step's share of the cards' float32 peak, %: the frozen
 operations of the window's point-steps over its wall time (host clock)
-times the peak. The window of a traced run runs as an untraced run's
-does; the traced chunks follow it."""
+times the peak of the cards the grid is spread over. The window of a
+traced run runs as an untraced run's does; the traced chunks follow
+it."""
 
 from __future__ import annotations
 
@@ -14,4 +15,4 @@ def read(ctx):
         return None
     ops = (roofline.ops_per_point_step(ctx.cell) * ctx.n_points
            * ctx.window_steps)
-    return 100.0 * ops / (ctx.window_seconds * fp * 1e9)
+    return 100.0 * ops / (ctx.window_seconds * ctx.chips * fp * 1e9)

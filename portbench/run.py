@@ -14,6 +14,10 @@ chunks over a limit), ``metrics`` (the cell's end-to-end metrics, or with
 ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``. Exits 2 without printing a result
 where no CUDA card is found.
+
+A cell on several cards (``chips`` > 1) runs as ``torchrun`` runs the
+CLI's decomposed run, one process a card (:mod:`portbench.ranks`); this
+process starts and watches them and prints rank 0's line.
 """
 
 import argparse
@@ -83,6 +87,10 @@ def main(argv=None) -> int:
     use_caches()
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
+    from portbench import ranks
+    chips = ranks.cell_chips(args.workload)
+    if chips > 1:
+        return ranks.run_parent(args, chips, t_start)
 
     import torch
     print(f"torch_imported_s {time.perf_counter() - t_start!r}",

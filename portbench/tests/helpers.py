@@ -20,7 +20,7 @@ def tiny_cell(tmp_path, traffic, config="jacobian", name=None):
     bench = harness.load(os.path.join(ROOT, "BENCHMARK.json"))
     bench["workloads"] = [{"name": name, "config": config,
                            "traffic": traffic, "chips": 1, "why": "test"}]
-    for m in bench["per_layer"]:
+    for m in bench["per_layer"] + bench["end_to_end"]:
         m.pop("workloads", None)
     root = tmp_path / "root"
     shutil.copytree(os.path.join(ROOT, "portbench", "configs"),

@@ -15,6 +15,7 @@ BENCH = harness.load(os.path.join(ROOT, "BENCHMARK.json"))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+E2E = {m["name"]: m for m in BENCH["end_to_end"]}
 
 
 def test_top_level_keys():
@@ -64,7 +65,8 @@ def test_per_layer_metrics_have_readers():
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_found_by_name(name):
     cell = harness.find_cell(name)
-    assert cell.chips == 1
+    assert cell.chips == int(cell.config.get("ranks", 1))
+    assert cell.chips in (1, 4)
     tr = cell.traffic
     for key in ("scenario", "initial", "N", "dt", "stop_time",
                 "progress_every", "perturbation"):
@@ -73,8 +75,14 @@ def test_cell_found_by_name(name):
         {"state_gap", "energy_gap"} if tr.get("series_every")
         else {"state_gap"})
     assert cell.check["chunks"] >= 2
-    assert {m["name"] for m in cell.end_to_end} == {
-        "points_per_s", "chunk_ms_p95", "setup_s"}
+    # chunk_ms_p95 is end to end only in the cells it lists, per layer
+    # (window_chunk_ms_p95) where the host swings it too widely for a bound
+    assert {m["name"] for m in cell.end_to_end} == (
+        {"points_per_s", "chunk_ms_p95", "setup_s"}
+        if name in E2E["chunk_ms_p95"].get("workloads", CELLS)
+        else {"points_per_s", "setup_s"})
+    assert all(m["moves"] in {e["name"] for e in cell.end_to_end}
+               for m in cell.per_layer)
 
 
 def test_configs_are_files_under_paths():
@@ -84,7 +92,11 @@ def test_configs_are_files_under_paths():
         assert c["file"].startswith("portbench/configs/")
         conf = harness.load(os.path.join(ROOT, c["file"]))
         assert conf["name"] == c["name"] and conf["dtype"] == "float32"
-        assert c["reduced"] == []
+        # only scale is cut: keys of the file, and no width among them
+        assert all(k in conf for k in c["reduced"])
+        assert not [k for k in c["reduced"]
+                    if k.endswith(("_dim", "_rank", "_size", "_factor"))
+                    or k in ("tile", "N", "halo")]
         assert any(w["config"] == c["name"] for w in BENCH["workloads"])
 
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from portbench import harness, run
+from portbench.metrics import window_chunk_ms_p95
 
 from helpers import ROOT, run_tiny, tiny_cell
 
@@ -54,6 +55,24 @@ def test_traced_run_reports_per_layer_metrics(tmp_path):
     assert not set(line["metrics"]) & {"points_per_s", "chunk_ms_p95"}
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_window_p95_read_per_layer_as_end_to_end(tmp_path):
+    """``window_chunk_ms_p95`` is ``chunk_ms_p95`` of the same window:
+    the 95th percentile of every window chunk's wall, the traced chunks
+    after the window left out."""
+    window = [(float(i), float(i) + 1e-3 * (i + 1), 100) for i in range(20)]
+    ctx = harness.Context(cell=None, trace=None, chunks=[(30.0, 31.0, 100)],
+                          spans=[{}], n_points=1, launches={}, kind="cpu",
+                          window_chunks=window)
+    assert window_chunk_ms_p95.read(ctx) == pytest.approx(
+        harness.percentile([c[1] - c[0] for c in window], 95) * 1e3)
+    assert window_chunk_ms_p95.read(ctx) == pytest.approx(19.05)
+    ctx.window_chunks = []
+    assert window_chunk_ms_p95.read(ctx) is None
+    cell = tiny_cell(tmp_path, "tiny.series")
+    line, _ = last_line(run_tiny(tmp_path, cell, seconds=2.0, trace=True))
+    assert line["metrics"]["window_chunk_ms_p95"]["value"] > 0
 
 
 def test_no_jax_after_a_run(tmp_path):
