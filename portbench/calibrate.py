@@ -1,8 +1,9 @@
 """Readings that the limits of ``correct`` are set from: the program's
-numbers on many seeds, and the control's, the plain reference computed in
-bfloat16 (the step below the configurations' float32) put in the
-program's place and judged by the harness's own comparison, on the first
-few. A control that comes out correct makes the exit code 1.
+numbers on many seeds, and the control's, the plain reference computed
+one step below the configuration's dtype (``portbench.check.CONTROL``:
+bfloat16 under float32, float32 under float64) put in the program's place
+and judged by the harness's own comparison, on the first few. A control
+that comes out correct makes the exit code 1.
 
     python3 portbench/calibrate.py --workload jacobian.128.series \\
         --seeds 101,102,103 --control-seeds 3 --seconds 15 \\
@@ -10,7 +11,8 @@ few. A control that comes out correct makes the exit code 1.
 
 ``--witness plain,float32`` puts, on the control seeds, second witnesses
 of the program's numbers in its place as well: the port's own plain step
-(no kernel) from the program's state, and the reference in float32.
+(no kernel) from the program's state, and the reference in float32 (a
+float64 configuration's control already).
 
 One process reads every seed; each seed is one run of the cell's window
 (:func:`portbench.harness.run_cell`) of ``--seconds``, long enough to
@@ -66,22 +68,40 @@ def main(argv=None):
             return rc
         ranks = Ranks(args.device)
     device = args.device if ranks is None else ranks.device
-    seeds = [int(s) for s in args.seeds.split(",")]
     witnesses = [{"plain": "plain", "float32": torch.float32}[w]
                  for w in args.witness.split(",") if w]
+    rc = read_seeds(cell, [int(s) for s in args.seeds.split(",")],
+                    args.control_seeds, args.seconds, device, witnesses,
+                    args.out, ranks)
+    if ranks is not None:
+        ranks.close()
+    return rc
+
+
+def read_seeds(cell, seeds, control_seeds, seconds, device, witnesses=(),
+               out_path=None, ranks=None) -> int:
+    """One run of ``cell``'s window a seed, the control of its dtype and
+    ``witnesses`` judged beside the program on the first
+    ``control_seeds``; prints a JSON line a seed (rank 0) and appends it
+    to ``out_path``. 1 where a control came out correct, else 0."""
+    from portbench import harness
+    from portbench.check import CONTROL
+
+    control = CONTROL[cell.config["dtype"]]
+    key = str(control).replace("torch.", "")
     rc = 0
     for i, seed in enumerate(seeds):
-        others = ((torch.bfloat16, *witnesses) if i < args.control_seeds
-                  else ())
+        others = (tuple(dict.fromkeys((control, *witnesses)))
+                  if i < control_seeds else ())
         t0 = time.perf_counter()
-        out = harness.run_cell(cell, seed, args.seconds, False,
+        out = harness.run_cell(cell, seed, seconds, False,
                                time.perf_counter(), device=device,
                                others=others, ranks=ranks)
         if out.line is None:            # a rank other than 0
             continue
-        control = out.others.get("bfloat16")
-        if control is not None and control["correct"] is not False:
-            print(f"seed {seed}: the bfloat16 control came out correct",
+        judged = out.others.get(key)
+        if judged is not None and judged["correct"] is not False:
+            print(f"seed {seed}: the {key} control came out correct",
                   file=sys.stderr)
             rc = 1
         row = {"workload": cell.name, "seed": seed,
@@ -94,13 +114,11 @@ def main(argv=None):
                "seconds": time.perf_counter() - t0}
         line = json.dumps(row)
         print(line, flush=True)
-        if args.out:
-            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+        if out_path:
+            os.makedirs(os.path.dirname(os.path.abspath(out_path)),
                         exist_ok=True)
-            with open(args.out, "a") as f:
+            with open(out_path, "a") as f:
                 f.write(line + "\n")
-    if ranks is not None:
-        ranks.close()
     return rc
 
 

@@ -16,9 +16,11 @@ over the chunk's rows, over the larger of that energy's largest value and
 the median of the five energies' largest values (the cross helicity can
 be all but zero). A number that is not finite is infinite.
 
-What takes the program's place is judged by the same code: the control
-(the reference in a lower precision) and the port's own plain step, a
-second witness of the program's numbers (``portbench/calibrate.py``).
+What takes the program's place is judged by the same code: the control,
+the reference computed one step below the configuration's dtype
+(:data:`CONTROL`: bfloat16 under float32, float32 under float64), and the
+port's own plain step, a second witness of the program's numbers
+(``portbench/calibrate.py``).
 
 A cell decomposed over ranks is compared by every rank on its own tile
 (:class:`Block`): the reference follows the chunk on the tile with a halo
@@ -45,6 +47,9 @@ FIELDS = ("h", "u", "v", "A")
 # vector-invariant formulation, 4 in the conservative one
 # (portbench/tests/test_portbench_blocks.py measures them)
 REACH = 4
+
+# a configuration's dtype -> its control's: the reference one step below
+CONTROL = {"float32": torch.bfloat16, "float64": torch.float32}
 
 
 def state_gaps(P, Rf, S, reduce=None) -> list:

@@ -31,6 +31,7 @@ from . import forbidden_modules
 from . import traffic as traffic_gen
 from . import tracefile
 from .check import REACH, Judge, decide
+from .roofline import DTYPES
 
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
@@ -79,8 +80,14 @@ def find_cell(name: str, root: str = ROOT, pkg: str = PKG) -> Cell:
 
 def build_program(cell: Cell, perturb: dict, device: str):
     """``(model, state)``: the traffic's scenario as
-    ``scenarios.build`` makes it, on the traffic's grid, with the seeded
-    bumps added to h and A."""
+    ``scenarios.build`` makes it, on the traffic's grid, in the
+    configuration's dtype (float32 or float64), with the seeded bumps
+    added to h and A."""
+    conf, tr = cell.config, cell.traffic
+    if conf["dtype"] not in DTYPES:
+        raise ValueError(f"{conf['name']}: the benchmark takes a dtype of "
+                         f"{' or '.join(DTYPES)}; the configuration states "
+                         f"{conf['dtype']!r}")
     from swmhd_tpu_torch import scenarios
     from swmhd_tpu_torch.forcing import (divergence_lorentz_forcing,
                                          jacobian_lorentz_forcing)
@@ -88,7 +95,6 @@ def build_program(cell: Cell, perturb: dict, device: str):
     from swmhd_tpu_torch.models.shallow_water import ShallowWaterModel
     from swmhd_tpu_torch.physics.coriolis import FPlane
 
-    conf, tr = cell.config, cell.traffic
     sc = scenarios.get(tr["scenario"])
     ini = tr["initial"]
     if (sc.h0, sc.A_bg_grad_y, sc.topology[1]) != (

@@ -10,10 +10,11 @@ UpwindBiased3 B (conservative), a static background γ·y of A, and the
 Le–Moin low-storage RK3. The energies are the five of the CLI's series.
 
 It imports no part of the program under test. It computes in the dtype of
-the fields it is given: float64 is the benchmark's reference, bfloat16
-its control. Float32 keeps the exponent-bit rescaling of the WENO
-smoothness indicators; any other type below float64 rescales by a
-division.
+the fields it is given: float64 is the benchmark's reference; its control
+is one step below the configuration's dtype, bfloat16 for a float32
+configuration and float32 for a float64 one (``portbench.check.CONTROL``).
+Float32 keeps the exponent-bit rescaling of the WENO smoothness
+indicators; any other type below float64 rescales by a division.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """The yardstick of the kernel and step metrics: the card's peaks, the
 bytes and the frozen operations of one RK3 step a grid point.
 
-The operations are float32 elementwise operations of one step of the
-plain reference (:mod:`portbench.reference.swmhd`), counted by
-:func:`count_ops` at 32² and frozen here, per formulation, y topology and
-whether A has a background gradient. They stay the same whatever
-implements the step, so a share of the peak reads the same work.
+The peak and the bytes follow the configuration's dtype (float32 or
+float64: :func:`yardstick`). The operations are float32 elementwise
+operations of one step of the plain reference
+(:mod:`portbench.reference.swmhd`), counted by :func:`count_ops` at 32²
+and frozen here, per formulation, y topology and whether A has a
+background gradient. They count the scheme, not its precision, so they
+stay the same whatever implements the step and in whichever dtype: a
+share of the peak reads the same work.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ HBM_PEAK_GBPS = {"h10080gbhbm3": 3350.0, "h100sxm": 3350.0,
                  "h100pcie": 2000.0, "h100nvl": 3900.0}
 FP32_PEAK_GFLOPS = {"h10080gbhbm3": 67000.0, "h100sxm": 67000.0,
                     "h100pcie": 51000.0, "h100nvl": 60000.0}
+# and float64 GFLOP/s outside the tensor cores
+FP64_PEAK_GFLOPS = {"h10080gbhbm3": 34000.0, "h100sxm": 34000.0,
+                    "h100pcie": 26000.0, "h100nvl": 30000.0}
 
-# least device-memory traffic of one step: 3 substages × (read the 4
-# fields + write them) × 4 B
-BYTES_PER_POINT_STEP = 96.0
+# a configuration's dtype -> (its peak table, the bytes of a value)
+DTYPES = {"float32": (FP32_PEAK_GFLOPS, 4), "float64": (FP64_PEAK_GFLOPS, 8)}
 
 # operations a point of one float32 step of the reference, by
 # "<formulation>/<y topology>/<'bg' if A has a background gradient else
@@ -59,6 +64,16 @@ def peak(table: dict, kind: str) -> Optional[float]:
         if key in k:
             return table[key]
     return None
+
+
+def yardstick(cell, kind: str) -> tuple:
+    """``(peak GFLOP/s, bytes a point-step)`` of ``cell``'s configuration's
+    dtype on the card named ``kind`` (the peak None for a card not in the
+    tables). The bytes are the least device-memory traffic of one step a
+    point: 3 substages × (read the 4 fields + write them) × the bytes of a
+    value, 96 for float32 and 192 for float64."""
+    table, size = DTYPES[cell.config["dtype"]]
+    return peak(table, kind), 3.0 * 8 * size
 
 
 def count_ops(fn: Callable) -> int:
