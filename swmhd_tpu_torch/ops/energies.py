@@ -76,10 +76,14 @@ def band_rows(nx, ny):
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(device, nx, ny):
-    """The launches' scratch on ``device`` for an ``nx × ny`` grid: four
-    sums a block and the ticket, zero; made once, so that a captured
-    launch keeps its address."""
+def _scratch(device, stream, nx, ny):
+    """The scratch of the launches on ``stream`` (a CUDA stream's handle)
+    of ``device`` for an ``nx × ny`` grid: four sums a block and the
+    ticket, zero; made once, so that a captured launch keeps its address
+    (a graph's launches take the capture stream's). Launches that share a
+    scratch must be ordered on one stream: with one a stream, a launch on
+    the current stream never races a chunk's replays on a side stream
+    (``Simulation.run``)."""
     blocks = math.ceil(nx / band_rows(nx, ny))
     return torch.zeros(4 * blocks + 1, dtype=torch.float64, device=device)
 
@@ -111,7 +115,7 @@ def energy_series(model, state, h0):
     fn = _lib_fn("swmhd_energy_series", h.dtype)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = fn(*(_ptr(f) for f in fields), _ptr(out),
-             _ptr(_scratch(h.device, g.Nx, g.Ny)), g.Nx, g.Ny,
+             _ptr(_scratch(h.device, stream, g.Nx, g.Ny)), g.Nx, g.Ny,
              band_rows(g.Nx, g.Ny), int(model.formulation == CONSERVATIVE),
              int(g.topology_x == BOUNDED), int(g.topology_y == BOUNDED),
              g.dx, g.dy, g.Lx, g.Ly, float(model.gravitational_acceleration),

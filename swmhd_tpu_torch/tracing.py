@@ -19,9 +19,10 @@ however they nest. No hot path holds a set-up span.
 The spans and what reads them (PERF.md §3):
 
 - ``swmhd.chunk``: one iteration of ``Simulation.run``'s loop; its
-  children ``swmhd.step`` (the stepper's call), ``swmhd.to_host`` (each
-  blocking device→host copy), ``swmhd.series_write`` and ``swmhd.fire``
-  (due callbacks and writers).
+  children ``swmhd.step`` (a stepper's call: where one chunk runs ahead,
+  the next chunk's launch, and the first chunk's lies before the loop),
+  ``swmhd.to_host`` (each blocking device→host copy),
+  ``swmhd.series_write`` and ``swmhd.fire`` (due callbacks and writers).
 - ``swmhd.graph_replay``: one CUDA-graph replay of a ``GraphChunk``.
 - set-up: ``swmhd.library_load``, ``swmhd.kernel_ready``,
   ``swmhd.stepper_build``, ``swmhd.graph_warm``, ``swmhd.graph_capture``.

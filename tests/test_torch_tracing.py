@@ -3,8 +3,9 @@ stepper on the profiler's clock, and the set-up totals.
 
 - With no profiler a warmed run records no range and adds no set-up.
 - Under ``profiling.trace`` a CPU run with an energy series and a
-  progress report gives one ``swmhd.chunk`` a loop iteration, holding one
-  ``swmhd.step``, the series' ``swmhd.to_host``, one
+  progress report gives one ``swmhd.chunk`` a loop iteration, holding the
+  next chunk's ``swmhd.step`` (none in the last; the first chunk's comes
+  before the loop), the series' ``swmhd.to_host``, one
   ``swmhd.series_write`` and one ``swmhd.fire`` that holds the report's
   ``swmhd.to_host``; the host operators of each copy lie inside its
   ``swmhd.to_host``.
@@ -106,30 +107,45 @@ def test_no_profiler_records_nothing(tmp_path, monkeypatch):
 
 
 def test_spans_of_a_series_run_nest_in_their_chunk(tmp_path):
+    """The run-ahead nesting: the first chunk's ``swmhd.step`` precedes
+    every ``swmhd.chunk`` and holds the run's one stepper build; each
+    chunk but the last holds the next chunk's ``swmhd.step``, launched
+    before its own series' ``swmhd.to_host``; every chunk holds that copy,
+    one ``swmhd.series_write`` and one ``swmhd.fire`` that holds the
+    report's ``swmhd.to_host``."""
     sim, state = series_run(tmp_path, small_model())
     with profiling.trace(str(tmp_path / "prof")):
         sim.run(state)
     ev = trace_events(tmp_path / "prof" / profiling.TRACE_FILE)
-    chunks = spans(ev, "chunk")
+    chunks = sorted(spans(ev, "chunk"), key=lambda e: float(e["ts"]))
     assert len(chunks) == CHUNKS
-    for chunk in chunks:
+    assert len(spans(ev, "step")) == CHUNKS
+    for k, chunk in enumerate(chunks):
         held = [e for e in spans(ev) if inside(e, chunk)
                 and e["name"] != "swmhd.stepper_build"]
         names = sorted(e["name"] for e in held)
-        assert names == sorted(tracing.PREFIX + n for n in (
-            "step", "to_host", "to_host", "series_write", "fire")), names
+        mine = ("to_host", "to_host", "series_write", "fire")
+        if k < CHUNKS - 1:
+            mine += ("step",)
+        assert names == sorted(tracing.PREFIX + n for n in mine), names
         fire, = [e for e in held if e["name"] == "swmhd.fire"]
         in_fire = [e["name"] for e in held if inside(e, fire)]
         assert in_fire == ["swmhd.to_host"]
+        copy, = [e for e in held if e["name"] == "swmhd.to_host"
+                 and not inside(e, fire)]
         for name in ("step", "series_write"):
-            span, = [e for e in held if e["name"] == tracing.PREFIX + name]
-            assert not inside(span, fire)
+            for span in [e for e in held
+                         if e["name"] == tracing.PREFIX + name]:
+                assert not inside(span, fire)
+                if name == "step":
+                    assert bounds(span)[1] <= bounds(copy)[0]
     # the run's one set-up span: the stepper's build, in the first
-    # chunk's step
-    first = min(chunks, key=lambda e: float(e["ts"]))
+    # chunk's step, which comes before the first chunk
+    first = [e for e in spans(ev, "step")
+             if bounds(e)[1] <= bounds(chunks[0])[0]]
+    assert len(first) == 1
     build, = spans(ev, "stepper_build")
-    step, = [e for e in spans(ev, "step") if inside(e, first)]
-    assert inside(build, step)
+    assert inside(build, first[0])
 
 
 def test_host_copy_lies_inside_its_to_host_span(tmp_path):

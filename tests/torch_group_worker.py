@@ -12,6 +12,12 @@ rank 0 the gathered final state (``wizard.npz``) and the CSV.
 ``overlap`` (2 ranks, a 2×1 mesh): ``profiling.measure_overlap`` of one
 decomposed step; writes ``overlap_rank<r>.json``.
 
+``order`` (2 ranks, a 2×1 mesh): a Simulation through the decomposed
+kernel stepper with the energy series and a progress report every
+ORDER_EVERY steps; writes the order of the stepper's calls and the
+reports (``("step" | "fire", iteration)``) and the run's counts of chunks
+queued ahead, kept and discarded (``order_rank<r>.json``).
+
 Prints TORCH-GROUP-OK at the end. :func:`run_group` starts a group and
 returns the ranks' reports.
 """
@@ -27,6 +33,7 @@ WIZARD_SCENARIO = "64x64_two_Gaussians_high_B"
 # the target CFL, so the wizard shrinks it at once and then follows the flow
 WIZARD_RUN = (0.03, 0.2, 5, 15)
 OVERLAP_N, OVERLAP_DT = 32, 0.005
+ORDER_STEPS, ORDER_EVERY = 6, 2
 
 
 def wizard_simulation(model, stepper, csv_path, record):
@@ -143,6 +150,45 @@ def main():
         dd = DomainDecomposition(model, make_mesh(shape=(world, 1)))
         report = profiling.measure_overlap(
             dd.fused_step_fn(OVERLAP_DT, 1), dd.shard_state(state))
+    elif task == "order":
+        from chip_smoke import bench_model
+        from swmhd_tpu_torch.io import ScalarSeriesWriter
+        from swmhd_tpu_torch.simulation import (
+            Callback, IterationInterval, Simulation, progress_callback)
+        model, state = bench_model(OVERLAP_N, torch.float64, "cpu")
+        dd = DomainDecomposition(model, make_mesh(shape=(world, 1)))
+        tile = dd.shard_state(state)
+        h0 = dd.diagnostic_view(tile).h
+        log = []
+
+        class Logged:
+            def __init__(self, inner):
+                self.inner = inner
+                self.tile_diagnostics = inner.tile_diagnostics
+
+            def step_fn(self, dt, n_steps=1, diagnostics=None):
+                fn = self.inner.step_fn(dt, n_steps, diagnostics)
+
+                def logged(st):
+                    log.append(("step", st.clock.iteration))
+                    return fn(st)
+                return logged
+        sim = Simulation(model, dt=OVERLAP_DT, stop_iteration=ORDER_STEPS,
+                         stepper=Logged(dd.fused_stepper()))
+        progress = progress_callback()
+
+        def report(s):
+            progress(s)
+            log.append(("fire", s.state.clock.iteration))
+        sim.callbacks["progress"] = Callback(report,
+                                             IterationInterval(ORDER_EVERY))
+        sim.output_writers["energies"] = ScalarSeriesWriter(
+            fn=lambda m, s: diagnostics.energy_report(m, s, h0),
+            schedule=IterationInterval(1),
+            path=os.path.join(workdir, f"order_rank{rank}.csv"))
+        sim.run(tile)
+        report = {"log": log, "kept": sim.ahead_kept,
+                  "discarded": sim.ahead_discarded}
     else:
         raise SystemExit(f"unknown task {task!r}")
     with open(os.path.join(workdir, f"{task}_rank{rank}.json"), "w") as f:
