@@ -75,29 +75,18 @@ each printing lines of findings; any failure exits non-zero:
    float32 plain G; the 128² 4×1 tile also with the biharmonic closure
    of the decomposed CLI run, halo 7), where it is timed against the
    plain version and the whole-domain substage on a grid of the tile's
-   size; the overlap split (``DomainDecomposition(...,
-   overlap=True)``'s launches: the interior on the unpadded tile, a band
-   on each slab of the padded tile, each writing its region in place)
-   against the one tile launch at the 2048² 2×2 tiles (halo 6, and 7 with
-   a biharmonic closure) and the 128² 4×1 tiles, both formulations, G
-   and the state of substages 0 and 1, float32 (<= 2e-5) and float64 (<=
-   1e-12), printing whether they agree bit for bit; at the 2048² 2×2 tile
-   in float32 the split's launches timed against the one tile launch
-   (with the host's cost, and as a CUDA graph), and its interior and
-   bottom band against their plain versions (as the tile above); then
-   one substage of the 2048² grid and one of a tile of its 2×2
+   size; then one substage of the 2048² grid and one of a tile of its 2×2
    mesh under torch.profiler, each formulation: a substage must launch
    exactly one CUDA kernel, its formulation's tile kernel
    (``vi_substage``, ``cons_substage``);
 8. the decomposed main path, four ranks sharing the one card over gloo
    (``torch.distributed.run``, halo slabs staged through host memory):
-   the 2048² configuration in both formulations, without and with the
-   overlap split, 20 steps each through
+   the 2048² configuration in both formulations, 20 steps each through
    ``DomainDecomposition.fused_stepper`` against 20 single-device
    multistep steps (<= 2e-5), with the per-step time, the time of one
    substage's halo exchange (CUDA events), the host's time to issue one
-   step, the tile launches by branch and part (3 a step and rank without the split, 15 with it) and whether
-   the two states agree bit for bit; then ``swmhd_tpu_torch.cli run
+   step, the tile launches by branch (3 a step and rank) and whether the
+   two states agree bit for bit; then ``swmhd_tpu_torch.cli run
    128x128_low_B_low_U
    --stop-time 1.0`` in both formulations, and vector-invariant with the
    biharmonic CLOSURE_FLAGS (halo 7), on a 4×1 mesh (101 finite energy
@@ -153,10 +142,8 @@ each printing lines of findings; any failure exits non-zero:
     then, on
     WORLD ranks of phase 8's 2048² configuration over gloo, each rank's
     ``profiling.measure_overlap`` of one decomposed step a formulation,
-    without and with the overlap split, each with exchange and compute
-    events, and the device time of the first tile launch of each
-    substage (the interior, with the split) beside the exchange time it
-    covers; ``cli run
+    with exchange and compute events, and the device time of each
+    substage's tile launch beside the exchange time it covers; ``cli run
     64x64_two_Gaussians_high_B --stop-time 0.2 --movie`` where
     matplotlib imports (``energy_plot.png`` and a movie), else one line
     saying it does not.
@@ -196,8 +183,8 @@ each printing lines of findings; any failure exits non-zero:
     formulation, after 10 steps against the initial height (five values
     within SERIES_F32_TOL of the larger of each and the five's median),
     the kernel and the plain version each timed as a CUDA graph of
-    SERIES_REPS calls beside the kernel's bound, 20 B a point over 3.35
-    TB/s (``python3 chip_smoke.py --worker series .`` runs this alone).
+    SERIES_REPS calls beside the kernel's bound, 20 B a point over the
+    card's device memory rate (``python3 chip_smoke.py --worker series .`` runs this alone).
 
 13. the bench and the scaling sweep: ``python -m swmhd_tpu_torch.bench``
     in a process of its own with ``SWMHD_BENCH_LADDER=128,512``
@@ -217,14 +204,12 @@ each printing lines of findings; any failure exits non-zero:
     (each field <= 2e-5) and bit for bit against 60 one-substage
     launches, counted; K3 on the two-rank sweep's 512² tiles (a 1x2 mesh
     of a 512x1024 grid), substages 0 and 1 against the plain tile
-    version, float64 <= 1e-11 and float32 as K1, and the overlap split
-    there against the one tile launch; and ``python -m
+    version, float64 <= 1e-11 and float32 as K1; and ``python -m
     swmhd_tpu_torch.scaling --mode weak --local 512 --steps 10
     --max-ranks 2`` (one rank, then two ranks sharing the card over
-    gloo without and with overlap, each a ``torchrun`` group), whose rows
-    must hold finite points/s and rank 0's launches (7 resident
-    launches; 210 tile substages; with overlap the split, 210 interiors
-    and 420 bands), and whose models take the branches held above.
+    gloo, each a ``torchrun`` group), whose rows must hold finite
+    points/s and rank 0's launches (7 resident launches; 210 tile
+    substages), and whose models take the branches held above.
 
 Phases 5 and 6's kernel runs are the main path of one process: the launch
 counters are zeroed just before phase 5 and read just after the kernel
@@ -238,10 +223,10 @@ them just before each size's timed calls and prints them just after, and
 each scaling worker just before its timed calls. Comparisons with the
 plain versions, and phase 12's, happen outside those windows. The last
 two lines are a JSON object of per-kernel findings (one entry per entry
-point and branch, or probe shape, and one for the split's interior and
-band launches at the 2048² 2×2 tile, timed as CUDA graphs,
-each with its bound: the larger of the bytes it must move over 3.35 TB/s
-and the plain version's arithmetic, counted on the CPU, over 67 TFLOP/s;
+point and branch, or probe shape, each with its bound: the larger of the
+bytes it must move over the device memory rate and the plain version's
+arithmetic, counted on the CPU, over the float32 rate outside the tensor
+cores, both of CARD in ``profiling``'s tables: 3.35 TB/s, 67 TFLOP/s;
 a substage entry also names its design: ``"tile"``, one kernel over 2-D
 tiles, with its tile shape, shared memory bytes a block, registers a
 thread and resident blocks an SM from the CUDA runtime) and the result
@@ -286,6 +271,12 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the cases the port's tests hold the kernels to, defined there
+sys.path.append(os.path.join(HERE, "tests"))
+from port_cases import (BOUNDED_XY, BOUNDED_Y, CONS, PERIODIC,  # noqa: E402
+                        TILE_HALO, VI, bench_model, branch_cases, cut_tile,
+                        rel_err, tile_layout, wall_model, with_options)
+
 BENCH_N = 2048
 SMOKE_N = 256
 F64_BOUND = 1e-11
@@ -293,19 +284,11 @@ F32_BOUND = 2e-5          # tests/test_fused.py's f32 kernel-vs-XLA bound
 TILE_F64_BOUND = 1e-12
 WALL_ROWS = 4
 BENCH_DT, DD_STEPS = 0.001, 20
-TILE_HALO = 6             # model.exchange_halo
 WORLD = 4
-# H100 SXM: device memory rate and fp32 rate outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the card whose device memory rate and fp32 rate outside the tensor cores
+# (profiling.HBM_PEAK_GBPS, VPU_PEAK_GFLOPS) set the kernels' bounds
+CARD = "h100sxm"
 
-VI, CONS = "vector_invariant", "conservative"
-PERIODIC = ("periodic", "periodic")
-BOUNDED_Y = ("periodic", "bounded")
-BOUNDED_XY = ("bounded", "bounded")
-# (formulation, topology, A background gradient) compared in phase 3
-CONFIGS = [(VI, PERIODIC, 0.0), (CONS, PERIODIC, 0.0),
-           (VI, BOUNDED_Y, -0.05), (CONS, BOUNDED_Y, -0.05),
-           (VI, BOUNDED_XY, -0.05), (CONS, BOUNDED_XY, -0.05)]
 # the closures of the CLI runs, ν·dt/dx^p ≈ 0.003 (biharmonic) and
 # 0.0016 (Laplacian) at 128², dt = 0.01
 CLOSURE_FLAGS = {VI: ("--nu", "1e-5", "--kappa", "1e-5", "--biharmonic"),
@@ -390,128 +373,6 @@ def command_output(cmd):
     if out.returncode != 0:
         fail(f"{' '.join(cmd)} exited {out.returncode}: {out.stderr}")
     return out.stdout.strip()
-
-
-def rel_err(a, b, scale=None):
-    """max|a-b| / max|b| (or / scale), in float64."""
-    a, b = a.double(), b.double()
-    s = float(b.abs().max()) if scale is None else scale
-    return float((a - b).abs().max()) / max(s, 1e-300)
-
-
-def initial_fields(xp, h_bump=0.0, walls=False):
-    """The bench.py initial condition as ``initial_state`` keyword
-    functions of the array module ``xp``: vortex, Gaussian dipole A and
-    h = 1 + h_bump·e^{-r²} (the vortex is the transport in the
-    conservative formulation; h = 1 makes it the same velocity). With
-    ``walls``, plus smooth terms (periodic in x over the [-5, 5]² domain)
-    that stay O(0.1) at the domain edges, so the rows next to a wall have
-    structure where the rest is ≈e^-25."""
-    e = lambda x, y: xp.exp(-(x ** 2 + y ** 2))
-    f = dict(
-        u=lambda x, y: 5 * y * e(x, y),
-        v=lambda x, y: -5 * x * e(x, y),
-        h=lambda x, y: 1.0 + h_bump * e(x, y),
-        A=lambda x, y: 0.5 * xp.exp(-((x - 0.5) ** 2 + y ** 2))
-        - 0.5 * xp.exp(-((x + 0.5) ** 2 + y ** 2)))
-    if not walls:
-        return f
-    k = xp.pi / 5
-    add = dict(
-        u=lambda x, y: 0.3 * xp.cos(0.6 * y) + 0.1 * xp.sin(k * x),
-        v=lambda x, y: 0.2 * xp.cos(k * x) * (1 + 0.3 * y),
-        h=lambda x, y: 0.05 * xp.cos(k * x) * xp.sin(0.3 * y + 0.5),
-        A=lambda x, y: 0.1 * xp.sin(k * x) * xp.cos(0.5 * y))
-    return {n: (lambda a, b: lambda x, y: a(x, y) + b(x, y))(f[n], add[n])
-            for n in f}
-
-
-def bench_model(N, dtype, device, formulation=VI, topology=PERIODIC,
-                gamma=0.0, walls=False, M=None, h_bump=0.0):
-    """The bench.py configuration on an N×M grid (M: N), with
-    :func:`initial_fields`, and with ``h_bump`` a Gaussian of that height
-    added to h at (1, 0): off the vortex's centre, so that the vortex
-    carries it (a bump at the centre it leaves where it is, the G of h
-    ≈0)."""
-    import torch
-    from swmhd_tpu_torch import (Grid, ShallowWaterModel, FPlane,
-                                 jacobian_lorentz_forcing,
-                                 divergence_lorentz_forcing)
-    g = Grid.regular(N, M or N, (-5.0, 5.0), (-5.0, 5.0),
-                     topology=topology, dtype=dtype, device=device)
-    forcing = (divergence_lorentz_forcing(gamma) if formulation == CONS
-               else jacobian_lorentz_forcing(gamma))
-    model = ShallowWaterModel(grid=g, formulation=formulation,
-                              gravitational_acceleration=9.81,
-                              coriolis=FPlane(1.0), forcing=forcing,
-                              A_background_gradient_y=gamma)
-    fields = initial_fields(torch, walls=walls)
-    if h_bump:
-        h = fields["h"]
-        fields["h"] = lambda x, y: h(x, y) + h_bump * torch.exp(
-            -((x - 1.0) ** 2 + y ** 2))
-    return model, model.initial_state(**fields)
-
-
-# the model options beyond the default model (no closure, WENO5 everywhere,
-# VelocityStencil) that the kernel runs as runtime switches
-OPTIONS = ("laplacian", "biharmonic", "vorticity stencil",
-           "centered2 momentum", "upwind3 momentum",
-           "upwind3 mass, centered2 tracer", "centered2 mass, upwind3 tracer")
-
-
-def option_kwargs(options, pkg, nu):
-    """``ShallowWaterModel`` keywords of one entry of OPTIONS (None: the
-    default model), the closures taken from ``pkg`` (either package) with
-    viscosity ``nu`` and diffusivity 1.5 ``nu``."""
-    closures = {"laplacian": "LaplacianDiffusion",
-                "biharmonic": "BiharmonicDiffusion"}
-    if options in closures:
-        return {"closure": getattr(pkg, closures[options])(
-            nu=nu, kappa=1.5 * nu)}
-    kw = {}
-    for part in (options or "").split(", "):
-        if part == "vorticity stencil":
-            kw["vector_invariant_stencil"] = "vorticity"
-        elif part:
-            scheme, field = part.split()
-            kw[f"{field}_advection"] = scheme
-    return kw
-
-
-def stable_nu(grid, dt, options):
-    """The viscosity with ν·dt/dx^p = 0.01 (p = 2, or 4 for a biharmonic
-    closure), the largest this script runs."""
-    p = 4 if options == "biharmonic" else 2
-    return 0.01 * min(grid.dx, grid.dy) ** p / dt
-
-
-def with_options(model, options, dt):
-    """``model`` with ``options`` (an entry of OPTIONS or None), its
-    closure at :func:`stable_nu` for steps of ``dt``."""
-    import dataclasses
-    import swmhd_tpu_torch
-    return dataclasses.replace(model, **option_kwargs(
-        options, swmhd_tpu_torch, stable_nu(model.grid, dt, options)))
-
-
-def branch_cases():
-    """Phase 3's ``((formulation, topology, γ), options)``: each entry of
-    CONFIGS with no closure, a Laplacian and a biharmonic one, and bounded
-    in x and y with the other OPTIONS."""
-    cases = [(cfg, None) for cfg in CONFIGS]
-    cases += [(cfg, o) for cfg in CONFIGS for o in ("laplacian",
-                                                    "biharmonic")]
-    cases += [((f, BOUNDED_XY, -0.05), o) for f in (VI, CONS)
-              for o in OPTIONS[2:] if f == VI or o != "vorticity stencil"]
-    return cases
-
-
-def wall_model(N, dtype, device, formulation, topology, gamma):
-    """The bench configuration with the wall terms of
-    :func:`initial_fields`."""
-    return bench_model(N, dtype, device, formulation, topology, gamma,
-                       walls=True)
 
 
 def timed(fn, reps):
@@ -679,35 +540,22 @@ def ops_per_point(K, branch, per):
     return n / 64 ** 2
 
 
+def peak_rates():
+    """``(bytes/s, float32 operations/s)`` of CARD."""
+    from swmhd_tpu_torch import profiling
+    return (profiling.HBM_PEAK_GBPS[CARD] * 1e9,
+            profiling.VPU_PEAK_GFLOPS[CARD] * 1e9)
+
+
 def least_time(nbytes, ops):
     """(ms, "bytes" | "operations"): the least time of the card for work
     that moves ``nbytes`` and does ``ops`` float32 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    peak_bytes, peak_ops = peak_rates()
+    t_bytes, t_ops = nbytes / peak_bytes * 1e3, ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # -- tiles ---------------------------------------------------------------------------
-
-def cut_tile(s, b, hx, hy):
-    """Tile ``b = (x0, x1, y0, y1)`` of stacked fields ``s`` padded by
-    ``(hx, hy)`` cells, wrapping at the domain's ends: what a halo
-    exchange over periodic axes gives."""
-    import torch
-    x0, x1, y0, y1 = b
-    ix = torch.arange(x0 - hx, x1 + hx, device=s.device) % s.shape[1]
-    iy = torch.arange(y0 - hy, y1 + hy, device=s.device) % s.shape[2]
-    return s[:, ix][:, :, iy].contiguous()
-
-
-def tile_layout(N, M, mesh, halo=TILE_HALO):
-    """``(bounds of each tile, (hx, hy))`` of a ``mesh`` of an N×M grid:
-    a halo of ``halo`` on each axis that is cut."""
-    px, py = mesh
-    nx, ny = N // px, M // py
-    tiles = [(ix * nx, (ix + 1) * nx, iy * ny, (iy + 1) * ny)
-             for ix in range(px) for iy in range(py)]
-    return tiles, (halo if px > 1 else 0, halo if py > 1 else 0)
-
 
 def tile_branch(K, model, mesh):
     """The kernel branch of ``model``'s tiles in ``mesh``: exchanged along
@@ -753,166 +601,9 @@ def tile_pair(K, model, p, dt, halo, plain0=None):
     return (g_k, s1, s2), (g_p, r1, r2)
 
 
-def split_launches(K, model, p, dt, stage, g_prev, halo):
-    """Substage ``stage`` on the padded tile ``p`` as the overlap split's
-    launches (``DomainDecomposition.split_substage`` without the
-    exchange): the interior on the unpadded tile, then each band on its
-    slab of ``p``, every launch writing its region in place; ``(s_new,
-    G)``."""
-    import torch
-    from swmhd_tpu_torch.parallel.decomposition import band_slabs
-    hx, hy = halo
-    nx, ny = p.shape[1] - 2 * hx, p.shape[2] - 2 * hy
-    s = p[:, hx:hx + nx, hy:hy + ny].contiguous()
-    write_G = stage < 2
-    out = (torch.empty_like(s), torch.empty_like(s) if write_G else None)
-    K.substage(model, s, dt, stage, g_prev, write_G, halo=halo, out=out,
-               at=halo)
-    for rows, cols, at in band_slabs(nx, ny, hx, hy):
-        K.substage(model, p[:, rows, cols], dt, stage, g_prev, write_G,
-                   halo=halo, out=out, at=at)
-    return out
-
-
-def split_against_tile(K, model, p, dt, halo):
-    """The overlap split's launches against the one tile launch on the
-    padded tile ``p``, substages 0 and 1 (each taking the tile launch's
-    G of substage 0): the worst error relative to each array's scale, and
-    whether every value agreed bit for bit."""
-    import torch
-    t1, h1 = K.substage(model, p, dt, 0, halo=halo)
-    t2, h2 = K.substage(model, p, dt, 1, h1, halo=halo)
-    u1, k1 = split_launches(K, model, p, dt, 0, None, halo)
-    u2, k2 = split_launches(K, model, p, dt, 1, h1, halo)
-    worst, bitwise = 0.0, True
-    for got, want in ((k1, h1), (u1, t1), (k2, h2), (u2, t2)):
-        worst = max(worst, rel_err(got, want, float(want.abs().max())))
-        bitwise &= bool(torch.equal(got, want))
-    return worst, bitwise
-
-
 def finite(arrays):
     import torch
     return all(bool(torch.isfinite(a).all()) for a in arrays)
-
-
-def split_phase(K, dev, smi):
-    """Phase 7's overlap split (see the module's docstring): the split's
-    launches against the one tile launch at each main-path tile, bit for
-    bit expected; then, at the 2048² 2×2 tile in float32, their times
-    against the one launch and the interior and a band against their
-    plain versions. Returns ``{(branch, part): timing}`` for the kernels
-    line's interior and band entries."""
-    import torch
-    from swmhd_tpu_torch import scenarios
-    from swmhd_tpu_torch.parallel.decomposition import band_slabs
-    for formulation in (VI, CONS):
-        for dtype, bnd in ((torch.float32, F32_BOUND),
-                           (torch.float64, TILE_F64_BOUND)):
-            model, state = bench_model(BENCH_N, dtype, dev, formulation)
-            s = K.stack(state)
-            del state
-            bih = with_options(model, "biharmonic", BENCH_DT)
-            cases = []
-            for m, label in ((model, ""), (bih, " biharmonic")):
-                tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2),
-                                          m.exchange_halo)
-                cases.append((f"bench {BENCH_N}^2 in 2x2 tiles{label}", m,
-                              cut_tile(s, tiles[0], *halo), BENCH_DT, halo))
-            del s
-            model, state, sc = scenarios.build(
-                "128x128_low_B_low_U", formulation, dtype=dtype, device=dev)
-            tiles, halo = tile_layout(128, 128, (4, 1), model.exchange_halo)
-            cases.append(("128x128_low_B_low_U in 4x1 tiles", model,
-                          cut_tile(K.stack(state), tiles[0], *halo), sc.dt,
-                          halo))
-            for label, model, p, dt, halo in cases:
-                worst, bitwise = split_against_tile(K, model, p, dt, halo)
-                nx, ny = p.shape[1] - 2 * halo[0], p.shape[2] - 2 * halo[1]
-                n = len(band_slabs(nx, ny, *halo))
-                b = K.branch_label(tile_branch(
-                    K, model, tuple(1 + bool(h) for h in halo)))
-                say(7, f"{label} {dtype} [{b}], halo {halo}: the overlap "
-                       f"split (interior and {n} bands, {1 + n} launches "
-                       f"writing in place) vs the one tile launch, G and "
-                       f"state of substages 0 and 1: rel err {worst:.2e} "
-                       f"(bound {bnd:g}); bitwise equal {bitwise}")
-                if not worst <= bnd:
-                    fail(f"the split's launches disagree with the tile "
-                         f"launch ({label}, {formulation}, {dtype}): "
-                         f"{worst:.3e}")
-            del cases, p
-    entries = {}
-    for formulation in (VI, CONS):
-        model, state = bench_model(BENCH_N, torch.float32, dev, formulation)
-        model64 = bench_model(BENCH_N, torch.float64, dev, formulation)[0]
-        tiles, halo = tile_layout(BENCH_N, BENCH_N, (2, 2))
-        p = cut_tile(K.stack(state), tiles[0], *halo)
-        del state
-        (hx, hy), (nx, ny) = halo, (BENCH_N // 2, BENCH_N // 2)
-        t = p[:, hx:hx + nx, hy:hy + ny].contiguous()
-        out = (torch.empty_like(t), torch.empty_like(t))
-        bands = band_slabs(nx, ny, hx, hy)
-        slabs = [(p[:, rows, cols], at) for rows, cols, at in bands]
-        parts = {"interior": (t, halo), "band": slabs[0]}
-
-        def launch(slab, at, o=out):
-            return K.substage(model, slab, BENCH_DT, 0, halo=halo, out=o,
-                              at=at)
-
-        def split():
-            launch(t, halo)
-            for slab, at in slabs:
-                launch(slab, at)
-        fns = {"tile": lambda: K.substage(model, p, BENCH_DT, 0, halo=halo),
-               "split": split,
-               "interior": lambda: launch(*parts["interior"]),
-               "band": lambda: launch(*parts["band"])}
-        ms = {}
-        for name, fn in fns.items():
-            fn()
-            ms[name] = (timed(fn, 20)[0], graph_timed(fn, 20))
-        branch = tile_branch(K, model, (2, 2))
-        say(7, f"the overlap split, bench {BENCH_N}^2 f32 {formulation} "
-               f"tile {tuple(p.shape[1:])} [{K.branch_label(branch)}] on "
-               f"{smi}, substage 0, ms with the host's cost / as a CUDA "
-               f"graph of 20: one tile launch {ms['tile'][0]:.4f} / "
-               f"{ms['tile'][1]:.4f}; the split's {1 + len(bands)} launches "
-               f"{ms['split'][0]:.4f} / {ms['split'][1]:.4f} (ratio "
-               f"{ms['split'][1] / ms['tile'][1]:.3f} as graphs); the "
-               f"interior ({nx - 2 * hx}x{ny - 2 * hy}) {ms['interior'][0]:.4f}"
-               f" / {ms['interior'][1]:.4f}; a band ({hx}x{ny}, bottom) "
-               f"{ms['band'][0]:.4f} / {ms['band'][1]:.4f}")
-        for part, (slab, at) in parts.items():
-            o = (torch.empty_like(t), torch.empty_like(t))
-            launch(slab, at, o)
-            plain_ms, (ps, pG) = timed(lambda: K.substage_reference(
-                model, slab, BENCH_DT, 0, None, halo), 3)
-            p64G = K.substage_reference(model64, slab.double(), BENCH_DT, 0,
-                                        None, halo)[1]
-            mx, my = ps.shape[1:]
-            ks, kG = (x[:, at[0]:at[0] + mx, at[1]:at[1] + my] for x in o)
-            s_err, g_err = rel_err(ks, ps), rel_err(kG, pG)
-            g_kernel, g_plain = rel_err(kG, p64G), rel_err(pG, p64G)
-            abs_err = max(float((ks - ps).abs().max()),
-                          float((kG - pG).abs().max()))
-            say(7, f"the split's {part} launch ({mx}x{my} written at {at}, "
-                   f"{tuple(slab.shape[1:])} read), {formulation} f32: vs "
-                   f"plain G rel err {g_err:.2e}, against the f64 plain G "
-                   f"kernel {g_kernel:.2e} / plain {g_plain:.2e}; state "
-                   f"{s_err:.2e} (bound {F32_BOUND:g}); max abs err "
-                   f"{abs_err:.3e}; plain {plain_ms:.4f} ms")
-            if not (finite((ks, kG)) and s_err <= F32_BOUND
-                    and (g_err <= F32_BOUND or g_kernel <= 2 * g_plain)):
-                fail(f"the split's {part} launch disagrees with its plain "
-                     f"version ({formulation})")
-            entries[(branch, part)] = dict(
-                ms=ms[part][1], host_ms=ms[part][0], plain_ms=plain_ms,
-                nbytes=4 * (4 * slab.shape[1] * slab.shape[2]
-                            + 8 * mx * my),
-                points=mx * my, shape=(mx, my), max_abs_err=abs_err)
-        del p, t, out, slabs, parts, fns
-    return entries
 
 
 # -- several ranks -------------------------------------------------------------------
@@ -1192,12 +883,10 @@ def worker(args):
         for formulation in (VI, CONS):
             model, state = bench_model(BENCH_N, torch.float32, dev,
                                        formulation)
-            for overlap in (False, True):
-                dd = DomainDecomposition(model, overlap=overlap)
-                report[formulation + ("_overlap" if overlap else "")] = \
-                    profiling.measure_overlap(
-                        dd.fused_step_fn(BENCH_DT, 1), dd.shard_state(state),
-                        kernel=first_launch_of(K, dd, formulation))
+            dd = DomainDecomposition(model)
+            report[formulation] = profiling.measure_overlap(
+                dd.fused_step_fn(BENCH_DT, 1), dd.shard_state(state),
+                kernel=first_launch_of(K, dd, formulation))
         multihost.shutdown()
     elif task == "cli":
         from swmhd_tpu_torch import cli
@@ -1220,42 +909,38 @@ def worker(args):
         for formulation in (VI, CONS):
             model, state = bench_model(BENCH_N, torch.float32, dev,
                                        formulation)
-            for overlap in (False, True):
-                dd = DomainDecomposition(model, overlap=overlap)
-                tile = dd.shard_state(state)
-                dd.fused_step_fn(BENCH_DT, 1)(tile)            # warm-up
-                run = dd.fused_step_fn(BENCH_DT, DD_STEPS)
-                torch.cuda.synchronize()
-                multihost.sync()
-                K.reset_counters()
-                t0 = time.perf_counter()
-                out = run(tile)
-                torch.cuda.synchronize()
-                multihost.sync()
-                wall = time.perf_counter() - t0
-                launches, other = tile_launches(K), other_calls(K)
-                parts = dict(K.substage.launches_by_part)
-                # outside the counted window: one substage's exchange, and
-                # the host's time to issue one step (without waiting for
-                # the card at its end)
-                s = K.stack(tile)
-                ex_ms, _ = timed(lambda: dd.pad_for_kernel(s), 20)
-                one = dd.fused_step_fn(BENCH_DT, 1)
-                torch.cuda.synchronize()
-                multihost.sync()
-                t0 = time.perf_counter()
-                one(tile)
-                host_ms = (time.perf_counter() - t0) * 1e3
-                torch.cuda.synchronize()
-                glob = K.stack(dd.gather_state(out)).cpu().numpy()
-                key = formulation + ("_overlap" if overlap else "")
-                if rank == 0:
-                    np.save(os.path.join(outdir, f"dd_{key}.npy"), glob)
-                report[key] = {
-                    "ms_step": wall * 1e3 / DD_STEPS, "exchange_ms": ex_ms,
-                    "host_ms": host_ms, "launches": launches, "parts": parts,
-                    "other_calls": other, "mesh": [dd.px, dd.py],
-                    "split": dd.split}
+            dd = DomainDecomposition(model)
+            tile = dd.shard_state(state)
+            dd.fused_step_fn(BENCH_DT, 1)(tile)                # warm-up
+            run = dd.fused_step_fn(BENCH_DT, DD_STEPS)
+            torch.cuda.synchronize()
+            multihost.sync()
+            K.reset_counters()
+            t0 = time.perf_counter()
+            out = run(tile)
+            torch.cuda.synchronize()
+            multihost.sync()
+            wall = time.perf_counter() - t0
+            launches, other = tile_launches(K), other_calls(K)
+            # outside the counted window: one substage's exchange, and the
+            # host's time to issue one step (without waiting for the card
+            # at its end)
+            s = K.stack(tile)
+            ex_ms, _ = timed(lambda: dd.pad_for_kernel(s), 20)
+            one = dd.fused_step_fn(BENCH_DT, 1)
+            torch.cuda.synchronize()
+            multihost.sync()
+            t0 = time.perf_counter()
+            one(tile)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            glob = K.stack(dd.gather_state(out)).cpu().numpy()
+            if rank == 0:
+                np.save(os.path.join(outdir, f"dd_{formulation}.npy"), glob)
+            report[formulation] = {
+                "ms_step": wall * 1e3 / DD_STEPS, "exchange_ms": ex_ms,
+                "host_ms": host_ms, "launches": launches,
+                "other_calls": other, "mesh": [dd.px, dd.py]}
         multihost.shutdown()
     label = args[2] if task == "cli" else task
     with open(os.path.join(outdir, f"{label}_rank{rank}.json"), "w") as f:
@@ -1263,28 +948,21 @@ def worker(args):
 
 
 def first_launch_of(K, dd, formulation):
-    """A predicate on a trace's kernel events: the first tile launch of
-    each substage of ``dd``'s kernel step, the one launch on the padded
-    tile or, with the split, the interior, known by its grid (the
-    wrapper's tiles over its output)."""
+    """A predicate on a trace's kernel events: the tile launch of each
+    substage of ``dd``'s kernel step on the padded tile, known by its grid
+    (the wrapper's tiles over its output)."""
     import torch
-    hx, hy = dd.kernel_halo()
-    mx, my = ((dd.nx - 2 * hx, dd.ny - 2 * hy) if dd.split
-              else (dd.nx, dd.ny))
-    tx = K.tile_shape(formulation, mx, my, torch.float32, False,
+    tx = K.tile_shape(formulation, dd.nx, dd.ny, torch.float32, False,
                       *K.card_limits(torch.cuda.current_device()))[0]
-    grid = [math.ceil(my / K.TILE_Y), math.ceil(mx / tx), 1]
+    grid = [math.ceil(dd.ny / K.TILE_Y), math.ceil(dd.nx / tx), 1]
     return lambda e: (TILE_KERNELS[formulation] in e.get("name", "")
                       and e.get("args", {}).get("grid") == grid)
 
 
-def decomposed_bench(K, nproc, tmp, smi, tile_launches, part_launches,
-                     backend="gloo"):
-    """Phase 8's 2048² runs on ``nproc`` ranks, each formulation without
-    and with the overlap split, held against DD_STEPS single-device
-    multistep steps; the launches of the runs without the split go into
-    ``tile_launches`` (by branch), those of the split into
-    ``part_launches`` (by branch and part)."""
+def decomposed_bench(K, nproc, tmp, smi, tile_launches, backend="gloo"):
+    """Phase 8's 2048² runs on ``nproc`` ranks, each formulation, held
+    against DD_STEPS single-device multistep steps; their launches go into
+    ``tile_launches`` (by branch)."""
     import torch
     import numpy as np
     os.makedirs(tmp, exist_ok=True)
@@ -1301,66 +979,45 @@ def decomposed_bench(K, nproc, tmp, smi, tile_launches, part_launches,
                                    formulation)
         want = K.multistep(model, K.stack(state), BENCH_DT, DD_STEPS).cpu()
         del state
-        got = {}
-        for overlap in (False, True):
-            key = formulation + ("_overlap" if overlap else "")
-            got[overlap] = torch.from_numpy(np.load(os.path.join(
-                tmp, f"dd_{key}.npy")))
-            err = rel_err(got[overlap], want)
-            per = [r[key] for r in reps]
-            counts, per_rank = {}, []
-            for r in per:
-                if r["other_calls"]:
-                    fail(f"a rank ran {r['other_calls']} launches or plain "
-                         f"calls other than tile launches on the decomposed "
-                         f"path")
-                per_rank.append(sum(r["launches"].values()))
-                for k, n in r["launches"].items():
-                    b = tuple(json.loads(k))
-                    counts[b] = counts.get(b, 0) + n
-                    if not overlap:
-                        tile_launches[b] = tile_launches.get(b, 0) + n
-                if overlap:
-                    (b,) = [tuple(json.loads(k)) for k in r["launches"]]
-                    for part, n in r["parts"].items():
-                        part_launches[(b, part)] = (
-                            part_launches.get((b, part), 0) + n)
-            px, py = per[0]["mesh"]
-            split = per[0]["split"]
-            # a substage is one tile launch, or the interior and a band
-            # on each side of each cut axis
-            each = 1 + 2 * ((px > 1) + (py > 1)) if split else 1
-            if per_rank != [3 * each * DD_STEPS] * nproc or split != (
-                    overlap and px * py > 1):
-                fail(f"expected {3 * each * DD_STEPS} tile launches a rank "
-                     f"({3 * each} a step), split {overlap}; got "
-                     f"{per_rank}, split {split}")
-            ms_step = max(r["ms_step"] for r in per)
-            steps_ms = ", ".join(f"{r['ms_step']:.4f}" for r in per)
-            exchange_ms = ", ".join(f"{r['exchange_ms']:.4f}" for r in per)
-            host_ms = ", ".join(f"{r['host_ms']:.4f}" for r in per)
-            labels = {K.branch_label(b): n for b, n in counts.items()}
-            say(8, f"{nproc} ranks over {backend}, {px}x{py} mesh, bench "
-                   f"{BENCH_N}^2 f32 {formulation}, overlap {overlap} "
-                   f"(split {split}), {DD_STEPS} steps through "
-                   f"dd.fused_stepper on {smi}: {ms_step:.4f} ms/step "
-                   f"(slowest rank; ranks {steps_ms}) = "
-                   f"{BENCH_N ** 2 / (ms_step * 1e-3):.4e} points/s; the "
-                   f"host's time to issue one step (ranks) {host_ms} ms; "
-                   f"halo exchange of one substage (ranks) {exchange_ms} "
-                   f"ms; tile "
-                   f"launches {json.dumps(labels)}, a rank {per_rank[0]} "
-                   f"({json.dumps(per[0]['parts'])}); vs {DD_STEPS} "
-                   f"single-device multistep steps: rel err {err:.2e}, "
-                   f"bitwise equal {bool(torch.equal(got[overlap], want))};"
-                   f" bound {F32_BOUND:g}")
-            if not (torch.isfinite(got[overlap]).all() and err <= F32_BOUND):
-                fail(f"decomposed 2048^2 run disagrees ({formulation}, "
-                     f"{backend}, overlap {overlap}): {err:.3e}")
-        say(8, f"{nproc} ranks over {backend}, {formulation}: the state "
-               f"with the overlap split vs without: bitwise equal "
-               f"{bool(torch.equal(got[True], got[False]))}, max abs diff "
-               f"{float((got[True] - got[False]).abs().max()):.3e}")
+        got = torch.from_numpy(np.load(os.path.join(
+            tmp, f"dd_{formulation}.npy")))
+        err = rel_err(got, want)
+        per = [r[formulation] for r in reps]
+        counts, per_rank = {}, []
+        for r in per:
+            if r["other_calls"]:
+                fail(f"a rank ran {r['other_calls']} launches or plain "
+                     f"calls other than tile launches on the decomposed "
+                     f"path")
+            per_rank.append(sum(r["launches"].values()))
+            for k, n in r["launches"].items():
+                b = tuple(json.loads(k))
+                counts[b] = counts.get(b, 0) + n
+                tile_launches[b] = tile_launches.get(b, 0) + n
+        px, py = per[0]["mesh"]
+        # a substage is one tile launch
+        if per_rank != [3 * DD_STEPS] * nproc:
+            fail(f"expected {3 * DD_STEPS} tile launches a rank (3 a "
+                 f"step); got {per_rank}")
+        ms_step = max(r["ms_step"] for r in per)
+        steps_ms = ", ".join(f"{r['ms_step']:.4f}" for r in per)
+        exchange_ms = ", ".join(f"{r['exchange_ms']:.4f}" for r in per)
+        host_ms = ", ".join(f"{r['host_ms']:.4f}" for r in per)
+        labels = {K.branch_label(b): n for b, n in counts.items()}
+        say(8, f"{nproc} ranks over {backend}, {px}x{py} mesh, bench "
+               f"{BENCH_N}^2 f32 {formulation}, {DD_STEPS} steps through "
+               f"dd.fused_stepper on {smi}: {ms_step:.4f} ms/step "
+               f"(slowest rank; ranks {steps_ms}) = "
+               f"{BENCH_N ** 2 / (ms_step * 1e-3):.4e} points/s; the "
+               f"host's time to issue one step (ranks) {host_ms} ms; "
+               f"halo exchange of one substage (ranks) {exchange_ms} "
+               f"ms; tile launches {json.dumps(labels)}, a rank "
+               f"{per_rank[0]}; vs {DD_STEPS} single-device multistep "
+               f"steps: rel err {err:.2e}, bitwise equal "
+               f"{bool(torch.equal(got, want))}; bound {F32_BOUND:g}")
+        if not (torch.isfinite(got).all() and err <= F32_BOUND):
+            fail(f"decomposed 2048^2 run disagrees ({formulation}, "
+                 f"{backend}): {err:.3e}")
 
 
 def decomposed_cli(K, cli, formulation, tmp, tile_launches, flags=()):
@@ -1849,12 +1506,13 @@ def simulate(model, state, dt, steps, stepper, series=True, wizard=False,
     sim = Simulation(model, dt=dt, stop_iteration=steps, stepper=stepper)
     history = []
     if wizard:
-        adjust_dt = TimeStepWizard(cfl=WIZARD[2])
-
-        def adjust(s):
-            adjust_dt(s)
-            history.append(s.dt)
-        sim.callbacks["wizard"] = Callback(adjust,
+        class Recorded(TimeStepWizard):
+            # a TimeStepWizard itself, so that the run queues no chunk past
+            # it (a discarded chunk's launches would count)
+            def __call__(self, s):
+                super().__call__(s)
+                history.append(s.dt)
+        sim.callbacks["wizard"] = Callback(Recorded(cfl=WIZARD[2]),
                                            IterationInterval(WIZARD[3]))
     if at is not None:
         sim.callbacks["at"] = Callback(at[1], IterationInterval(at[0]))
@@ -2067,27 +1725,22 @@ def adaptive_phase(K, dev, smi, bench_ms_step):
            f"{busy['n_kernels']} kernels; host time by name [name, ms, "
            f"calls]: {json.dumps(reps['trace'][0]['host'])}")
     for formulation in (VI, CONS):
-        for overlap in (False, True):
-            per = [r[formulation + ("_overlap" if overlap else "")]
-                   for r in reps["overlap"]]
-            first = "the interior" if overlap else "the tile launch"
-            say(10, f"profiling.measure_overlap of one decomposed "
-                   f"{BENCH_N}^2 {formulation} step, overlap {overlap}, "
-                   f"{WORLD} ranks over gloo on {smi}: " + "; ".join(
-                       f"rank {r}: comm_ms {o['comm_ms']:.4f}, compute_ms "
-                       f"{o['compute_ms']:.4f}, hidden_ms "
-                       f"{o['hidden_ms']:.4f}, overlap_pct "
-                       f"{o['overlap_pct']}; {first}: "
-                       f"{o['n_kernel_events']} kernels, "
-                       f"{o['kernel_ms']:.4f} ms on the card, covering "
-                       f"{o['kernel_hidden_ms']:.4f} ms of the exchange "
-                       f"({o['n_comm_events']} comm, "
-                       f"{o['n_compute_events']} compute events)"
-                       for r, o in enumerate(per)))
-            if not all(o["n_comm_events"] > 0 and o["n_compute_events"] > 0
-                       for o in per):
-                fail(f"measure_overlap found no exchange or no compute "
-                     f"({formulation}, overlap {overlap}): {per}")
+        per = [r[formulation] for r in reps["overlap"]]
+        say(10, f"profiling.measure_overlap of one decomposed {BENCH_N}^2 "
+               f"{formulation} step, {WORLD} ranks over gloo on {smi}: "
+               + "; ".join(
+                   f"rank {r}: comm_ms {o['comm_ms']:.4f}, compute_ms "
+                   f"{o['compute_ms']:.4f}, hidden_ms {o['hidden_ms']:.4f}, "
+                   f"overlap_pct {o['overlap_pct']}; the tile launch: "
+                   f"{o['n_kernel_events']} kernels, {o['kernel_ms']:.4f} "
+                   f"ms on the card, covering {o['kernel_hidden_ms']:.4f} "
+                   f"ms of the exchange ({o['n_comm_events']} comm, "
+                   f"{o['n_compute_events']} compute events)"
+                   for r, o in enumerate(per)))
+        if not all(o["n_comm_events"] > 0 and o["n_compute_events"] > 0
+                   for o in per):
+            fail(f"measure_overlap found no exchange or no compute "
+                 f"({formulation}): {per}")
 
     # --movie: host post-processing, on no device path
     try:
@@ -2221,7 +1874,7 @@ def series_phase(dev, smi):
                 lambda: E.energy_series_reference(model, state, h0),
                 SERIES_REPS)
             points = model.grid.Nx * model.grid.Ny
-            bound_ms = 20 * points / PEAK_BYTES_S * 1e3
+            bound_ms = least_time(20 * points, 0)[0]
             say(12, f"energy series {label} {formulation} f32 on {smi}: "
                    f"{launched} launch, max error {err:.3e} of the larger "
                    f"of each value and the median (limit "
@@ -2581,16 +2234,6 @@ def check_sweep_tiles(K, dev, smi):
                 and f64_err <= F64_BOUND):
             fail(f"{what} disagree with the plain tile version: G "
                  f"{g_err:.3e}, f32 state {s_err:.3e}, f64 {f64_err:.3e}")
-        # the overlap row's split on the same tile
-        split = [split_against_tile(K, m, cut_tile(K.stack(st), b, *halo),
-                                    BENCH_DT, halo)
-                 for m, st in cases]
-        say(13, f"{what}, tile {b}: the overlap split's launches vs the one "
-                f"tile launch (substages 0 and 1) f32 rel err "
-                f"{split[0][0]:.2e}, bitwise {split[0][1]}; f64 "
-                f"{split[1][0]:.2e}, bitwise {split[1][1]}")
-        if not (split[0][0] <= F32_BOUND and split[1][0] <= TILE_F64_BOUND):
-            fail(f"the split at {what} disagrees with the tile launch")
 
 
 def check_sweep(smi):
@@ -2599,22 +2242,14 @@ def check_sweep(smi):
     ranks (tile substages on 512² tiles)."""
     lines = module_run("swmhd_tpu_torch.scaling", SWEEP)
     out = json.loads(lines[-1])
-    rows = {(r["devices"], r["overlap"]): r for r in out["results"]}
+    rows = {r["devices"]: r for r in out["results"]}
     say(13, f"scaling {' '.join(SWEEP)} on {smi}: " + json.dumps(out))
-    # a 1x2 mesh of 512² tiles: 3 · 6 <= 512, so the overlap row takes
-    # the split, an interior and two bands a substage
-    subs = 3 * 10 * 7
-    want = {(1, False): {"substage": 0, "multistep": 7,
-                         "substage_by_part": {}},
-            (2, False): {"substage": subs, "multistep": 0,
-                         "substage_by_part": {"tile": subs}},
-            (2, True): {"substage": 3 * subs, "multistep": 0,
-                        "substage_by_part": {"interior": subs,
-                                             "band": 2 * subs}}}
+    # a 1x2 mesh of 512² tiles: a tile launch a substage
+    want = {1: {"substage": 0, "multistep": 7},
+            2: {"substage": 3 * 10 * 7, "multistep": 0}}
     ok = (sorted(rows) == sorted(want)
           and all(math.isfinite(r["points_per_s"]) and r["points_per_s"] > 0
-                  and r["launches"] == want[k] for k, r in rows.items())
-          and [rows[(2, o)]["split"] for o in (False, True)] == [False, True])
+                  and r["launches"] == want[k] for k, r in rows.items()))
     if not ok:
         fail(f"the scaling sweep gave {out}")
 
@@ -3097,19 +2732,16 @@ def main():
                 nbytes=4 * (4 * p.shape[1] * p.shape[2] + 8 * nx * ny),
                 points=nx * ny, per="substage", shape=(nx, ny))}
         del main_tiles, p, got, want, got64, want64
-    split_entries = split_phase(K, dev, smi)
-
     profile_substages(K, dev, smi)
 
     # 8 -------------------------------------------------------------------
     tile_launches = {}    # branch -> launches over all ranks of phase 8
-    part_launches = {}    # (branch, part) -> the split's launches there
     with tempfile.TemporaryDirectory() as tmp:
-        decomposed_bench(K, WORLD, tmp, smi, tile_launches, part_launches)
+        decomposed_bench(K, WORLD, tmp, smi, tile_launches)
         n_cards = torch.cuda.device_count()
         if n_cards >= 2:
             decomposed_bench(K, n_cards, os.path.join(tmp, "nccl"), smi,
-                             tile_launches, part_launches, backend="nccl")
+                             tile_launches, backend="nccl")
         else:
             say(8, f"NCCL not exercised: this machine has {n_cards} card; "
                    f"the {WORLD} ranks above shared it over gloo")
@@ -3177,28 +2809,6 @@ def main():
                 + json.dumps({k: v for k, v in kernels[-1].items()
                               if k not in ("name", "route", "source",
                                            "replaces", "library_ms")}))
-    for (b, part), t in sorted(split_entries.items()):
-        if (b, "substage") not in ops:
-            ops[(b, "substage")] = ops_per_point(K, b, "substage")
-        bound_ms, bound_by = least_time(t["nbytes"],
-                                        ops[(b, "substage")] * t["points"])
-        if not part_launches.get((b, part)):
-            fail(f"swmhd_substage {part} [{K.branch_label(b)}] was timed "
-                 f"but not launched on the decomposed main path")
-        kernels.append({
-            "name": f"swmhd_substage {part} [{K.branch_label(b)}]",
-            "route": "cuda", "source": SOURCES[CONS if b[0] else VI],
-            "replaces": TILE_REPLACES,
-            "launches": part_launches[(b, part)],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            **design(K, b, t["shape"])})
-        say("kernels", f"{kernels[-1]['name']} at {t['shape']} (a CUDA "
-            f"graph; {t['host_ms']:.4f} ms with the host's cost): "
-            + json.dumps({k: v for k, v in kernels[-1].items()
-                          if k not in ("name", "route", "source",
-                                       "replaces", "library_ms")}))
     kernels += tile_entries
     say("bounds", "float32 operations per point of the plain versions "
         "(substage 0 / RK3 step): " + "; ".join(

@@ -65,9 +65,10 @@ from .physics.coriolis import FPlane
 
 TARGET_FRACTION = 0.80  # of the binding roofline
 
-# Least device-memory traffic of one RK3 step: 3 substages x (read + write
-# the 4 prognostic fields) x 4 B.
-BYTES_PER_POINT = 96.0
+# Least device-memory traffic of one RK3 step in float32: 3 substages x
+# (read + write the 4 prognostic fields) x 4 B.
+BYTES_PER_POINT = float(profiling.MIN_FIELD_TRANSFERS_PER_STEP
+                        * torch.float32.itemsize)
 
 # Hand-derived least float32 operations a point of one RK3 step of this
 # scheme (WENO5-Z vector-invariant + jacobian Lorentz; the derivation

@@ -38,8 +38,6 @@ import sys
 
 import torch
 
-from .ops.energies import ENERGY_NAMES
-
 
 def _add_run_args(p):
     p.add_argument("scenario")
@@ -101,7 +99,8 @@ def cmd_list(_args):
 
 
 def energies(model, state, h0):
-    """The run's energy series, :data:`ENERGY_NAMES` of
+    """The run's energy series,
+    :data:`~swmhd_tpu_torch.ops.energies.ENERGY_NAMES` of
     :func:`~swmhd_tpu_torch.diagnostics.energy_report` (the JAX CLI keeps
     the same five of the report under ``jax.jit``, which never computes the
     rest): one launch of the kernel

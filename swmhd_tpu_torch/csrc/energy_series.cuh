@@ -16,7 +16,7 @@ constexpr int kSeriesThreads = 256;
 template <typename T>
 struct SeriesArgs {
   const T *h, *u, *v, *A, *h0;
-  T* out;            // the five values, in cli.ENERGY_NAMES' order
+  T* out;            // the five values, in ops.energies.ENERGY_NAMES' order
   double* scratch;   // 4 sums a block, then the ticket
   int nx, ny, rows;  // the grid; the rows of a block's band
   T dx, dy, half_g, gam_bg;

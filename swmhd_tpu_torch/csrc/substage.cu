@@ -73,12 +73,12 @@
 // exchange_halo, 6 (7 with a biharmonic closure).
 //
 // Given strides, a launch reads a slab of a padded tile and writes its
-// region of whole-tile buffers in place: the decomposition's overlap
-// split (parallel/decomposition.py split_substage) launches the interior
-// on the unpadded tile, whose own outer ring serves as its halo, then a
-// band on each exchanged edge, with no copy in or out. A point's
-// arithmetic does not depend on the region, so the split is bit for bit
-// the one launch on the padded tile.
+// region of whole-tile buffers in place (ops.substage.substage's out=
+// and at=): the interior on the unpadded tile, whose own outer ring
+// serves as its halo, and a band on each exchanged edge cover the tile
+// with no copy in or out. A point's arithmetic does not depend on the
+// region, so such launches are bit for bit the one launch on the padded
+// tile.
 //
 // Each entry point returns the error of its launch.
 

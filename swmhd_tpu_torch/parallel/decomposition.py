@@ -20,14 +20,14 @@ Two steppers, one contract (``step_fn(dt, n_steps, diagnostics)``):
   CUDA substage run on the exchanged tile. Needs periodic x; bounded y
   needs py == 1, so each tile holds whole rows.
 
-With ``overlap=True`` both split each substage as JAX's
+With ``overlap=True`` the plain step splits each substage as JAX's
 ``_local_tendencies_overlap`` does, where ``3 * halo <= min(nx, ny)``
 (:attr:`DomainDecomposition.split`; else the ordinary step): the
 exchange is posted, the interior is computed from the unpadded tile
 meanwhile, and the edge bands from slabs of the padded tile afterwards
-(:meth:`~DomainDecomposition.post_pad`, :func:`band_slabs`); the kernel
-step launches the tile kernel on each region in place
-(:meth:`~DomainDecomposition.split_substage`).
+(:meth:`~DomainDecomposition.post_pad`, :func:`band_slabs`). The kernel
+step takes no split, as JAX's ``fused_step_fn`` takes none: each of its
+substages is one exchange and one tile launch whatever ``overlap`` is.
 
 The TPU version's alignment rules (an 8-row halo, a y pad rounded up to
 128 lanes) do not carry over: a halo of ``model.exchange_halo`` suffices.
@@ -146,8 +146,9 @@ class DomainDecomposition:
 
     ``model`` is the global model (its grid the whole domain, its device
     this rank's). ``halo`` defaults to ``model.exchange_halo``.
-    ``overlap`` asks for the interior/edge-band split of each substage
-    (the module's docstring)."""
+    ``overlap`` asks for the interior/edge-band split of each substage of
+    the plain step; the kernel step takes none (the module's
+    docstring)."""
 
     def __init__(self, model, mesh: Optional[Mesh] = None,
                  halo: Optional[int] = None, overlap: bool = False):
@@ -181,9 +182,9 @@ class DomainDecomposition:
 
     @property
     def split(self) -> bool:
-        """Whether a substage takes the overlap split: ``overlap`` and
-        ``3 * halo <= min(nx, ny)`` (JAX's rule; a band reads 3·halo
-        rows), else it is the ordinary step."""
+        """Whether a substage of the plain step takes the overlap split:
+        ``overlap`` and ``3 * halo <= min(nx, ny)`` (JAX's rule; a band
+        reads 3·halo rows), else it is the ordinary step."""
         return self.overlap and 3 * self.halo <= min(self.nx, self.ny)
 
     # -- tiles ----------------------------------------------------------------
@@ -387,49 +388,20 @@ class DomainDecomposition:
         """Like :meth:`step_fn`, with each substage one halo exchange
         (:meth:`pad_for_kernel`) and one
         :func:`~swmhd_tpu_torch.ops.substage.substage` call on the padded
-        tile, or with :attr:`split` :meth:`split_substage`. G_prev stays on
-        the unpadded tile and is never exchanged. On CPU tensors the
-        substage takes its plain version."""
+        tile, whatever ``overlap`` is. G_prev stays on the unpadded tile
+        and is never exchanged. On CPU tensors the substage takes its
+        plain version."""
         halo = self.kernel_halo()
         model = self.model
 
         def one_step(state):
             s, g = K.stack(state), None
             for stage in range(3):
-                if self.split:
-                    s, g = self.split_substage(s, dt, stage, g)
-                else:
-                    s, g = K.substage(model, self.pad_for_kernel(s), dt,
-                                      stage, g, write_G=stage < 2, halo=halo)
+                s, g = K.substage(model, self.pad_for_kernel(s), dt, stage,
+                                  g, write_G=stage < 2, halo=halo)
             return K.unstack(s, state.clock)
         return run_steps(one_step, dt, n_steps,
                          self.tile_diagnostics(diagnostics))
-
-    def split_substage(self, s, dt, stage, g_prev=None):
-        """Substage ``stage`` of the kernel step as the overlap split, on
-        stacked tile fields ``s``: ``(s_new, G)``, G None in substage 2.
-
-        The exchange is posted (:meth:`post_pad`), the interior is one
-        launch on the unpadded tile with the kernel's halo (its own outer
-        ring read as the halo: the points that need nothing from a
-        neighbour), then each band of :func:`band_slabs` is one launch on
-        its slab of the padded tile; every launch reads its region of
-        G_prev and writes its region of the new state and G in place
-        (``substage(..., out=, at=)``). JAX's kernel step has no split:
-        the port carries it to the tile kernel because its sweep times
-        this step where JAX's timed the plain one, so the sweep's overlap
-        rows measure the split on the route they time."""
-        hx, hy = halo = self.kernel_halo()
-        write_G = stage < 2
-        finish = self.post_pad(s, hx, hy)
-        out = (torch.empty_like(s), torch.empty_like(s) if write_G else None)
-        K.substage(self.model, s, dt, stage, g_prev, write_G, halo=halo,
-                   out=out, at=halo)
-        p = finish()
-        for rows, cols, at in band_slabs(self.nx, self.ny, hx, hy):
-            K.substage(self.model, p[:, rows, cols], dt, stage, g_prev,
-                       write_G, halo=halo, out=out, at=at)
-        return out
 
     def fused_stepper(self):
         """A ``Simulation`` stepper driving :meth:`fused_step_fn`:

@@ -69,7 +69,7 @@ class StepBenchmark:
 
 # Least device-memory traffic of one RK3 step with each substage one pass:
 # 3 substages x (read 4 prognostic fields + write 4).
-_MIN_FIELD_TRANSFERS_PER_STEP = 24
+MIN_FIELD_TRANSFERS_PER_STEP = 24
 
 # Peak device-memory rate per card (GB/s), from NVIDIA's H100 datasheet,
 # keyed by torch.cuda.get_device_name() lower-cased without spaces; the
@@ -86,6 +86,14 @@ VPU_PEAK_GFLOPS = {
     "h10080gbhbm3": 67000.0, "h100sxm": 67000.0,
     "h100pcie": 51000.0,
     "h100nvl": 60000.0,
+}
+
+# Peak fp64 rate outside the tensor cores per card (GFLOP/s), same source
+# and keys: the float64 kernels' arithmetic.
+FP64_PEAK_GFLOPS = {
+    "h10080gbhbm3": 34000.0, "h100sxm": 34000.0,
+    "h100pcie": 26000.0,
+    "h100nvl": 30000.0,
 }
 
 
@@ -179,7 +187,7 @@ def benchmark_step(step_fn: Callable, state, n_steps_per_call: int,
     peak = detect_hbm_peak(state.h.device)
     if peak is not None:
         bpp = bytes_per_point or state.h.element_size()
-        traffic = (_MIN_FIELD_TRANSFERS_PER_STEP * grid_points * bpp
+        traffic = (MIN_FIELD_TRANSFERS_PER_STEP * grid_points * bpp
                    * steps_per_s)
         gbps = traffic / 1e9
         frac = gbps / peak

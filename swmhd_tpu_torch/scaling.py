@@ -9,9 +9,8 @@ For each rank count n of 1, 2, 4, 8, ... up to ``--max-ranks`` (default:
 the cards, ``torch.cuda.device_count()``, as the JAX sweep takes
 ``len(jax.devices())``; 1 on the CPU) it times the RK3 step of
 :func:`build_model` on the grid ``benchmarks/scaling.py`` gives n
-(:func:`grid_for`) and prints one JSON row, above one rank two, without
-and with ``DomainDecomposition(..., overlap=True)`` as the JAX sweep
-does, then, as its last line, ``{"mode", "device_kind", "results"}``. A process group has one size, so
+(:func:`grid_for`) and prints one JSON row, then, as its last line,
+``{"mode", "device_kind", "results"}``. A process group has one size, so
 where the JAX sweep loops over device counts in one process, each count
 here is a group of its own: ``python -m torch.distributed.run
 --nproc-per-node n -m swmhd_tpu_torch.scaling --worker ...``
@@ -29,23 +28,20 @@ step), more ranks through ``DomainDecomposition(...).fused_stepper()``
 (``swmhd_substage`` on halo-exchanged tiles). The JAX sweep timed XLA's
 step because it predates its fused decomposed path; on the card the
 plain step is a few hundred small PyTorch kernels a step and says nothing
-about how the kernels' path scales. So the overlap rows run the split on
-the tile kernel (``DomainDecomposition.split_substage``: the interior
-launched while the exchange is in flight, then a launch a band), where
-``3 * halo <= min(nx, ny)``, as in JAX; elsewhere the row with
-``overlap`` true steps as the other (its ``split`` says which).
+about how the kernels' path scales. The JAX sweep's rows with
+``overlap=True`` have no counterpart here: on the kernels' route a
+substage is one exchange and one tile launch, as in JAX's fused step,
+which takes no split.
 
-A row: ``devices`` (ranks), ``grid``, ``overlap``, ``points_per_s`` (the
-slowest rank's ``profiling.benchmark_step``, 3 calls of ``--steps``
-steps a repetition), ``efficiency`` (against the one-rank row: per rank
-for weak scaling, total / (base × n) for strong), ``launches`` (rank
-0's ``swmhd_substage`` and ``swmhd_multistep`` launches over the timed
-calls and their warm-up, and the ``substage`` launches by part,
-``ops.substage.region_part``), and above one rank ``split`` and
-``overlap_pct`` and ``comm_ms`` of rank 0's
-``profiling.measure_overlap`` of one call, traced in the worker: a
-process that traced before records no kernel events once another process
-has used the card.
+A row: ``devices`` (ranks), ``grid``, ``points_per_s`` (the slowest
+rank's ``profiling.benchmark_step``, 3 calls of ``--steps`` steps a
+repetition), ``efficiency`` (against the one-rank row: per rank for weak
+scaling, total / (base × n) for strong), ``launches`` (rank 0's
+``swmhd_substage`` and ``swmhd_multistep`` launches over the timed calls
+and their warm-up), and above one rank ``overlap_pct`` and ``comm_ms``
+of rank 0's ``profiling.measure_overlap`` of one call, traced in the
+worker: a process that traced before records no kernel events once
+another process has used the card.
 """
 
 from __future__ import annotations
@@ -108,38 +104,35 @@ def efficiency(mode, points_per_s, n, base):
             else points_per_s / (base * n))
 
 
-def worker(Nx, Ny, steps, device, out, overlap=False):
+def worker(Nx, Ny, steps, device, out):
     """One rank of a rank count (under ``torch.distributed.run``): times
-    its route (above one rank ``DomainDecomposition(..., overlap)``) and,
-    above one rank, measures the overlap; rank 0 writes
+    its route and, above one rank, measures the overlap; rank 0 writes
     ``{"points_per_s" (the slowest rank's), "launches" (rank 0's kernel
-    launches over the timed calls and their warm-up), "split",
-    "overlap_pct", "comm_ms", "device_kind"}`` to ``out``."""
+    launches over the timed calls and their warm-up), "overlap_pct",
+    "comm_ms", "device_kind"}`` to ``out``."""
     n = int(os.environ.get("WORLD_SIZE", "1"))
     if n > 1:
         dev = multihost.initialize(device)
     else:
         dev = torch.device(require_device(device))
     model, state = build_model(Nx, Ny, dev)
-    split = False
     if n == 1:
         step, st = K.KernelStepper(model).step_fn(DT, steps), state
     else:
-        dd = DomainDecomposition(model, overlap=overlap)
+        dd = DomainDecomposition(model)
         step = dd.fused_stepper().step_fn(DT, steps)
-        st, split = dd.shard_state(state), dd.split
+        st = dd.shard_state(state)
     K.reset_counters()
     b = profiling.benchmark_step(step, st, steps, n_calls=N_CALLS,
                                  grid_points=Nx * Ny)
     launches = {"substage": K.substage.launches,
-                "multistep": K.multistep.launches,
-                "substage_by_part": dict(K.substage.launches_by_part)}
+                "multistep": K.multistep.launches}
     ov = profiling.measure_overlap(step, st) if n > 1 else {}
     rates = multihost.all_gather(
         torch.tensor([b.points_per_s], dtype=torch.float64, device=dev))
     if multihost.rank() == 0:
         report = {"points_per_s": min(float(r) for r in rates),
-                  "launches": launches, "split": split,
+                  "launches": launches,
                   "overlap_pct": ov.get("overlap_pct"),
                   "comm_ms": ov.get("comm_ms"),
                   "device_kind": (torch.cuda.get_device_name(dev)
@@ -149,7 +142,7 @@ def worker(Nx, Ny, steps, device, out, overlap=False):
     multihost.shutdown()
 
 
-def run_ranks(n, Nx, Ny, steps, device, overlap=False, timeout=1800):
+def run_ranks(n, Nx, Ny, steps, device, timeout=1800):
     """The report of :func:`worker` on ``n`` ranks, one process each
     (``torch.distributed.run --standalone``), through
     ``multihost.run_checked``: the whole group is killed on a timeout, and
@@ -166,8 +159,7 @@ def run_ranks(n, Nx, Ny, steps, device, overlap=False, timeout=1800):
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                f"--nproc-per-node={n}", "-m", "--", "swmhd_tpu_torch.scaling",
                "--worker", "--grid", str(Nx), str(Ny), "--steps", str(steps),
-               "--device", device, "--out", out,
-               *(["--overlap"] if overlap else [])]
+               "--device", device, "--out", out]
         multihost.run_checked(cmd, env, timeout)
         with open(out) as f:
             return json.load(f)
@@ -188,11 +180,9 @@ def main(argv=None):
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--grid", type=int, nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
-    ap.add_argument("--overlap", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        return worker(*args.grid, args.steps, args.device, args.out,
-                      args.overlap)
+        return worker(*args.grid, args.steps, args.device, args.out)
     on_card = torch.device(require_device(args.device)).type == "cuda"
     max_ranks = args.max_ranks or (torch.cuda.device_count() if on_card
                                    else 1)
@@ -201,24 +191,22 @@ def main(argv=None):
         if n > max_ranks:
             break
         Nx, Ny = grid_for(args.mode, n, args.local, args.global_size)
-        for overlap in ((False, True) if n > 1 else (False,)):
-            rep = run_ranks(n, Nx, Ny, args.steps, args.device, overlap)
-            kind = rep["device_kind"]
-            if base is None:
-                base = rep["points_per_s"] / n
-            row = {"devices": n, "grid": [Nx, Ny], "overlap": overlap,
-                   "points_per_s": round(rep["points_per_s"], 1),
-                   "efficiency": round(efficiency(
-                       args.mode, rep["points_per_s"], n, base), 3),
-                   "launches": rep["launches"]}
-            if n > 1:
-                row["split"] = rep["split"]
-                row["overlap_pct"] = (None if rep["overlap_pct"] is None
-                                      else round(rep["overlap_pct"], 1))
-                row["comm_ms"] = (None if rep["comm_ms"] is None
-                                  else round(rep["comm_ms"], 2))
-            results.append(row)
-            print(json.dumps(row), flush=True)
+        rep = run_ranks(n, Nx, Ny, args.steps, args.device)
+        kind = rep["device_kind"]
+        if base is None:
+            base = rep["points_per_s"] / n
+        row = {"devices": n, "grid": [Nx, Ny],
+               "points_per_s": round(rep["points_per_s"], 1),
+               "efficiency": round(efficiency(
+                   args.mode, rep["points_per_s"], n, base), 3),
+               "launches": rep["launches"]}
+        if n > 1:
+            row["overlap_pct"] = (None if rep["overlap_pct"] is None
+                                  else round(rep["overlap_pct"], 1))
+            row["comm_ms"] = (None if rep["comm_ms"] is None
+                              else round(rep["comm_ms"], 2))
+        results.append(row)
+        print(json.dumps(row), flush=True)
     out = {"mode": args.mode, "device_kind": kind, "results": results}
     print(json.dumps(out), flush=True)
     return out

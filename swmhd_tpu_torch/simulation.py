@@ -84,19 +84,20 @@ def _to_host(d: Dict[str, torch.Tensor]) -> Dict[str, list]:
 
 
 class _Lane:
-    """Where the run-ahead loop's chunks run. On a CUDA card a side
-    stream: the current stream's reads of chunk n (the series copy, the
-    callbacks, a caller's snapshots) wait for chunk n alone, not for chunk
-    n+1 queued behind it; a chunk from a state the side stream did not
-    make (the run's first, or one from what callbacks left) starts after
-    the current stream's work so far. Each tensor made on one stream and
-    read on the other is recorded on the reader's, so that the caching
-    allocator hands its block out again only after the reads. On the CPU
-    a chunk runs at its launch."""
+    """Where the run's chunks run. Where chunks are queued ahead on a CUDA
+    card, a side stream: the current stream's reads of chunk n (the series
+    copy, the callbacks, a caller's snapshots) wait for chunk n alone, not
+    for chunk n+1 queued behind it; a chunk from a state the side stream
+    did not make (the run's first, or one from what callbacks left) starts
+    after the current stream's work so far. Each tensor made on one stream
+    and read on the other is recorded on the reader's, so that the caching
+    allocator hands its block out again only after the reads. Elsewhere
+    (the CPU, or a run that queues nothing ahead) a chunk runs at its
+    launch on the current stream."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, ahead: bool):
         self.main = self.side = None
-        if device.type == "cuda":
+        if ahead and device.type == "cuda":
             self.main = torch.cuda.current_stream(device)
             self.side = torch.cuda.Stream(device)
 
@@ -266,11 +267,11 @@ class Simulation:
         changes anything else a chunk reads (the model, a field's values
         behind its version counter) must also change one of these. On a
         card a discarded chunk is waited for before it is dropped. A
-        decomposed run launches each chunk after the previous
-        one's callbacks, so that every rank takes the same path and no
-        halo exchange overtakes a report's ``all_reduce``; so does a run
-        under ``torch.inference_mode``, whose tensors keep no version
-        counter.
+        decomposed run queues nothing: the same loop launches each chunk
+        after the previous one's callbacks, on the current stream, so
+        that every rank takes the same path and no halo exchange
+        overtakes a report's ``all_reduce``; so does a run under
+        ``torch.inference_mode``, whose tensors keep no version counter.
 
         The closing log line counts the run's graph captures and stepper
         builds, the chunks queued ahead and kept, and those discarded,
@@ -289,13 +290,9 @@ class Simulation:
 
         it = int(state.clock.iteration)
         t = float(state.clock.time)
-        series_writers = self._series_writers()
-        if (hasattr(self.stepper, "tile_diagnostics")
-                or torch.is_inference_mode_enabled()):
-            self._open(it, t, series_writers)
-            it = self._run_in_order(it, t, series_writers)
-        else:
-            it = self._run_ahead(it, t, series_writers)
+        ahead = not (hasattr(self.stepper, "tile_diagnostics")
+                     or torch.is_inference_mode_enabled())
+        it = self._run_chunks(it, t, self._series_writers(), ahead)
 
         if self.state.h.is_cuda:
             torch.cuda.synchronize(self.state.h.device)
@@ -344,27 +341,6 @@ class Simulation:
             for w in series_writers:
                 w.write_series(times, iters, series)
 
-    def _run_in_order(self, it, t, series_writers) -> int:
-        """Each chunk launched after the previous one's callbacks."""
-        while True:
-            n = self._chunk_steps(it, t)
-            if n == 0:
-                return it
-            with tracing.span("chunk"):
-                # the host's f64 time is exact; the chunk counts from it
-                self.state = self.state.replace(clock=Clock(t, it))
-                with tracing.span("step"):
-                    out = self._stepper(n)(self.state)
-                if series_writers:
-                    self.state, series = out
-                    self._write_rows(series_writers, it, t, self.dt, n,
-                                     _to_host(series))
-                else:
-                    self.state = out
-                it += n
-                t += n * self.dt
-                self._fire(it, t)
-
     def _launch(self, lane: _Lane, state: State, it: int, t: float,
                 ours: bool = False):
         """The chunk from ``state`` at ``(it, t)``, launched; None at the
@@ -412,16 +388,18 @@ class Simulation:
                 del self._steppers[queued.n]
         return self._launch(lane, self.state, it, t)
 
-    def _run_ahead(self, it, t, series_writers) -> int:
-        """One chunk queued ahead of the callbacks that precede it: the
-        run's first ahead of the run's opening, each next one ahead of the
-        previous chunk's rows and callbacks (:meth:`run`)."""
-        lane = _Lane(self.state.h.device)
+    def _run_chunks(self, it, t, series_writers, ahead: bool) -> int:
+        """The run's chunks; with ``ahead`` one queued ahead of the
+        callbacks that precede it: the run's first ahead of the run's
+        opening, each next one ahead of the previous chunk's rows and
+        callbacks (:meth:`run`). Without, each chunk is launched after
+        them."""
+        lane = _Lane(self.state.h.device, ahead)
         state = self.state
         queued = None
-        if not self._wizard_due(it, t, force=True):
+        if ahead and not self._wizard_due(it, t, force=True):
             queued = self._launch(lane, state, it, t)
-        versions = _versions(state)
+        versions = _versions(state) if ahead else None
         self._open(it, t, series_writers)
         chunk = self._settle(lane, queued, state, versions, it, t)
         while chunk is not None:
@@ -430,13 +408,14 @@ class Simulation:
                 state, series = chunk.output
                 it, t = chunk.end
                 queued = None
-                if not self._wizard_due(it, t):
+                if ahead and not self._wizard_due(it, t):
                     queued = self._launch(lane, state, it, t, ours=True)
                 self.state = state
                 if series_writers:
                     self._write_rows(series_writers, chunk.it, chunk.t,
                                      chunk.dt, chunk.n, _to_host(series))
-                versions = _versions(state)
+                # no version counter under inference mode
+                versions = _versions(state) if ahead else None
                 self._fire(it, t)
                 chunk = self._settle(lane, queued, state, versions, it, t)
         return it

@@ -25,7 +25,7 @@ import torch
 
 from swmhd_tpu_torch.ops import substage as K
 from swmhd_tpu_torch.ops.cons_tile import substage_tiles_reference
-from chip_smoke import CONS, OPTIONS, cut_tile, tile_layout
+from port_cases import CONS, OPTIONS, cut_tile, tile_layout
 from test_torch_vi_tile import (CARD_GRIDS, DT, H100, SHAPES, TOPOLOGIES,
                                 assert_close, jax_substage, pair, stacked)
 

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from swmhd_tpu_torch.ops.cons_tile import substage_tiles_reference
-from chip_smoke import CONS, cut_tile, tile_layout
+from port_cases import CONS, cut_tile, tile_layout
 from test_torch_cons_tile import CONS_OPTIONS
 from test_torch_vi_tile_host import (DT, TOPOLOGIES, assert_bitwise,
                                      build_host, model_and_state, run)

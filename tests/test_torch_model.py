@@ -26,7 +26,7 @@ import torch
 
 import swmhd_tpu
 import swmhd_tpu_torch
-from chip_smoke import OPTIONS, initial_fields, option_kwargs
+from port_cases import OPTIONS, initial_fields, option_kwargs
 from swmhd_tpu import scenarios as jscen
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, VECTOR_INVARIANT, CONSERVATIVE,
@@ -242,7 +242,7 @@ BRANCH_CASES = [(f, t, o) for f in (VECTOR_INVARIANT, CONSERVATIVE)
 def branch_pair(formulation, topology, options, N=32):
     """``(jax model, jax state, port model, port state)`` of
     tests/test_torch_substage.py's configuration (walled fields where
-    there are walls) with ``options``, an entry of chip_smoke.OPTIONS, or
+    there are walls) with ``options``, an entry of port_cases.OPTIONS, or
     none."""
     conservative = formulation == CONSERVATIVE
     gamma = -0.05 if "bounded" in topology else 0.0

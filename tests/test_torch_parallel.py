@@ -31,7 +31,7 @@ import torch
 import torch_dist_worker as W
 import swmhd_tpu
 import swmhd_tpu_torch
-from chip_smoke import (OPTIONS, bench_model, cut_tile, initial_fields,
+from port_cases import (OPTIONS, bench_model, cut_tile, initial_fields,
                         option_kwargs, split_against_tile, tile_layout)
 from swmhd_tpu import (Grid as JGrid, ShallowWaterModel as JModel,
                        FPlane as JFPlane, jacobian_lorentz_forcing as jforce,
@@ -68,7 +68,7 @@ def _free_port():
 
 def jax_case(formulation, topo, options=None):
     """The JAX twin of ``torch_dist_worker``'s ``case``, with ``options``
-    (an entry of chip_smoke.OPTIONS) as the worker runs them."""
+    (an entry of port_cases.OPTIONS) as the worker runs them."""
     g = JGrid.regular(W.N, W.N, (-5.0, 5.0), (-5.0, 5.0),
                       topology=W.TOPOLOGIES[topo], dtype=jnp.float64)
     gam = W.gamma(topo)
@@ -231,11 +231,13 @@ def test_biharmonic_decomposed_step_matches_jax(run, kind, formulation,
                          ids=[W.overlap_name(*c) for c in W.OVERLAP])
 def test_overlap_step_matches_jax_and_the_ordinary_step(
         run, kind, formulation, topo, options):
-    """Four ranks on a 2x2 mesh, the overlap split (the interior while
-    the exchange is in flight, then the edge bands): JAX's
-    ``DomainDecomposition(..., overlap=True).step_fn`` on four CPU devices
-    and the port's own step without the split, each within 1e-12 (the
-    same arithmetic at every point: bit for bit is what the CPU gives)."""
+    """Four ranks on a 2x2 mesh with ``overlap=True`` (the plain step's
+    split: the interior while the exchange is in flight, then the edge
+    bands; the kernel step takes none, one tile substage a substage, as
+    JAX's): JAX's ``DomainDecomposition(..., overlap=True)`` step of the
+    same kind on four CPU devices and the port's own step without
+    ``overlap``, each within 1e-12 (the same arithmetic at every point:
+    bit for bit is what the CPU gives)."""
     work, refs, _ = run
     got = work / (W.overlap_name(kind, formulation, topo, options) + ".npz")
     _, it = assert_state_close(got, refs[("overlap", formulation, topo,
@@ -511,9 +513,10 @@ def test_single_process_decomposition_steps_like_the_model():
 @pytest.mark.parametrize("topo", sorted(W.TOPOLOGIES))
 def test_single_process_split_steps_like_the_ordinary_step(formulation,
                                                           topo):
-    """A 1x1 mesh of a 24² grid (3 · 6 <= 24): the split pads by local
-    wraps or clamps, and both steppers (the kernel stepper where x is
-    periodic) give the ordinary step bit for bit."""
+    """A 1x1 mesh of a 24² grid (3 · 6 <= 24): the plain step's split
+    pads by local wraps or clamps, and both steppers with ``overlap``
+    (the kernel stepper, which takes no split, where x is periodic) give
+    the ordinary step bit for bit."""
     tm, st = bench_model(24, torch.float64, "cpu", formulation,
                          W.TOPOLOGIES[topo], W.gamma(topo), walls=True)
     a, b = DomainDecomposition(tm), DomainDecomposition(tm, overlap=True)
@@ -688,9 +691,9 @@ def test_tile_kernel_is_the_substage_kernel_on_a_tile(cuda, formulation,
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_split_launches_are_the_tile_launch(cuda, formulation, topo, mesh,
                                             options, dtype):
-    """On the card the overlap split's launches (the interior on the
-    unpadded tile, a band on each slab of the padded tile, each writing
-    its region in place) give G and the state of substages 0 and 1 bit
+    """On the card the region launches (the interior on the unpadded
+    tile, a band on each slab of the padded tile, each writing its region
+    in place) give G and the state of substages 0 and 1 bit
     for bit as the one tile launch does, on the last tile of ``mesh`` of
     a 128² grid at the model's halo (6; 7 with the biharmonic closure),
     with walls where the tile holds whole rows."""

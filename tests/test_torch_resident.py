@@ -11,7 +11,7 @@ same series, at 32² float64 to 1e-12.
 
 Tests marked ``cuda`` run on the card and skip without one: the resident
 kernel bit for bit against 3·n one-substage launches in every branch of
-chip_smoke's phase 3 and on a grid whose tiles do not divide evenly
+port_cases.branch_cases and on a grid whose tiles do not divide evenly
 among the blocks; the graph chunk bit for bit against the eager chunk,
 its rows at their steps, on both routes (resident at 128², one-substage
 launches at 2048²); a ``TimeStepWizard`` change of Δt recapturing; the
@@ -36,10 +36,11 @@ from swmhd_tpu_torch.convert import state_from_numpy
 from swmhd_tpu_torch.models.shallow_water import run_steps
 from swmhd_tpu_torch.models.state import Clock
 from swmhd_tpu_torch.ops import substage as K
+from swmhd_tpu_torch.ops.energies import ENERGY_NAMES
 from swmhd_tpu_torch.simulation import (Callback, IterationInterval,
                                         Simulation, TimeStepWizard)
 from swmhd_tpu_torch.io import ScalarSeriesWriter
-from chip_smoke import CONS, VI, bench_model, branch_cases, with_options
+from port_cases import CONS, VI, bench_model, branch_cases, with_options
 
 torch.set_num_threads(1)
 
@@ -93,7 +94,7 @@ def jax_energies(h0):
     """The JAX CLI's series: the five names of ``energy_report``."""
     def fn(model, state):
         rep = jdiag.energy_report(model, state, h0)
-        return {n: rep[n] for n in cli.ENERGY_NAMES}
+        return {n: rep[n] for n in ENERGY_NAMES}
     return fn
 
 
@@ -116,8 +117,8 @@ def test_cli_energies_match_jax_energy_report(formulation, topology):
     jh0, th0 = state_pair(seeded_arrays(32, 2))
     want = jax_energies(jh0.h)(jm, js)
     got = cli.energies(tm, ts, th0.h)
-    assert tuple(got) == cli.ENERGY_NAMES
-    for name in cli.ENERGY_NAMES:
+    assert tuple(got) == ENERGY_NAMES
+    for name in ENERGY_NAMES:
         assert float(got[name]) == pytest.approx(float(want[name]),
                                                  rel=1e-12, abs=1e-300), name
 
@@ -200,7 +201,7 @@ def test_kernel_stepper_chunk_matches_model_and_jax(formulation, topology):
         w = np.asarray(getattr(want, name))
         assert close(got.fields()[k], w, 1e-12), name
         assert close(got.fields()[k], plain.fields()[k].numpy(), 1e-12)
-    for name in cli.ENERGY_NAMES:
+    for name in ENERGY_NAMES:
         assert gs[name].shape == (n,)
         assert close(gs[name], np.asarray(ws[name]), 1e-12), name
         assert close(gs[name], ps[name].numpy(), 1e-12), name
@@ -239,7 +240,7 @@ def test_resident_matches_substage_launches_bitwise(cuda, cfg, options,
                                                     dtype):
     """Two steps through one resident launch equal six one-substage
     launches bit for bit, at 72² (ragged tiles), in each branch of
-    chip_smoke's phase 3, with wall-reaching fields."""
+    port_cases.branch_cases, with wall-reaching fields."""
     formulation, topology, gamma = cfg
     model, state = bench_model(72, dtype, cuda, formulation, topology,
                                gamma, walls=True)
@@ -300,7 +301,7 @@ def test_graph_chunk_matches_eager_chunk_bitwise(cuda, formulation, dtype):
     assert sorted(chunk.graphs) == [1, 3]
     for a, b, c in zip(got.fields(), want.fields(), got2.fields()):
         assert torch.equal(a, b) and torch.equal(c, b)
-    for name in cli.ENERGY_NAMES:
+    for name in ENERGY_NAMES:
         assert torch.equal(gs[name], ws[name]), name
         assert torch.equal(gs2[name], ws[name]), name
 

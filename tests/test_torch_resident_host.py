@@ -26,7 +26,7 @@ import torch
 
 from swmhd_tpu_torch.models.shallow_water import RK3_GAMMA, RK3_ZETA
 from swmhd_tpu_torch.ops import substage as K
-from chip_smoke import CONS, VI, wall_model, with_options
+from port_cases import CONS, VI, wall_model, with_options
 from test_torch_vi_tile_host import CSRC, SHIM, TOPOLOGIES, _gxx
 
 torch.set_num_threads(1)

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import torch_group_worker as G
-from chip_smoke import bench_model
+from port_cases import bench_model
 from swmhd_tpu_torch import (Callback, IterationInterval, Simulation,
                              TimeInterval, TimeStepWizard, cli, scenarios)
 from swmhd_tpu_torch.io import ScalarSeriesWriter

@@ -30,7 +30,8 @@ from swmhd_tpu_torch.parallel import multihost
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# points/s of each (rank count, overlap) handed to both sweeps
+# points/s of each (rank count, overlap) handed to both sweeps; the port's
+# sweep has no overlap rows and takes the rows without
 RATES = {(1, False): 1.25e9, (2, False): 2.1e9, (2, True): 1.9e9,
          (4, False): 3.7e9, (4, True): 3.3e9, (8, False): 6.1e9,
          (8, True): 5.0e9}
@@ -51,8 +52,8 @@ def jax_scaling(monkeypatch):
 
 
 def jax_rows(mod, mode, monkeypatch, capsys):
-    """The JAX sweep's rows over 8 devices at RATES, with and without
-    overlap above one device."""
+    """The JAX sweep's rows over 8 devices at RATES, without overlap (its
+    rows with overlap left out)."""
     monkeypatch.setattr(jax, "devices", lambda: [
         types.SimpleNamespace(device_kind="fake")] * 8)
     monkeypatch.setattr(
@@ -64,17 +65,16 @@ def jax_rows(mod, mode, monkeypatch, capsys):
                                       "512"])
     mod.main()
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    return out["results"]
+    return [r for r in out["results"] if not r["overlap"]]
 
 
 def port_rows(mode, monkeypatch, capsys):
     """The port's rows over 8 ranks with each rank count's run stubbed
     at RATES."""
     monkeypatch.setattr(
-        scaling, "run_ranks", lambda n, Nx, Ny, steps, device, overlap: {
-            "points_per_s": RATES[(n, overlap)], "launches": {},
-            "split": overlap, "overlap_pct": None,
-            "comm_ms": None, "device_kind": "fake"})
+        scaling, "run_ranks", lambda n, Nx, Ny, steps, device: {
+            "points_per_s": RATES[(n, False)], "launches": {},
+            "overlap_pct": None, "comm_ms": None, "device_kind": "fake"})
     out = scaling.main(["--mode", mode, "--local", "64", "--global-size",
                         "512", "--max-ranks", "8", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
@@ -85,25 +85,20 @@ def port_rows(mode, monkeypatch, capsys):
 
 @pytest.mark.parametrize("mode", ["weak", "strong"])
 def test_rows_match_the_jax_sweep(mode, jax_scaling, monkeypatch, capsys):
-    """For n = 1, 2, 4, 8, above one without and with overlap: the same
-    rows, grid, points/s and efficiency as ``benchmarks/scaling.py:93-111``
-    at the same rates; every row carries its launches, and above one rank
-    its split, overlap share and exchange time."""
+    """For n = 1, 2, 4, 8: the same rows, grid, points/s and efficiency as
+    ``benchmarks/scaling.py:93-111``'s rows without overlap at the same
+    rates; every row carries its launches, and above one rank its overlap
+    share and exchange time."""
     want = jax_rows(jax_scaling, mode, monkeypatch, capsys)
     got = port_rows(mode, monkeypatch, capsys)
-    assert [(r["devices"], r["overlap"]) for r in got] == [
-        (1, False), (2, False), (2, True), (4, False), (4, True),
-        (8, False), (8, True)]
+    assert [r["devices"] for r in got] == [1, 2, 4, 8]
     assert len(got) == len(want)
     for r in got:
-        assert "launches" in r
-        assert ({"split", "overlap_pct", "comm_ms"} <= set(r)) == (
-            r["devices"] > 1)
+        assert "launches" in r and "overlap" not in r
+        assert ({"overlap_pct", "comm_ms"} <= set(r)) == (r["devices"] > 1)
+    keys = ("devices", "grid", "points_per_s", "efficiency")
     for g, w in zip(got, want):
-        assert {k: g[k] for k in ("devices", "grid", "overlap",
-                                  "points_per_s", "efficiency")} == {
-            k: w[k] for k in ("devices", "grid", "overlap", "points_per_s",
-                              "efficiency")}
+        assert {k: g[k] for k in keys} == {k: w[k] for k in keys}
 
 
 @pytest.mark.parametrize("n,weak", [(1, (64, 64)), (2, (64, 128)),
@@ -140,21 +135,7 @@ def test_two_rank_worker_on_cpu():
     overlap of a traced call."""
     rep = scaling.run_ranks(2, 16, 32, 2, "cpu")
     assert rep["device_kind"] == "cpu"
-    assert rep["launches"] == {"substage": 0, "multistep": 0,
-                               "substage_by_part": {}}
-    assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
-    assert rep["comm_ms"] > 0
-    assert 0.0 <= rep["overlap_pct"] <= 100.0
-
-
-def test_two_rank_worker_with_the_split_on_cpu():
-    """Two ranks on 24² tiles (a 1×2 mesh, 3 · 6 <= 24) with overlap: the
-    split is taken (its launches are plain calls here), and rank 0's
-    traced call has exchange events."""
-    rep = scaling.run_ranks(2, 24, 48, 2, "cpu", overlap=True)
-    assert rep["split"] is True
-    assert rep["launches"] == {"substage": 0, "multistep": 0,
-                               "substage_by_part": {}}
+    assert rep["launches"] == {"substage": 0, "multistep": 0}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["comm_ms"] > 0
     assert 0.0 <= rep["overlap_pct"] <= 100.0
@@ -165,8 +146,7 @@ def test_one_rank_worker_on_cpu():
     never holds the card: the plain step, no overlap measured."""
     rep = scaling.run_ranks(1, 16, 16, 2, "cpu")
     assert rep["device_kind"] == "cpu"
-    assert rep["launches"] == {"substage": 0, "multistep": 0,
-                               "substage_by_part": {}}
+    assert rep["launches"] == {"substage": 0, "multistep": 0}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["overlap_pct"] is None and rep["comm_ms"] is None
 
@@ -214,18 +194,12 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("overlap", [False, True])
-def test_two_ranks_share_the_card(overlap):
+def test_two_ranks_share_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    rep = scaling.run_ranks(2, 64, 128, 5, "cuda", overlap)
+    rep = scaling.run_ranks(2, 64, 128, 5, "cuda")
     assert rep["device_kind"] == torch.cuda.get_device_name(0)
-    # rank 0's tile substages: 3 a step, 5 steps a call, 7 calls; with
-    # the split (64² tiles of a 1×2 mesh) an interior and two bands each
-    parts = ({"interior": 105, "band": 210} if overlap
-             else {"tile": 105})
-    assert rep["split"] == overlap
-    assert rep["launches"] == {"substage": sum(parts.values()),
-                               "multistep": 0, "substage_by_part": parts}
+    # rank 0's tile substages: 3 a step, 5 steps a call, 7 calls
+    assert rep["launches"] == {"substage": 105, "multistep": 0}
     assert math.isfinite(rep["points_per_s"]) and rep["points_per_s"] > 0
     assert rep["comm_ms"] > 0

@@ -26,7 +26,7 @@ import torch
 from swmhd_tpu_torch.models.shallow_water import RK3_GAMMA, RK3_ZETA
 from swmhd_tpu_torch.ops import substage as K
 from swmhd_tpu_torch.parallel.decomposition import band_slabs
-from chip_smoke import CONS, VI, cut_tile, tile_layout
+from port_cases import CONS, VI, cut_tile, tile_layout
 from test_torch_vi_tile_host import (DT, assert_bitwise, build_host,
                                      compile_host, model_and_state, run)
 

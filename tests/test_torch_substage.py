@@ -32,7 +32,7 @@ from swmhd_tpu_torch import (Grid as TGrid, ShallowWaterModel as TModel,
 from swmhd_tpu_torch.convert import state_from_numpy
 import swmhd_tpu_torch
 from swmhd_tpu_torch.ops import substage as K
-from chip_smoke import OPTIONS, initial_fields, option_kwargs, stable_nu
+from port_cases import OPTIONS, initial_fields, option_kwargs, stable_nu
 
 torch.set_num_threads(1)
 
@@ -42,7 +42,7 @@ FIELDS = ("h", "u", "v", "A")
 
 def ic(xp, walls=False):
     """Vortex, height bump, Gaussian dipole; with ``walls``, plus
-    chip_smoke's smooth wall-reaching terms, so a wall-bounded run has
+    port_cases' smooth wall-reaching terms, so a wall-bounded run has
     structure next to its walls."""
     return initial_fields(xp, h_bump=0.05, walls=walls)
 
@@ -61,7 +61,7 @@ def jax_pair(N=32, formulation="vector_invariant",
              nu=0.0):
     """The same model and initial state in both packages (the vortex is
     the transport in the conservative formulation), with ``options`` (an
-    entry of chip_smoke.OPTIONS; closures of viscosity ``nu``)."""
+    entry of port_cases.OPTIONS; closures of viscosity ``nu``)."""
     conservative = formulation == "conservative"
     g = JGrid.regular(N, N, (-L / 2, L / 2), (-L / 2, L / 2),
                       topology=topology, dtype=jnp.float64)

@@ -38,7 +38,7 @@ from swmhd_tpu_torch.models.shallow_water import RK3_GAMMA
 from swmhd_tpu_torch.ops import substage as K
 from swmhd_tpu_torch.ops import cons_tile
 from swmhd_tpu_torch.ops.vi_tile import substage_tiles_reference
-from chip_smoke import (CONS, VI, cut_tile, initial_fields, option_kwargs,
+from port_cases import (CONS, VI, cut_tile, initial_fields, option_kwargs,
                         stable_nu, tile_layout)
 
 torch.set_num_threads(1)
@@ -57,7 +57,7 @@ def pair(NX, NY, topology, options=None, dtype=torch.float64,
     """The same model of ``formulation`` (vector-invariant by default) in
     both packages, each with its formulation's Lorentz forcing (A
     background gradient -0.05 where an axis is bounded), on the square of
-    side ``extent`` and one state: chip_smoke's wall-reaching fields plus
+    side ``extent`` and one state: port_cases' wall-reaching fields plus
     seeded numpy noise of 1e-3, as numpy."""
     gamma = -0.05 if "bounded" in topology else 0.0
     conservative = formulation == CONS

@@ -28,7 +28,7 @@ import torch
 from swmhd_tpu_torch.models.shallow_water import RK3_GAMMA, RK3_ZETA
 from swmhd_tpu_torch.ops import substage as K
 from swmhd_tpu_torch.ops.vi_tile import substage_tiles_reference
-from chip_smoke import (OPTIONS, VI, cut_tile, tile_layout, wall_model,
+from port_cases import (OPTIONS, VI, cut_tile, tile_layout, wall_model,
                         with_options)
 
 torch.set_num_threads(1)

@@ -31,9 +31,10 @@ FUSED = [(f, "PP", (2, 2)) for f in FORMULATIONS] + [
 BIHARMONIC = [("vector_invariant", "PP", (2, 2)),
               ("conservative", "PB", (4, 1))]
 BIHARMONIC_NU = 5e-4       # ν·dt/dx⁴ ≈ 0.004 at 64²
-# (kind, formulation, topology key, options) of the overlap split on a 2x2
-# mesh (32² tiles: 3·halo <= 32 at halo 6 and 7): the plain step ("plain")
-# and the kernel stepper ("fused", its plain tile version here)
+# (kind, formulation, topology key, options) of overlap=True on a 2x2 mesh
+# (32² tiles: 3·halo <= 32 at halo 6 and 7): the plain step ("plain"),
+# which takes the split, and the kernel stepper ("fused", its plain tile
+# version here), which takes none
 OVERLAP = [("plain", "vector_invariant", "PP", None),
            ("plain", "vector_invariant", "PB", None),
            ("plain", "vector_invariant", "BB", None),
@@ -75,7 +76,7 @@ def main():
     import torch
     torch.set_num_threads(1)
     import swmhd_tpu_torch
-    from chip_smoke import bench_model, option_kwargs
+    from port_cases import bench_model, option_kwargs
     from swmhd_tpu_torch import checkpoint, diagnostics, scenarios
     from swmhd_tpu_torch.convert import state_from_numpy, state_to_numpy
     from swmhd_tpu_torch.io import FieldWriter, ScalarSeriesWriter
@@ -179,8 +180,8 @@ def main():
             save(name(f"biharmonic_{kind}", formulation, topo, mesh),
                  dd.gather_state(out))
 
-    # -- the overlap split (2x2 mesh) beside the ordinary step; on a 4x1
-    # mesh (16-row tiles, 3·6 > 16) the rule refuses it
+    # -- overlap=True (2x2 mesh) beside the ordinary step; on a 4x1 mesh
+    # (16-row tiles, 3·6 > 16) the rule refuses the split
     for kind, formulation, topo, options in OVERLAP:
         model, state = case(formulation, topo)
         if options:
@@ -194,9 +195,9 @@ def main():
             K.reset_counters()
             out = fn(DT, STEPS)(dd.shard_state(state))
             if kind == "fused":
-                # a substage: the interior and four bands, or one launch
-                assert K.substage_reference.calls == (
-                    (5 if overlap else 1) * 3 * STEPS), \
+                # the kernel step takes no split: a substage is one tile
+                # substage either way
+                assert K.substage_reference.calls == 3 * STEPS, \
                     K.substage_reference.calls
             save(overlap_name(kind, formulation, topo, options, overlap),
                  dd.gather_state(out))

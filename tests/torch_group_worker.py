@@ -145,13 +145,13 @@ def main():
             np.savez(os.path.join(workdir, "wizard.npz"),
                      **state_to_numpy(final))
     elif task == "overlap":
-        from chip_smoke import bench_model
+        from port_cases import bench_model
         model, state = bench_model(OVERLAP_N, torch.float64, "cpu")
         dd = DomainDecomposition(model, make_mesh(shape=(world, 1)))
         report = profiling.measure_overlap(
             dd.fused_step_fn(OVERLAP_DT, 1), dd.shard_state(state))
     elif task == "order":
-        from chip_smoke import bench_model
+        from port_cases import bench_model
         from swmhd_tpu_torch.io import ScalarSeriesWriter
         from swmhd_tpu_torch.simulation import (
             Callback, IterationInterval, Simulation, progress_callback)
